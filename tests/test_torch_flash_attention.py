@@ -198,15 +198,24 @@ def test_ctypes_signature_matches_the_c_entry_point():
 
 
 def test_port_imports_no_jax():
-    """No module of tfde_tpu_torch, and not chip_smoke.py, imports jax, flax
-    or tfde_tpu — the machine with the card has none of them."""
+    """No module of tfde_tpu_torch (the training slice's included), and not
+    chip_smoke.py, imports jax, flax, optax or tfde_tpu — the machine with
+    the card has none of them."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _dirs, names in os.walk(os.path.join(ROOT,
                                                       "tfde_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
     assert len(files) > 10
-    banned = ("jax", "flax", "tfde_tpu")
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    for module in ("tfde_tpu_torch/gpt_lm.py",
+                   "tfde_tpu_torch/training/step.py",
+                   "tfde_tpu_torch/training/optimizers.py",
+                   "tfde_tpu_torch/training/train_state.py",
+                   "tfde_tpu_torch/data/datasets.py",
+                   "tfde_tpu_torch/ops/losses.py"):
+        assert module in rel
+    banned = ("jax", "flax", "optax", "tfde_tpu")
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -37,16 +37,11 @@
 // path for the tiles below the diagonal — it reaches about a quarter of
 // SDPA's speed on the card (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"  // tiles, band, score, mma.sync/ldmatrix/cp.async
 
 namespace {
 
-constexpr int BM = 64;         // query rows per block
-constexpr int BN = 64;         // key columns per K tile
-constexpr float NEG = -1e30f;  // the TPU kernel's mask value
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -62,33 +57,6 @@ struct Params {
   int causal, window;
   float scale, cap;
 };
-
-// The in-band K tiles of q-tile q0: _tile_in_band(qt, kb) as loop bounds.
-__device__ __forceinline__ void band(const Params& p, int q0, int& kb_begin,
-                                     int& kb_end) {
-  kb_begin = 0;
-  kb_end = (p.S + BN - 1) / BN;
-  if (p.causal) {
-    kb_end = min(kb_end, (q0 + BM - 1) / BN + 1);
-    if (p.window > 0) {
-      const int lo = q0 - (p.window - 1);  // oldest column row q0 sees
-      kb_begin = lo > 0 ? lo / BN : 0;
-    }
-  }
-}
-
-// One score: scale, tanh cap, then the causal/window/ragged-edge mask.
-__device__ __forceinline__ float score(float dot, int row, int col,
-                                       const Params& p) {
-  float z = dot * p.scale;
-  if (p.cap > 0.f) z = p.cap * tanhf(z / p.cap);
-  bool keep = col < p.S;
-  if (p.causal) {
-    keep = keep && row >= col;
-    if (p.window > 0) keep = keep && (row - col < p.window);
-  }
-  return keep ? z : NEG;
-}
 
 // ---------------------------------------------------------------- fp32 --
 // 256 threads. Thread (ty, tx) = (tid / 16, tid % 16) owns query rows
@@ -238,13 +206,10 @@ flash_fwd_fp32_kernel(const Params p) {
 
 // ---------------------------------------------------------------- bf16 --
 // 128 threads = 4 warps; warp w owns query rows 16w .. 16w+15 of the tile.
-// mma.sync m16n8k16 fragment layout (g = lane / 4, c = 2 * (lane % 4)):
-// A (16x16, row-major)  a0 = A[g][c..c+1]   a1 = A[g+8][c..c+1]
-//                       a2 = A[g][c+8..c+9] a3 = A[g+8][c+8..c+9]
-// B (16x8, "col")       b0 = B[c..c+1][g]   b1 = B[c+8..c+9][g]
-// C (16x8, fp32)        c0,c1 = C[g][c..c+1]  c2,c3 = C[g+8][c..c+1]
-// so a thread holds score rows g and g+8, and two adjacent 8-column score
-// tiles form the A fragment of the P V product without leaving registers.
+// With the mma.sync fragment layout of flash_common.cuh (g = lane / 4,
+// c = 2 * (lane % 4)) a thread holds score rows g and g+8, and two
+// adjacent 8-column score tiles form the A fragment of the P V product
+// without leaving registers (`mma_cb`).
 // K and V are staged row-major by cp.async into two stages, so the copy of
 // the next K/V tile runs while this one is computed. For Q K^T,
 // B[k][n] = K[n][k] is a contiguous pair of a K row; for P V,
@@ -257,49 +222,6 @@ constexpr size_t bf16_smem_bytes() {
   // the 8 rows one fragment load or ldmatrix touches fall in distinct
   // banks and every row stays 16-byte aligned
   return sizeof(__nv_bfloat16) * (size_t)(BM + 4 * BN) * (D + 8);
-}
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// four 8x8 bf16 matrices, transposed: lanes 0-7, 8-15, 16-23, 24-31 give
-// the row addresses of matrices 0-3; register i holds matrix i's
-// (row 2*(lane%4) .. +1, col lane/4) pair
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const __nv_bfloat16* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// two floats -> one register of two bf16 (round to nearest even), the
-// lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int D>
@@ -337,7 +259,7 @@ flash_fwd_bf16_kernel(const Params p) {
       cp_async16(ks + r * KP + ch * 8, kg + row * p.k_ss + ch * 8, ok);
       cp_async16(vs + r * KP + ch * 8, vg + row * p.v_ss + ch * 8, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
   if (kb_begin < kb_end) load_tile(kb_begin, 0);
 
@@ -371,9 +293,9 @@ flash_fwd_bf16_kernel(const Params p) {
     // finished reading (the __syncthreads at the end of the loop)
     if (kb + 1 < kb_end) {
       load_tile(kb + 1, stage ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait<0>();
     }
     __syncthreads();
     const __nv_bfloat16* ks = KV + 2 * stage * BN * KP;
@@ -438,22 +360,7 @@ flash_fwd_bf16_kernel(const Params p) {
     // O += P V: P (rounded to bf16, as the TPU kernel casts p to v's
     // dtype) straight from the score registers; V fragments for two
     // 8-dim output tiles per ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int t2 = 0; t2 < D / 16; ++t2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, vs + (kk * 16 + (lane & 15)) * KP + t2 * 16 + (lane >> 4) * 8);
-        mma_16816(o[2 * t2], pa, vb[0], vb[1]);
-        mma_16816(o[2 * t2 + 1], pa, vb[2], vb[3]);
-      }
-    }
+    mma_cb<D>(o, s, vs, KP, lane);
     __syncthreads();  // this stage is free for the copy after next
   }
 
@@ -474,16 +381,7 @@ flash_fwd_bf16_kernel(const Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, const Params& p,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BM - 1) / BM, p.H, p.B);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
+dim3 fwd_grid(const Params& p) { return dim3((p.S + BM - 1) / BM, p.H, p.B); }
 
 }  // namespace
 
@@ -513,16 +411,16 @@ extern "C" int tfde_flash_fwd(
   if (H <= 0 || KV <= 0 || H % KV != 0 || B <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    return (int)launch(flash_fwd_fp32_kernel<64>, F_THREADS,
+    return (int)launch(flash_fwd_fp32_kernel<64>, fwd_grid(p), F_THREADS,
                        fp32_smem_bytes<64>(), p, st);
   if (dtype == 0 && D == 128)
-    return (int)launch(flash_fwd_fp32_kernel<128>, F_THREADS,
+    return (int)launch(flash_fwd_fp32_kernel<128>, fwd_grid(p), F_THREADS,
                        fp32_smem_bytes<128>(), p, st);
   if (dtype == 1 && D == 64)
-    return (int)launch(flash_fwd_bf16_kernel<64>, M_THREADS,
+    return (int)launch(flash_fwd_bf16_kernel<64>, fwd_grid(p), M_THREADS,
                        bf16_smem_bytes<64>(), p, st);
   if (dtype == 1 && D == 128)
-    return (int)launch(flash_fwd_bf16_kernel<128>, M_THREADS,
+    return (int)launch(flash_fwd_bf16_kernel<128>, fwd_grid(p), M_THREADS,
                        bf16_smem_bytes<128>(), p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,8 @@
 Ported: the GPT-2 arrangement — token embedding `wte`, learned position
 table `wpe` (positions continue per row from the cache index), pre-LN
 blocks, final LayerNorm, and the tied head `x @ wte.T` computed in the
-compute dtype with fp32 logits (flax `Embed.attend`). Every other field
+compute dtype with fp32 logits (flax `Embed.attend`) — and the training
+objective `next_token_loss`. Every other field
 of the JAX `GPT` raises NotImplementedError when set away from its
 default (`_UNPORTED`), so a configuration the port does not implement is
 never served as a different model.
@@ -12,12 +13,14 @@ never served as a different model.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tfde_tpu_torch.models.transformer import Dense, Encoder, LayerNorm
+from tfde_tpu_torch.ops.losses import masked_lm_loss
 from tfde_tpu_torch.utils.devices import resolve_device
 
 #: JAX `GPT` fields outside this slice, with the default the port implements
@@ -107,8 +110,9 @@ class GPT(nn.Module):
     @torch.no_grad()
     def cast_compute_weights_(self) -> "GPT":
         """Cast the matmul weights and embeddings to the compute dtype
-        once, in place. Every forward casts them to that dtype anyway, so
-        the values are the same; the LayerNorms stay fp32."""
+        once, in place, for serving. Every forward casts them to that dtype
+        anyway, so the values are the same; the LayerNorms stay fp32.
+        Training keeps the fp32 master weights and never calls this."""
         for mod in self.modules():
             if isinstance(mod, (Dense, nn.Embedding)):
                 for p in mod.parameters(recurse=False):
@@ -155,3 +159,17 @@ def gpt_tiny_test(**kw) -> GPT:
     """The JAX package's CI config (vocab 97, width 32, 2 layers, fp32)."""
     return GPT(vocab_size=97, hidden_size=32, depth=2, num_heads=4,
                mlp_dim=64, max_position=64, dtype=torch.float32, **kw)
+
+
+def next_token_loss(model: GPT, batch, generator: Optional[torch.Generator]
+                    = None):
+    """(loss, {"next_token_accuracy": acc}) for `make_custom_train_step`:
+    the CE of logits[:, :-1] against tokens[:, 1:] (predict token t+1 from
+    the prefix up to t). `batch` is the [B, S] token ids or a 1-tuple of
+    them. The model has no dropout, so `generator` draws nothing; the
+    JAX package's MoE sown losses have no counterpart (experts raise at
+    construction)."""
+    (tokens,) = batch if isinstance(batch, tuple) else (batch,)
+    logits = model(tokens)
+    loss, acc = masked_lm_loss(logits[:, :-1], tokens[:, 1:])
+    return loss, {"next_token_accuracy": acc}

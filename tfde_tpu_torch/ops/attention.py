@@ -7,8 +7,9 @@ Two implementations behind one dispatcher:
   Scores accumulate in fp32 from the inputs' values, the softmax runs in
   fp32, the weights are cast to v's dtype before the second product — the
   JAX package's `preferred_element_type=float32` arithmetic.
-- ``flash``: the hand-written CUDA forward (ops/flash_attention.py) on a
-  CUDA tensor, its plain version on a CPU tensor.
+- ``flash``: the hand-written CUDA kernels (ops/flash_attention.py) on a
+  CUDA tensor, their plain versions on a CPU tensor; differentiable, its
+  gradient being the CUDA backward pair.
 
 ``auto`` picks flash for unmasked causal attention on a CUDA tensor, and
 the reference einsum otherwise; the kernel's wrapper owns every shape and
@@ -115,9 +116,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     impl: 'auto' | 'reference' | 'flash'. 'auto' takes flash for unmasked
     causal attention on a CUDA tensor, else the reference einsum; flash
-    raises on shapes the kernel does not take (cross-attention, a head dim
-    other than 64 or 128). 'ring' (sequence parallelism) is not ported
-    yet."""
+    raises on shapes the kernels do not take (cross-attention, a head dim
+    other than 64 or 128). Both are differentiable: flash through the
+    kernels' autograd Function (forward kernel, then the backward pair).
+    'ring' (sequence parallelism) is not ported yet."""
     if impl == "auto":
         impl = "flash" if _flash_eligible(q, mask, causal) else "reference"
     if impl == "reference":

@@ -2,8 +2,9 @@
 
 Each kernel library is one `csrc/*.cu` file with a plain C interface,
 compiled at first use into `build/kernels/` beside the package (listed in
-`.gitignore`) and named by a hash of its source and flags, so an edited
-source never loads a stale binary. Nothing here falls back: a missing
+`.gitignore`) and named by a hash of its source, of every local header it
+includes (`#include "..."`, followed transitively) and of the flags, so an
+edited source or header never loads a stale binary. Nothing here falls back: a missing
 `nvcc`, a failed compile or a failed load raises.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,14 +52,33 @@ class KernelLibrary:
         self.log = log
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_digest(path: str) -> str:
+    """sha256 over the source at `path`, every local header it includes
+    (resolved beside the including file, each once) and the nvcc flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [os.path.abspath(path)]
+    while todo:
+        cur = todo.pop(0)
+        if cur in seen:
+            continue
+        seen.add(cur)
+        with open(cur, "rb") as f:
+            text = f.read()
+        digest.update(os.path.basename(cur).encode() + b"\0" + text)
+        todo += [os.path.join(os.path.dirname(cur), inc.decode())
+                 for inc in _LOCAL_INCLUDE.findall(text)]
+    return digest.hexdigest()
+
+
 def build_library(source: str, force: bool = False) -> KernelLibrary:
     """Compile `csrc/<source>` into `build/kernels/` (unless an identical
     build exists and `force` is false) and load it."""
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
-    out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"{stem}-{source_digest(src)[:16]}.so")
     seconds, log = 0.0, ""
     if force or not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
