@@ -9,12 +9,15 @@ without printing a result:
 1. device — the card's name and power limit from nvidia-smi;
 2. build  — compile every kernel source of the serving and training paths
    (tfde_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu) with nvcc (sm_90a),
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; count each bf16 kernel's
+   wgmma (HGMMA) and TMA (UTMALDG) instructions in `cuobjdump -sass` (the
+   forward and the dK/dV kernel must have both), and time one tensor-map
+   encode on the host;
 3. kernels — each kernel against its plain PyTorch version on the card,
    over the slice shape and the option matrix (the forward's out and lse;
    the backward pair's dq, dk and dv), then its time beside the plain
    version's, the library call's (SDPA's forward, SDPA's backward; timing
-   only) and the bound;
+   only) and the bound; then the forward and dK/dV at D 128;
 4. parity — a small fp32 GPT with head_dim 64: logits of the CUDA model
    (flash prefill) against the same weights on the CPU (plain attention),
    and the CUDA batcher's greedy tokens against CPU `generate`;
@@ -37,6 +40,9 @@ without printing a result:
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
+`--phases kernels,train` (any subset of the phases after the build) runs
+only those, prints no result line and exits 1: the parent/change A/B of
+kernel and train times.
 """
 
 from __future__ import annotations
@@ -171,8 +177,57 @@ def phase_build(fa):
               f"{lib.seconds:.2f} s")
         for line in lib.log.splitlines():
             if ("Compiling entry" in line or "registers" in line
-                    or "spill" in line):
+                    or "spill" in line or "arning" in line
+                    or "Performance" in line):
                 print(f"  ptxas: {line.strip()}")
+    _check_sass(libs)
+    _print_encode_time(fa)
+
+
+#: the kernels redesigned for Hopper: each must have compiled to wgmma
+#: (HGMMA) and TMA loads (UTMALDG)
+HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "dkv_bf16_kernel")
+
+
+def _check_sass(libs):
+    """Count HGMMA and UTMALDG instructions of each bf16 kernel in
+    `cuobjdump -sass` of the built libraries; raise if a redesigned kernel
+    has none of either."""
+    from tfde_tpu_torch.utils.build import sass_counts
+
+    seen = set()
+    for lib in libs.values():
+        for symbol, counts in sass_counts(
+                lib.path, ("HGMMA", "UTMALDG", "STL", "LDL")).items():
+            name = next((k for k in HOPPER_KERNELS + ("dq_bf16_kernel",)
+                         if k in symbol), None)
+            if name is None:
+                continue
+            d = 128 if "ILi128E" in symbol else 64
+            print(f"sass: {name}<{d}>: HGMMA {counts['HGMMA']}, UTMALDG "
+                  f"{counts['UTMALDG']}, local-memory STL {counts['STL']} / "
+                  f"LDL {counts['LDL']}")
+            if name in HOPPER_KERNELS:
+                if not (counts["HGMMA"] and counts["UTMALDG"]):
+                    raise AssertionError(f"{name}<{d}> compiled without "
+                                         f"wgmma or TMA: {counts}")
+                seen.add((name, d))
+    want = {(k, d) for k in HOPPER_KERNELS for d in (64, 128)}
+    if seen != want:
+        raise AssertionError(f"the SASS check found {sorted(seen)}, not "
+                             f"{sorted(want)}")
+
+
+def _print_encode_time(fa):
+    """Host time of one TMA tensor-map encode (each bf16 launch of the
+    forward encodes 3, of dK/dV 4)."""
+    base = torch.empty(8 * 1024 * 12 * 64, dtype=torch.bfloat16,
+                       device="cuda")
+    fn = fa.build("flash_fwd.cu").lib.tfde_flash_tma_encode_ns
+    fn(base.data_ptr(), 100)
+    ns = fn(base.data_ptr(), 10000)
+    print(f"build: one tensor-map encode takes {ns / 1e3:.2f} us on the host "
+          f"(mean of 10000; 3 a forward launch, 4 a dK/dV launch)")
 
 
 #: (name, B, S, H, KV, D, dtype, causal, window, scale, cap)
@@ -187,7 +242,19 @@ CASES = [
      None, None),
     ("fp32_gqa_window_cap_d128", 1, 333, 8, 4, 128, torch.float32, True, 70,
      0.1, 20.0),
+    # the edges of the 128-row tiles: one row past a tile, the smallest
+    # prefill bucket, a window and a ragged edge inside a tile at D 128,
+    # and a non-causal ragged edge
+    ("s129", 2, 129, 12, 12, 64, torch.bfloat16, True, None, None, None),
+    ("s16", 8, 16, 12, 12, 64, torch.bfloat16, True, None, None, None),
+    ("gqa_window127_cap_d128", 2, 1000, 8, 2, 128, torch.bfloat16, True, 127,
+     None, 30.0),
+    ("noncausal_s257", 2, 257, 12, 12, 64, torch.bfloat16, False, None, None,
+     None),
 ]
+
+#: the D 128 timing shape: the slice's model width (768) as 6 heads of 128
+D128 = (8, 1024, 6, 6, 128)
 
 
 def _check_backward(fa, name, q, k, v, causal, window, scale, cap, gen):
@@ -309,7 +376,37 @@ def phase_kernels(fa, dev):
                   f"library_ms (SDPA) {fwd['library_ms']:.4f}, bound_ms "
                   f"{fwd['bound_ms']:.4f} ({fwd['bound_by']})")
             _time_backward(fa, q, k, v, do, out, lse, causal, dev, result)
+    _time_d128(fa, dev, gen)
     return result
+
+
+def _time_d128(fa, dev, gen):
+    """The two redesigned kernels at D 128 (8 x 1024 tokens, 6 heads, bf16,
+    causal) beside their bounds and SDPA's forward / backward."""
+    import torch.nn.functional as F
+
+    b, s, h, kv, d = D128
+    q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (h, kv, kv, h))
+    out, lse = fa.flash_forward(q, k, v, True)
+    delta = fa._delta(out, do)
+    fwd_ms = _time_ms(lambda: fa.flash_forward(q, k, v, True), dev)
+    dkv_ms = _time_ms(
+        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True), dev)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), dev)
+    ref = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
+        ref, (qt, kt, vt), dot, retain_graph=True), dev)
+    fb, fby = _bound(b, s, h, kv, d, torch.bfloat16, True, None)
+    db, dby = _bound(b, s, h, kv, d, torch.bfloat16, True, None, "dkv")
+    print(f"kernel D128 timing ({b} x {s}, {h} heads, D {d}, bf16, causal): "
+          f"flash_fwd {fwd_ms:.4f} ms (bound {fb:.4f}, {fby}; SDPA forward "
+          f"{sdpa_fwd:.4f}), flash_bwd_dkv {dkv_ms:.4f} ms (bound {db:.4f}, "
+          f"{dby}; SDPA backward, whole {sdpa_bwd:.4f})")
 
 
 def phase_parity(dev):
@@ -559,6 +656,8 @@ def phase_train(fa, dev):
           f"{batch} x {seq} tokens, AdamW lr 3e-4 warmup 5 cosine {steps}, "
           f"wd 0.1: {steps} steps")
     print(f"train: losses {[round(x, 4) for x in losses]}")
+    print(f"train: losses, full precision (identical run to run: no atomics) "
+          f"{losses}")
     print(f"train: ms per step (mean of steps 3-{steps}) {mean_s * 1e3:.2f}, "
           f"first step {step_s[0] * 1e3:.1f} ms, {batch * seq / mean_s:.0f} "
           f"training tokens/s, max memory allocated "
@@ -576,7 +675,22 @@ def phase_train(fa, dev):
     return launches
 
 
-def main() -> int:
+PHASES = ("kernels", "parity", "train_parity", "serve", "train")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %(default)s to run after "
+                         "the device and build phases (an A/B of kernel and "
+                         "train times); the kernels JSON line and the last "
+                         "line print only when all run")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -590,11 +704,18 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build(fa)
-    timing = phase_kernels(fa, dev)
-    phase_parity(dev)
-    phase_train_parity(fa, dev)
-    phase_serve(fa, dev)
-    launches = phase_train(fa, dev)
+    timing = phase_kernels(fa, dev) if "kernels" in phases else None
+    if "parity" in phases:
+        phase_parity(dev)
+    if "train_parity" in phases:
+        phase_train_parity(fa, dev)
+    if "serve" in phases:
+        phase_serve(fa, dev)
+    launches = phase_train(fa, dev) if "train" in phases else None
+    if len(phases) < len(PHASES):
+        print(f"total {time.perf_counter() - t_start:.1f} s (phases "
+              f"{','.join(phases)}; no result line)")
+        return 1
     replaces = {"flash_fwd": ("flash_fwd.cu", 188),
                 "flash_bwd_dkv": ("flash_bwd.cu", 606),
                 "flash_bwd_dq": ("flash_bwd.cu", 683)}

@@ -234,21 +234,28 @@ def _k_tile_range(qi, s, causal, window, bm=64, bn=64):
     return range(begin, end)
 
 
+#: each kernel's (Q tile rows, K tile columns): the forward's 128 x 128,
+#: the dK/dV kernel's 64-row Q tiles against 128 keys, the dQ kernel's
+#: (and the fp32 kernels') 64 x 64
+KERNEL_TILES = [(128, 128), (64, 128), (64, 64)]
+
+
+@pytest.mark.parametrize("bm,bn", KERNEL_TILES)
 @pytest.mark.parametrize("s,causal,window", [
     (1024, True, None), (1024, False, None), (384, True, 100),
     (333, True, 70), (512, True, 1), (512, True, 64), (512, True, 65),
     (200, True, 1000)])
-def test_kernel_tile_loops_are_the_band_predicate(s, causal, window):
+def test_kernel_tile_loops_are_the_band_predicate(s, causal, window, bm, bn):
     """Both kernels' loops (`band` from the Q side, `q_band` from the K
-    side) visit exactly the tiles `_tile_in_band` accepts, with 64 x 64
-    tiles, the ragged edge included."""
-    n = -(-s // 64)
-    live = {(qi, kb) for qi in range(n) for kb in range(n)
-            if bool(tfa._tile_in_band(qi, kb, 64, 64, causal, window))}
-    from_q = {(qi, kb) for qi in range(n)
-              for kb in _k_tile_range(qi, s, causal, window)}
-    from_k = {(qi, kb) for kb in range(n)
-              for qi in _q_tile_range(kb, s, causal, window)}
+    side) visit exactly the tiles `_tile_in_band` accepts, with each
+    kernel's tile shape, the ragged edge included."""
+    nq, nk = -(-s // bm), -(-s // bn)
+    live = {(qi, kb) for qi in range(nq) for kb in range(nk)
+            if bool(tfa._tile_in_band(qi, kb, bm, bn, causal, window))}
+    from_q = {(qi, kb) for qi in range(nq)
+              for kb in _k_tile_range(qi, s, causal, window, bm, bn)}
+    from_k = {(qi, kb) for kb in range(nk)
+              for qi in _q_tile_range(kb, s, causal, window, bm, bn)}
     assert from_q == live and from_k == live
 
 
@@ -290,3 +297,48 @@ def test_build_digest_covers_included_headers(tmp_path):
     for source in tfa.SOURCES:
         with open(os.path.join(CSRC, source)) as f:
             assert '#include "flash_common.cuh"' in f.read()
+
+
+def test_build_links_the_driver_api(tmp_path, monkeypatch):
+    """The kernels' tensor maps come from the CUDA driver API: the nvcc command
+    links -lcuda after the source, and the link flags are in the digest."""
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        out = cmd[cmd.index("-o") + 1]
+        open(out, "w").close()
+        return type("P", (), {"returncode": 0, "stdout": "", "stderr": ""})()
+
+    monkeypatch.setattr(tbuild, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(tbuild, "nvcc_path",
+                        lambda: str(tmp_path / "cuda" / "bin" / "nvcc"))
+    monkeypatch.setattr(tbuild.subprocess, "run", fake_run)
+    monkeypatch.setattr(tbuild.ctypes, "CDLL", lambda path: path)
+    lib = tbuild.build_library("flash_fwd.cu", force=True)
+    (cmd,) = calls
+    src = cmd.index(os.path.join(CSRC, "flash_fwd.cu"))
+    assert cmd.index("-lcuda") > src
+    assert lib.path.startswith(str(tmp_path))
+    digest = tbuild.source_digest(os.path.join(CSRC, "flash_fwd.cu"))
+    monkeypatch.setattr(tbuild, "LINK_FLAGS", ())
+    assert tbuild.source_digest(os.path.join(CSRC, "flash_fwd.cu")) != digest
+
+
+def test_sass_opcode_counts_per_kernel():
+    """chip_smoke's instruction check: opcodes counted per kernel section
+    of `cuobjdump -sass`, whole opcodes only."""
+    sass = """
+\t\tFunction : _Z3fwdILi64EEvv
+        /*0000*/   UTMALDG.4D [UR8], [UR4] ;
+        /*0010*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;
+        /*0020*/   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;
+\t\tFunction : _Z2dqILi64EEvv
+        /*0000*/   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/   LDSM.16.MT88.4 R8, [R2] ;
+"""
+    counts = tbuild.count_opcodes(sass, ("HGMMA", "UTMALDG", "HMMA"))
+    assert counts == {
+        "_Z3fwdILi64EEvv": {"HGMMA": 2, "UTMALDG": 1, "HMMA": 0},
+        "_Z2dqILi64EEvv": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1},
+    }

@@ -25,29 +25,37 @@
 //   (head dim contiguous); lse and delta as [B, H, S] fp32 (the TPU's
 //   128-lane broadcast is a Mosaic layout, not data).
 // - Ragged S: rows and columns past S are masked and never stored.
-// - bf16 runs every product on the tensor cores (mma.sync m16n8k16); fp32
-//   runs them in fp32 FMA on the CUDA cores (TF32 would miss the fp32
-//   tolerance). head_dim 64 or 128.
+// - bf16 runs every product on the tensor cores (wgmma in the dK/dV kernel,
+//   mma.sync in the dQ kernel); fp32 runs them in fp32 FMA on the CUDA
+//   cores (TF32 would miss the fp32 tolerance). head_dim 64 or 128.
 //
 // Bound on the H100: at the training slice's shape (8 x 1024 tokens, 12
 // heads, D = 64, bf16, causal; 50.4 M visible pairs) the dK/dV kernel does
 // four products (8 D FLOP a pair, 25.8 GFLOP, ~26 us at 989 TFLOP/s) and
 // moves ~76 MB (~23 us at 3.35 TB/s); the dQ kernel three products (19.3
 // GFLOP, ~20 us) and ~64 MB (~19 us): both are bound by the operations,
-// with the bytes close behind. What the design does about it: every
-// product runs on the tensor cores with fp32 accumulation in registers;
-// the score, P and dS tiles never leave the registers (a C fragment
-// becomes the next product's A fragment); the stationary tile (K/V, or
-// Q/dO) is read once per block and reused by every tile that streams past,
-// whose copy (cp.async, two stages) overlaps the previous tile's math;
-// out-of-band tiles are neither loaded nor computed. What it does not do
-// yet: wgmma, TMA, 128-row tiles, or a mask-free path below the diagonal.
+// with the bytes close behind.
+//
+// The bf16 dK/dV kernel, for Hopper: all four products are wgmma (S^T and
+// dP^T from shared memory, dV and dK with P^T and dS^T as register A
+// fragments); a block owns 128 keys with two consumer warpgroups of 64, so
+// every Q/dO tile streamed serves 128 keys; a producer warpgroup keeps the
+// Q/dO tiles in flight by TMA through an mbarrier ring, with lse/delta
+// beside them (cp.async); at D = 128, where the dK and dV accumulators
+// alone take 128 of a thread's 168 registers, each Q tile in two halves;
+// tiles whose every pair is visible skip the mask, warpgroup blocks with no
+// visible pair are skipped; no atomics, so dK and dV are the same run to
+// run. The dQ kernel
+// keeps its first design: mma.sync m16n8k16 with cp.async double buffering,
+// the score, dP and dS tiles in registers, out-of-band tiles neither loaded
+// nor computed; its redesign for Hopper is the next step.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 struct Params {
   const void* q;
@@ -369,13 +377,13 @@ dq_fp32_kernel(const Params p) {
   }
 }
 
-// ---------------------------------------------------------------- bf16 --
-// 128 threads = 4 warps; warp w owns rows 16w .. 16w+15 of the block's
-// stationary tile (keys for dK/dV, queries for dQ), so each warp's score,
-// dP, P and dS tiles are 16 x 64 fragments in its registers (the layout
-// in flash_common.cuh). Tiles are staged row-major with a pitch of D + 8
-// bf16: the 8 rows one fragment load or ldmatrix touches fall in distinct
-// banks, and every row stays 16-byte aligned for cp.async.
+// ------------------------------------------------------------- bf16 dQ --
+// 128 threads = 4 warps; warp w owns query rows 16w .. 16w+15 of the
+// block's stationary Q tile, so each warp's score, dP and dS tiles are
+// 16 x 64 fragments in its registers (the layout in flash_common.cuh).
+// Tiles are staged row-major with a pitch of D + 8 bf16: the 8 rows one
+// fragment load or ldmatrix touches fall in distinct banks, and every row
+// stays 16-byte aligned for cp.async.
 constexpr int M_THREADS = 128;
 using bf16 = __nv_bfloat16;
 
@@ -415,113 +423,321 @@ __device__ __forceinline__ void store_rows_bf16(void* base, long long sb,
 }
 
 template <int D>
-constexpr size_t bf16_smem_bytes() {
-  // two stationary tiles plus two stages of two streamed tiles, and two
-  // stages of lse and delta (used by the dK/dV kernel)
-  return sizeof(bf16) * 6 * (size_t)BM * (D + 8) + sizeof(float) * 4 * BM;
+constexpr size_t dq_smem_bytes() {
+  // two stationary tiles (Q, dO) plus two stages of two streamed tiles
+  return sizeof(bf16) * 6 * (size_t)BM * (D + 8);
+}
+
+// -------------------------------------------------------- bf16 dK / dV --
+// 384 threads: warpgroups 0 and 1 are the consumers, each owning 64 of the
+// block's 128 keys of one KV head, warpgroup 2 the producer. The
+// producer loads K and V once, then streams (query head, Q tile) steps
+// through a ring of DKV_STAGES stages: Q and dO by TMA (64 rows each),
+// lse and delta by its warp's 4-byte cp.async into the same stage (their
+// [B, H, S] rows are 4 S bytes apart: no 16-byte pitch for a tensor map at
+// a ragged S; rows past S are zero-filled). The full barrier counts the 32
+// lanes' cp.async arrivals, the TMA thread's and the TMA bytes; the empty
+// barrier the 256 consumer threads. A consumer runs, for its 64 keys x the
+// step's 64 queries:
+//   S^T = K Q^T                  wgmma, A and B from shared memory, K-major
+//   P^T                          in registers, rounded to bf16
+//   dV += P^T dO, dP^T = V dO^T  wgmma, P^T from registers, dO MN-major;
+//                                V and dO from shared memory, K-major
+//   dS^T                         in registers, rounded to bf16
+//   dK += dS^T Q                 wgmma, A from registers, B MN-major
+// ptxas holds a consumer thread to 168 registers (hopper.cuh, setmaxnreg),
+// and at D = 128 the dK and dV accumulators alone take 128: there each Q
+// tile is taken in two halves of 32 queries.
+constexpr int DKV_BN = 128;     // keys per block
+constexpr int DKV_BM = 64;      // query rows per streamed tile
+constexpr int DKV_STAGES = 3;   // Q/dO tiles in flight
+constexpr int DKV_THREADS = 384;  // 2 consumer warpgroups, then the producer
+constexpr int K_SLAB = DKV_BN * 128;  // bytes of a 64-column slab of K or V
+constexpr int Q_SLAB = DKV_BM * 128;  // ... of Q or dO
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // K and V, then DKV_STAGES x (Q, dO), each D / 64 slabs; 1024 bytes of
+  // slack to align the base for the 128-byte swizzle
+  return (size_t)(D / 64) * (2 * K_SLAB + 2 * DKV_STAGES * Q_SLAB) + 1024;
+}
+
+// P^T of one warpgroup's 64 keys x QN queries from S^T: P = exp(z - lse),
+// z the capped, scaled (MASKED: and masked) score, rounded to bf16 into the
+// A fragments `pa` of dV's product; s keeps P (1 - tanh^2), the factor dS
+// takes from P and the cap (P without a cap; rows past S have tanh 0).
+// Element i is (key key0 + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2) + c +
+// (i & 1)); lse holds the lse of queries q0.., from the stage.
+template <bool MASKED, int QN>
+__device__ __forceinline__ void p_tile(float (&s)[QN / 2], uint32_t* pa,
+                                       int key0, int q0, int c,
+                                       const float* lse, const Params& p) {
+  const float inv_cap = p.cap > 0.f ? p.scale / p.cap : 0.f;
+#pragma unroll
+  for (int kk = 0; kk < QN / 16; ++kk) {
+    float t[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = 8 * kk + e;
+      const int ql = 8 * (i >> 2) + c + (i & 1);
+      float z;
+      t[e] = 0.f;
+      if (MASKED) {
+        const int row = q0 + ql, col = key0 + 8 * ((i >> 1) & 1);
+        z = row < p.S ? score(s[i], row, col, p, &t[e]) : NEG;
+      } else if (p.cap > 0.f) {
+        t[e] = tanhf(s[i] * inv_cap);
+        z = p.cap * t[e];
+      } else {
+        z = s[i] * p.scale;
+      }
+      s[i] = exp2_approx(fmaf(z, LOG2E, -lse[ql] * LOG2E));
+    }
+    acc_to_a(pa + 4 * kk, s, kk);
+    if (p.cap > 0.f) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s[8 * kk + e] *= 1.f - t[e] * t[e];
+    }
+  }
+}
+
+// dS^T = P (1 - tanh^2) (dP - delta) scale, from p_tile's s and dP^T, in
+// place in dp; dl holds the delta of the same queries.
+template <int QN>
+__device__ __forceinline__ void ds_tile(const float (&s)[QN / 2],
+                                        float (&dp)[QN / 2], int c,
+                                        const float* dl, const Params& p) {
+#pragma unroll
+  for (int i = 0; i < QN / 2; ++i)
+    dp[i] = s[i] * (dp[i] - dl[8 * (i >> 2) + c + (i & 1)]) * p.scale;
+}
+
+// One (query head, Q tile) step of a consumer warpgroup: its 64 keys x the
+// tile's DKV_BM queries in parts of QN, each part skipped where no pair is
+// visible. DV: dV += P^T dO; DK: dK += dS^T Q. K/V at k_addr/v_addr (this
+// warpgroup's rows), the stage's Q/dO at q_addr/o_addr and its lse/delta.
+template <int D, int QN, bool DV, bool DK>
+__device__ __forceinline__ void dkv_step(float (&dv)[D / 2], float (&dk)[D / 2],
+                                         uint32_t k_addr, uint32_t v_addr,
+                                         uint32_t q_addr, uint32_t o_addr,
+                                         const float* lse, const float* delta,
+                                         int q0, int kw0, int key0, int c,
+                                         const Params& p) {
+#pragma unroll
+  for (int h = 0; h < DKV_BM / QN; ++h) {
+    const int qh = q0 + h * QN;
+    if (!tile_live<QN, 64>(p, qh, kw0)) continue;
+    const uint32_t qa = q_addr + h * QN * 128, oa = o_addr + h * QN * 128;
+    // S^T = K Q^T: 64 keys x QN queries; then P^T
+    float s[QN / 2], dp[QN / 2];
+    uint32_t pa[QN / 4], sa[QN / 4];
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * K_SLAB + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * Q_SLAB + (kk % 4) * 32;
+      wgmma_ss<QN>(s, desc_sw128(k_addr + off, 16, 1024),
+                   desc_sw128(qa + qoff, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (tile_unmasked<QN, 64>(p, qh, kw0))
+      p_tile<false, QN>(s, pa, key0, qh, c, lse + h * QN, p);
+    else
+      p_tile<true, QN>(s, pa, key0, qh, c, lse + h * QN, p);
+    if constexpr (DV) {
+      // dV += P^T dO, P rounded to bf16 (the TPU kernels cast it to the
+      // input dtype): QN / 16 k-steps of 16 queries = 2048 bytes of dO rows
+      // each, dO MN-major
+      fence_regs(dv);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        wgmma_rs<D>(dv, pa + 4 * kk, desc_sw128(oa + kk * 2048, Q_SLAB, 1024),
+                    1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(pa);
+    }
+    if constexpr (DK) {
+      // dP^T = V dO^T, dS^T, then dK += dS^T Q with dS rounded to bf16, Q
+      // MN-major
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * K_SLAB + (kk % 4) * 32;
+        const uint32_t qoff = (kk / 4) * Q_SLAB + (kk % 4) * 32;
+        wgmma_ss<QN>(dp, desc_sw128(v_addr + off, 16, 1024),
+                     desc_sw128(oa + qoff, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dp);
+      ds_tile<QN>(s, dp, c, delta + h * QN, p);
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk) acc_to_a(sa + 4 * kk, dp, kk);
+      fence_regs(dk);
+      fence_regs(sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        wgmma_rs<D>(dk, sa + 4 * kk, desc_sw128(qa + kk * 2048, Q_SLAB, 1024),
+                    1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(sa);
+    }
+  }
+}
+
+// rows key0 and key0 + 8 of one KV head of dK or dV, bf16
+template <int D>
+__device__ __forceinline__ void store_keys(void* base, long long sb,
+                                           long long ss, long long sh, int b,
+                                           int kvh, int key0, int c,
+                                           const float (&acc)[D / 2], int S) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key < S) {
+      bf16* out = static_cast<bf16*>(base) + b * sb + key * ss + kvh * sh;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(M_THREADS)
-dkv_bf16_kernel(const Params p) {
-  constexpr int KP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BN * KP;
-  bf16* QO = Vs + BN * KP;  // stage s: Q at 2s, dO at 2s + 1
-  float* LD = reinterpret_cast<float*>(QO + 4 * BM * KP);  // lse, delta
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_do, const Params p) {
+  constexpr int NS = D / 64;  // slabs per tile
+  // queries a product: ptxas holds the consumers to 168 registers a thread
+  // (setmaxnreg does not raise its budget), so at D = 128, beside the 128 of
+  // the dK and dV accumulators, a Q tile is taken in two halves
+  constexpr int QN = D == 64 ? DKV_BM : DKV_BM / 2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t kv_full, full[DKV_STAGES], empty[DKV_STAGES];
+  __shared__ float LD[DKV_STAGES][2][DKV_BM];  // lse, delta
+  unsigned char* Ks = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Vs = Ks + NS * K_SLAB;
+  unsigned char* QO = Vs + NS * K_SLAB;  // stage s: Q at 2s, dO at 2s + 1
 
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * DKV_BN;  // causal: the longest loops first
   const int grp = p.H / p.KV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  const int k0 = blockIdx.x * BN;
-  const int wr = warp * 16;
-
-  load_rows_bf16<D>(Ks, static_cast<const bf16*>(p.k) + b * p.k_sb +
-                            kvh * p.k_sh, p.k_ss, k0, p.S, tid);
-  load_rows_bf16<D>(Vs, static_cast<const bf16*>(p.v) + b * p.v_sb +
-                            kvh * p.v_sh, p.v_ss, k0, p.S, tid);
-  cp_async_commit();
-
   int qb_begin, qb_end;
-  q_band(p, k0, qb_begin, qb_end);
+  q_band<DKV_BM, DKV_BN>(p, k0, qb_begin, qb_end);
   const int nq = max(qb_end - qb_begin, 0);
   const int steps = grp * nq;  // (query head, Q tile) pairs, head-major
-  // one commit group per step: Q and dO by cp.async, lse and delta by
-  // plain stores (visible after the __syncthreads that follows the wait)
-  auto load_step = [&](int it, int stage) {
-    const int h = kvh * grp + it / nq, q0 = (qb_begin + it % nq) * BM;
-    bf16* qs = QO + 2 * stage * BM * KP;
-    load_rows_bf16<D>(qs, static_cast<const bf16*>(p.q) + b * p.q_sb +
-                              h * p.q_sh, p.q_ss, q0, p.S, tid);
-    load_rows_bf16<D>(qs + BM * KP, static_cast<const bf16*>(p.dout) +
-                                        b * p.o_sb + h * p.o_sh, p.o_ss, q0,
-                      p.S, tid);
-    float* ls = LD + 2 * stage * BM;
-    for (int i = tid; i < BM; i += M_THREADS) {
-      const bool ok = q0 + i < p.S;
-      ls[i] = ok ? p.lse[lse_index(p, b, h, q0 + i)] : 0.f;
-      ls[BM + i] = ok ? p.delta[lse_index(p, b, h, q0 + i)] : 0.f;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(&full[s], 33);  // 32 lanes' cp.async + the TMA thread
+      mbar_init(&empty[s], 256);
     }
-    cp_async_commit();
-  };
-  if (steps > 0) load_step(0, 0);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
-
-  for (int it = 0; it < steps; ++it) {
-    const int stage = it & 1;
-    // the next step's copy goes into the stage the previous iteration
-    // finished reading (the __syncthreads at the end of the loop)
-    if (it + 1 < steps) {
-      load_step(it + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = (qb_begin + it % nq) * BM;
-    const bf16* qs = QO + 2 * stage * BM * KP;
-    const bf16* os = qs + BM * KP;
-    const float* ls = LD + 2 * stage * BM;
-    const float* ds = ls + BM;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-    float s[BM / 8][4], dp[BM / 8][4];
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D>(s, Ks, wr, qs, KP, lane);
-    mma_abt<D>(dp, Vs, wr, os, KP, lane);
-
-    // P^T and dS^T in place: element (key wr+g+8(e/2), query 8j+c+e%2)
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = j * 8 + c + (e & 1);
-        float pe;
-        dp[j][e] = grad_score<true>(s[j][e], dp[j][e], q0 + ql,
-                                    k0 + wr + g + (e >> 1) * 8, ls[ql],
-                                    ds[ql], p, &pe);
-        s[j][e] = pe;
-      }
-    mma_cb<D>(dv, s, os, KP, lane);   // dV += P^T dO
-    mma_cb<D>(dk, dp, qs, KP, lane);  // dK += dS^T Q
-    __syncthreads();  // this stage is free for the copy after next
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  store_rows_bf16<D>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, kvh, k0 + wr, dk,
-                     p.S, lane);
-  store_rows_bf16<D>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, kvh, k0 + wr, dv,
-                     p.S, lane);
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // -------------------------------------------- producer --
+    regs_dealloc<40>();
+    if (tid < 256 + 32) {
+      const int lane = tid - 256;
+      if (lane == 0) {
+        mbar_arrive_tx(&kv_full, 2 * NS * K_SLAB);
+        for (int s = 0; s < NS; ++s) {
+          tma_load(Ks + s * K_SLAB, &map_k, &kv_full, 64 * s, kvh, k0, b);
+          tma_load(Vs + s * K_SLAB, &map_v, &kv_full, 64 * s, kvh, k0, b);
+        }
+      }
+      for (int it = 0; it < steps; ++it) {
+        const int stage = it % DKV_STAGES;
+        const int h = kvh * grp + it / nq, q0 = (qb_begin + it % nq) * DKV_BM;
+        mbar_wait(&empty[stage], ((it / DKV_STAGES) & 1) ^ 1);
+        const size_t row = ((size_t)b * p.H + h) * p.S + q0;
+        for (int i = lane; i < DKV_BM; i += 32) {
+          const bool ok = q0 + i < p.S;
+          cp_async4(&LD[stage][0][i], p.lse + (ok ? row + i : 0), ok);
+          cp_async4(&LD[stage][1][i], p.delta + (ok ? row + i : 0), ok);
+        }
+        mbar_arrive_cp_async(&full[stage]);
+        if (lane == 0) {
+          unsigned char* qs = QO + 2 * stage * NS * Q_SLAB;
+          mbar_arrive_tx(&full[stage], 2 * NS * Q_SLAB);
+          for (int s = 0; s < NS; ++s) {
+            tma_load(qs + s * Q_SLAB, &map_q, &full[stage], 64 * s, h, q0, b);
+            tma_load(qs + (NS + s) * Q_SLAB, &map_do, &full[stage], 64 * s,
+                     h, q0, b);
+          }
+        }
+      }
+    }
+  } else {  // ------------------------------------------------- consumers --
+    regs_alloc<232>();
+    const int w = wg, t = tid % 128;
+    const int lane = t & 31, g = lane >> 2, c = (lane & 3) * 2;
+    const int kw0 = k0 + 64 * w;               // this warpgroup's first key
+    const int key0 = kw0 + 16 * (t >> 5) + g;  // this thread's keys: +0, +8
+    const uint32_t k_addr = smem_u32(Ks) + w * 64 * 128;
+    const uint32_t v_addr = smem_u32(Vs) + w * 64 * 128;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(&kv_full, 0);
+    for (int it = 0; it < steps; ++it) {
+      const int stage = it % DKV_STAGES;
+      const int q0 = (qb_begin + it % nq) * DKV_BM;
+      mbar_wait(&full[stage], (it / DKV_STAGES) & 1);
+      const uint32_t q_addr = smem_u32(QO) + 2 * stage * NS * Q_SLAB;
+      dkv_step<D, QN, true, true>(dv, dk, k_addr, v_addr, q_addr,
+                                  q_addr + NS * Q_SLAB, LD[stage][0],
+                                  LD[stage][1], q0, kw0, key0, c, p);
+      mbar_arrive(&empty[stage]);
+    }
+    store_keys<D>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, kvh, key0, c, dv, p.S);
+    store_keys<D>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, kvh, key0, c, dk, p.S);
+  }
+}
+
+template <int D>
+int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  if (int e = hopper::encode_rows_map(&mq, p.q, p.B, p.S, p.H, D, p.q_sb,
+                                      p.q_ss, p.q_sh, DKV_BM))
+    return TMA_ENCODE_ERROR + e;
+  if (int e = hopper::encode_rows_map(&mk, p.k, p.B, p.S, p.KV, D, p.k_sb,
+                                      p.k_ss, p.k_sh, DKV_BN))
+    return TMA_ENCODE_ERROR + e;
+  if (int e = hopper::encode_rows_map(&mv, p.v, p.B, p.S, p.KV, D, p.v_sb,
+                                      p.v_ss, p.v_sh, DKV_BN))
+    return TMA_ENCODE_ERROR + e;
+  if (int e = hopper::encode_rows_map(&mo, p.dout, p.B, p.S, p.H, D, p.o_sb,
+                                      p.o_ss, p.o_sh, DKV_BM))
+    return TMA_ENCODE_ERROR + e;
+  auto kernel = dkv_bf16_kernel<D>;
+  const size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.KV, p.B, (p.S + DKV_BN - 1) / DKV_BN);
+  kernel<<<grid, DKV_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -642,10 +858,12 @@ void set_common(Params& p, const void* q, const void* k, const void* v,
 // lse and delta are [B, H, S] fp32, contiguous. window <= 0 and
 // logit_cap <= 0 mean off. Strides are in elements; the head dim is
 // contiguous; for bf16 every pointer is 16-byte aligned and every stride a
-// multiple of 8. Each returns the CUDA error of its launch (0 on success);
-// the launch does not synchronise.
+// multiple of 8 (the tensor maps' 16-byte rule). Each returns the CUDA
+// error of its launch (0 on success), or TMA_ENCODE_ERROR + the CUresult of
+// a tensor map the CUDA driver refused; the launch does not synchronise.
 
-// dK, dV [B, S, KV, D]: grid (ceil(S / 64), KV, B).
+// dK, dV [B, S, KV, D]: grid (ceil(S / 64), KV, B) for fp32, (KV, B,
+// ceil(S / 128)) for bf16.
 extern "C" int tfde_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
@@ -675,11 +893,8 @@ extern "C" int tfde_flash_bwd_dkv(
   if (dtype == 0)
     return (int)launch(dkv_fp32_kernel<128>, grid, F_THREADS,
                        dkv_fp32_smem_bytes<128>(), p, s);
-  if (D == 64)
-    return (int)launch(dkv_bf16_kernel<64>, grid, M_THREADS,
-                       bf16_smem_bytes<64>(), p, s);
-  return (int)launch(dkv_bf16_kernel<128>, grid, M_THREADS,
-                     bf16_smem_bytes<128>(), p, s);
+  if (D == 64) return launch_dkv_bf16<64>(p, s);
+  return launch_dkv_bf16<128>(p, s);
 }
 
 // dQ [B, S, H, D]: grid (ceil(S / 64), H, B).
@@ -712,7 +927,7 @@ extern "C" int tfde_flash_bwd_dq(
                        dq_fp32_smem_bytes<128>(), p, s);
   if (D == 64)
     return (int)launch(dq_bf16_kernel<64>, grid, M_THREADS,
-                       bf16_smem_bytes<64>(), p, s);
+                       dq_smem_bytes<64>(), p, s);
   return (int)launch(dq_bf16_kernel<128>, grid, M_THREADS,
-                     bf16_smem_bytes<128>(), p, s);
+                     dq_smem_bytes<128>(), p, s);
 }

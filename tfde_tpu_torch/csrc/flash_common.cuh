@@ -1,14 +1,19 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the tile edges, the mask value, the band of in-band tiles seen from either
-// side, the score function, and the mma.sync / ldmatrix / cp.async wrappers
-// of the bf16 tensor-core paths.
+// the tile edges of the dQ and fp32 kernels, the mask value, the band of
+// in-band tiles seen from either side, the tile predicates of the
+// mask-free path, the score function, and the mma.sync / ldmatrix /
+// cp.async wrappers of the dQ kernel. The Hopper building blocks (TMA,
+// mbarrier, wgmma) are in hopper.cuh.
 //
 // `band` and `q_band` are the JAX package's `_tile_in_band` predicate
-// (tfde_tpu/ops/flash_attention.py) turned into loop bounds: `band` gives
-// the K tiles a Q tile sees (the forward's and the dQ kernel's loop),
-// `q_band` the Q tiles that see a K tile (the dK/dV kernel's loop).
-// tests/test_torch_flash_backward.py transcribes both and holds them
-// against the predicate.
+// (tfde_tpu/ops/flash_attention.py) turned into loop bounds, for a tile
+// shape given as template arguments: `band` gives the K tiles a Q tile
+// sees (the forward's and the dQ kernel's loop), `q_band` the Q tiles that
+// see a K tile (the dK/dV kernel's loop). `tile_live` says whether a
+// warpgroup's part of a tile holds any pair to compute, `tile_unmasked`
+// whether every pair of it is visible and in range, so that the tile skips
+// the mask. tests/test_torch_flash_tiles.py transcribes all four and holds
+// them against the predicate and a brute force over the pairs.
 
 #pragma once
 
@@ -17,40 +22,69 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace flash {
 
-constexpr int BM = 64;         // query rows per tile
-constexpr int BN = 64;         // key columns per tile
+constexpr int BM = 64;         // query rows per tile (dQ and fp32 kernels)
+constexpr int BN = 64;         // key columns per tile (dQ and fp32 kernels)
 constexpr float NEG = -1e30f;  // the TPU kernels' mask value
+// what an entry point returns, plus the CUresult, when the CUDA driver
+// refuses a tensor map (above every cudaError_t)
+constexpr int TMA_ENCODE_ERROR = 10000;
 
-// The in-band K tiles [kb_begin, kb_end) of the Q tile starting at row q0.
-// P: any struct with S, causal and window.
-template <class P>
+// The in-band K tiles [kb_begin, kb_end) of the TM-row Q tile starting at
+// row q0, with TN-column K tiles. P: any struct with S, causal and window.
+template <int TM = BM, int TN = BN, class P>
 __device__ __forceinline__ void band(const P& p, int q0, int& kb_begin,
                                      int& kb_end) {
   kb_begin = 0;
-  kb_end = (p.S + BN - 1) / BN;
+  kb_end = (p.S + TN - 1) / TN;
   if (p.causal) {
-    kb_end = min(kb_end, (q0 + BM - 1) / BN + 1);
+    kb_end = min(kb_end, (q0 + TM - 1) / TN + 1);
     if (p.window > 0) {
       const int lo = q0 - (p.window - 1);  // oldest column row q0 sees
-      kb_begin = lo > 0 ? lo / BN : 0;
+      kb_begin = lo > 0 ? lo / TN : 0;
     }
   }
 }
 
-// The in-band Q tiles [qb_begin, qb_end) of the K tile starting at column
-// k0: the same predicate as `band`, seen from the K side.
-template <class P>
+// The in-band TM-row Q tiles [qb_begin, qb_end) of the TN-column K tile
+// starting at column k0: the same predicate as `band`, seen from the K
+// side.
+template <int TM = BM, int TN = BN, class P>
 __device__ __forceinline__ void q_band(const P& p, int k0, int& qb_begin,
                                        int& qb_end) {
   qb_begin = 0;
-  qb_end = (p.S + BM - 1) / BM;
+  qb_end = (p.S + TM - 1) / TM;
   if (p.causal) {
-    qb_begin = k0 / BM;  // the first tile whose last row reaches column k0
-    if (p.window > 0)    // the last tile whose first row still sees k0+BN-1
-      qb_end = min(qb_end, (k0 + BN - 1 + p.window - 1) / BM + 1);
+    qb_begin = k0 / TM;  // the first tile whose last row reaches column k0
+    if (p.window > 0)    // the last tile whose first row still sees k0+TN-1
+      qb_end = min(qb_end, (k0 + TN - 1 + p.window - 1) / TM + 1);
   }
+}
+
+// Whether the TM x TN block of pairs (rows = queries r0.., columns = keys
+// c0..) may hold a visible pair with both ends inside S. False means every
+// pair is masked or lies past S, and the block is skipped: no product, no
+// effect on the sums.
+template <int TM, int TN, class P>
+__device__ __forceinline__ bool tile_live(const P& p, int r0, int c0) {
+  if (r0 >= p.S || c0 >= p.S) return false;
+  if (!p.causal) return true;
+  if (c0 > r0 + TM - 1) return false;  // every column after every row
+  return p.window <= 0 || c0 + TN - 1 >= r0 - (p.window - 1);
+}
+
+// Whether every pair of the TM x TN block is visible and inside S: then the
+// block takes the mask-free path (no mask test, no edge test per score).
+// Exact: false means at least one pair is masked or past S.
+template <int TM, int TN, class P>
+__device__ __forceinline__ bool tile_unmasked(const P& p, int r0, int c0) {
+  if (r0 + TM > p.S || c0 + TN > p.S) return false;
+  if (!p.causal) return true;
+  if (c0 + TN - 1 > r0) return false;  // the last column after the first row
+  return p.window <= 0 || r0 + TM - 1 - c0 < p.window;
 }
 
 // One score: scale, tanh cap, then the causal/window/ragged-edge mask.
@@ -90,10 +124,6 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
 // four 8x8 bf16 matrices, transposed: lanes 0-7, 8-15, 16-23, 24-31 give
 // the row addresses of matrices 0-3; register i holds matrix i's
 // (row 2*(lane%4) .. +1, col lane/4) pair
@@ -102,14 +132,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
+      : "r"(hopper::smem_u32(ptr)));
 }
 
 // 16 bytes global -> shared, asynchronous; zero-filled when !valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
+                   hopper::smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }
 
@@ -141,6 +171,18 @@ __device__ __forceinline__ void c_to_a(uint32_t* a, float (*c)[4],
   a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// The A fragment of wgmma k-step kk (accumulator columns 16kk..16kk+15) of
+// a register product, from an fp32 wgmma accumulator rounded to bf16: the
+// same registers as `c_to_a` (hopper.cuh, the accumulator layout).
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (&d)[N],
+                                         int kk) {
+  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 // The A fragment of rows r0..r0+15, k columns k0..k0+15 of a row-major

@@ -26,17 +26,50 @@ BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 #: sm_90a: Hopper with its arch-specific instructions (wgmma, setmaxnreg)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the CUDA driver API, for cuTensorMapEncodeTiled (the TMA tensor maps): linked
+#: against the toolkit's stub, the CUDA driver's libcuda.so.1 loads at run time
+LINK_FLAGS = ("-lcuda",)
 
 
-def nvcc_path() -> str:
-    for cand in (shutil.which("nvcc"),
+def _toolkit_tool(name: str) -> str:
+    for cand in (shutil.which(name),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
+                              "bin", name)):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "port's kernels are built from tfde_tpu_torch/csrc at first use")
+        f"{name} not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        f"port's kernels are built from tfde_tpu_torch/csrc at first use")
+
+
+def nvcc_path() -> str:
+    return _toolkit_tool("nvcc")
+
+
+def _link_dirs() -> tuple:
+    """-L for the toolkit's libcuda stub, beside nvcc."""
+    stubs = os.path.join(os.path.dirname(os.path.dirname(nvcc_path())),
+                         "lib64", "stubs")
+    return ("-L" + stubs,) if os.path.isdir(stubs) else ()
+
+
+def count_opcodes(sass: str, opcodes) -> dict:
+    """{kernel symbol: {opcode: count}} from the text `cuobjdump -sass`
+    prints: one "Function : <symbol>" section per kernel."""
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        counts[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
+                                for op in opcodes}
+    return counts
+
+
+def sass_counts(path: str, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """`count_opcodes` of a built library: how many of each instruction
+    every kernel was compiled to."""
+    proc = subprocess.run([_toolkit_tool("cuobjdump"), "-sass", path],
+                          capture_output=True, text=True, check=True)
+    return count_opcodes(proc.stdout, opcodes)
 
 
 class KernelLibrary:
@@ -58,7 +91,7 @@ _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 def source_digest(path: str) -> str:
     """sha256 over the source at `path`, every local header it includes
     (resolved beside the including file, each once) and the nvcc flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     seen, todo = set(), [os.path.abspath(path)]
     while todo:
         cur = todo.pop(0)
@@ -84,7 +117,8 @@ def build_library(source: str, force: bool = False) -> KernelLibrary:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src,
+                               *_link_dirs(), *LINK_FLAGS],
                               capture_output=True, text=True, check=False)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
