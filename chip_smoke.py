@@ -10,14 +10,15 @@ without printing a result:
 2. build  — compile every kernel source of the serving and training paths
    (tfde_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu) with nvcc (sm_90a),
    one nvcc per source, all started together; count each bf16 kernel's
-   wgmma (HGMMA) and TMA (UTMALDG) instructions in `cuobjdump -sass` (the
-   forward and the dK/dV kernel must have both), and time one tensor-map
-   encode on the host;
+   wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA) instructions in
+   `cuobjdump -sass` (the forward, dK/dV and dQ kernels must have wgmma
+   and TMA and no mma.sync), and time one tensor-map encode on the host;
 3. kernels — each kernel against its plain PyTorch version on the card,
    over the slice shape and the option matrix (the forward's out and lse;
-   the backward pair's dq, dk and dv), then its time beside the plain
-   version's, the library call's (SDPA's forward, SDPA's backward; timing
-   only) and the bound; then the forward and dK/dV at D 128;
+   the backward pair's dq, dk and dv; at the slice shape and one GQA case
+   two backward calls must give the same bits), then its time beside the
+   plain version's, the library call's (SDPA's forward, SDPA's backward;
+   timing only) and the bound; then the three bf16 kernels at D 128;
 4. parity — a small fp32 GPT with head_dim 64: logits of the CUDA model
    (flash prefill) against the same weights on the CPU (plain attention),
    and the CUDA batcher's greedy tokens against CPU `generate`;
@@ -184,34 +185,33 @@ def phase_build(fa):
     _print_encode_time(fa)
 
 
-#: the kernels redesigned for Hopper: each must have compiled to wgmma
-#: (HGMMA) and TMA loads (UTMALDG)
-HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "dkv_bf16_kernel")
+#: the bf16 kernels, all redesigned for Hopper: each must have compiled to
+#: wgmma (HGMMA) and TMA loads (UTMALDG), and to no mma.sync (HMMA)
+HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "dkv_bf16_kernel",
+                  "dq_bf16_kernel")
 
 
 def _check_sass(libs):
-    """Count HGMMA and UTMALDG instructions of each bf16 kernel in
-    `cuobjdump -sass` of the built libraries; raise if a redesigned kernel
-    has none of either."""
+    """Count HGMMA, UTMALDG and HMMA instructions of each bf16 kernel in
+    `cuobjdump -sass` of the built libraries; raise if one lacks wgmma or
+    TMA, or still has an mma.sync."""
     from tfde_tpu_torch.utils.build import sass_counts
 
     seen = set()
     for lib in libs.values():
         for symbol, counts in sass_counts(
-                lib.path, ("HGMMA", "UTMALDG", "STL", "LDL")).items():
-            name = next((k for k in HOPPER_KERNELS + ("dq_bf16_kernel",)
-                         if k in symbol), None)
+                lib.path, ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")).items():
+            name = next((k for k in HOPPER_KERNELS if k in symbol), None)
             if name is None:
                 continue
             d = 128 if "ILi128E" in symbol else 64
             print(f"sass: {name}<{d}>: HGMMA {counts['HGMMA']}, UTMALDG "
-                  f"{counts['UTMALDG']}, local-memory STL {counts['STL']} / "
-                  f"LDL {counts['LDL']}")
-            if name in HOPPER_KERNELS:
-                if not (counts["HGMMA"] and counts["UTMALDG"]):
-                    raise AssertionError(f"{name}<{d}> compiled without "
-                                         f"wgmma or TMA: {counts}")
-                seen.add((name, d))
+                  f"{counts['UTMALDG']}, HMMA {counts['HMMA']}, local-memory "
+                  f"STL {counts['STL']} / LDL {counts['LDL']}")
+            if not (counts["HGMMA"] and counts["UTMALDG"]) or counts["HMMA"]:
+                raise AssertionError(f"{name}<{d}> compiled without wgmma or "
+                                     f"TMA, or with mma.sync: {counts}")
+            seen.add((name, d))
     want = {(k, d) for k in HOPPER_KERNELS for d in (64, 128)}
     if seen != want:
         raise AssertionError(f"the SASS check found {sorted(seen)}, not "
@@ -220,14 +220,14 @@ def _check_sass(libs):
 
 def _print_encode_time(fa):
     """Host time of one TMA tensor-map encode (each bf16 launch of the
-    forward encodes 3, of dK/dV 4)."""
+    forward encodes 3, of dK/dV and of dQ 4)."""
     base = torch.empty(8 * 1024 * 12 * 64, dtype=torch.bfloat16,
                        device="cuda")
     fn = fa.build("flash_fwd.cu").lib.tfde_flash_tma_encode_ns
     fn(base.data_ptr(), 100)
     ns = fn(base.data_ptr(), 10000)
     print(f"build: one tensor-map encode takes {ns / 1e3:.2f} us on the host "
-          f"(mean of 10000; 3 a forward launch, 4 a dK/dV launch)")
+          f"(mean of 10000; 3 a forward launch, 4 a dK/dV or dQ launch)")
 
 
 #: (name, B, S, H, KV, D, dtype, causal, window, scale, cap)
@@ -251,7 +251,14 @@ CASES = [
      None, 30.0),
     ("noncausal_s257", 2, 257, 12, 12, 64, torch.bfloat16, False, None, None,
      None),
+    # a window of one key (each row sees only itself) and a query group of
+    # three, not a power of two
+    ("window1_gqa3", 2, 300, 12, 4, 64, torch.bfloat16, True, 1, None, None),
 ]
+
+#: the cases whose backward runs twice and must give the same bits (no
+#: atomics, a fixed order of every sum)
+DETERMINISM_CASES = ("slice", "gqa_window_cap_scale")
 
 #: the D 128 timing shape: the slice's model width (768) as 6 heads of 128
 D128 = (8, 1024, 6, 6, 128)
@@ -273,19 +280,36 @@ def _check_backward(fa, name, q, k, v, causal, window, scale, cap, gen):
     errs = [float((g.float() - w.float()).abs().max())
             for g, w in zip(got, want)]
     tol = BWD_TOL[dtype]
+    # `_grads_rel`: a gradient that is zero in exact arithmetic (dq and dk
+    # under a window of one key: P = 1 and dP = delta, so dS = 0) is held
+    # to 1e-6 of the plain norms together, not compared relatively
+    names = ("dq", "dk", "dv")
+    worst = _grads_rel(dict(zip(names, got)), dict(zip(names, want)))
     ok = (all(g.shape == w.shape for g, w in zip(got, want))
           and all(bool(torch.isfinite(g).all()) for g in got)
-          and all(r <= tol for r in rels)
+          and worst <= tol
           and all(float(w.float().abs().max()) > 0 for w in want))
     norms = [float(w.float().norm()) for w in want]
+    kernel_norms = [float(g.float().norm()) for g in got]
     print(f"kernel flash_bwd {name}: dq rel {rels[0]:.3e}, dk rel "
-          f"{rels[1]:.3e}, dv rel {rels[2]:.3e} (tol {tol:g}); max abs dq "
-          f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}; plain norms "
-          f"{norms[0]:.3e}, {norms[1]:.3e}, {norms[2]:.3e} -> "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{rels[1]:.3e}, dv rel {rels[2]:.3e} (tol {tol:g}; worst "
+          f"{worst:.3e} with zero gradients held to 1e-6 of the norm); max "
+          f"abs dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}; norms "
+          f"plain {norms[0]:.3e}, {norms[1]:.3e}, {norms[2]:.3e}, kernel "
+          f"{kernel_norms[0]:.3e}, {kernel_norms[1]:.3e}, "
+          f"{kernel_norms[2]:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the flash backward pair disagrees with its "
                              f"plain version on case {name}")
+    if name in DETERMINISM_CASES:
+        again = fa.flash_backward(q, k, v, out, lse, do, causal, window,
+                                  scale, cap)
+        same = [bool(torch.equal(a, g)) for a, g in zip(again, got)]
+        print(f"kernel flash_bwd {name}: a second call gives the same dq, dk, "
+              f"dv bits: {same}")
+        if not all(same):
+            raise AssertionError(f"the flash backward pair is not "
+                                 f"deterministic on case {name}: {same}")
     return do, out, lse, errs[0], max(errs[1], errs[2])
 
 
@@ -381,7 +405,7 @@ def phase_kernels(fa, dev):
 
 
 def _time_d128(fa, dev, gen):
-    """The two redesigned kernels at D 128 (8 x 1024 tokens, 6 heads, bf16,
+    """The three bf16 kernels at D 128 (8 x 1024 tokens, 6 heads, bf16,
     causal) beside their bounds and SDPA's forward / backward."""
     import torch.nn.functional as F
 
@@ -393,6 +417,8 @@ def _time_d128(fa, dev, gen):
     fwd_ms = _time_ms(lambda: fa.flash_forward(q, k, v, True), dev)
     dkv_ms = _time_ms(
         lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True), dev)
+    dq_ms = _time_ms(
+        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True), dev)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
@@ -403,10 +429,12 @@ def _time_d128(fa, dev, gen):
         ref, (qt, kt, vt), dot, retain_graph=True), dev)
     fb, fby = _bound(b, s, h, kv, d, torch.bfloat16, True, None)
     db, dby = _bound(b, s, h, kv, d, torch.bfloat16, True, None, "dkv")
+    qb, qby = _bound(b, s, h, kv, d, torch.bfloat16, True, None, "dq")
     print(f"kernel D128 timing ({b} x {s}, {h} heads, D {d}, bf16, causal): "
           f"flash_fwd {fwd_ms:.4f} ms (bound {fb:.4f}, {fby}; SDPA forward "
           f"{sdpa_fwd:.4f}), flash_bwd_dkv {dkv_ms:.4f} ms (bound {db:.4f}, "
-          f"{dby}; SDPA backward, whole {sdpa_bwd:.4f})")
+          f"{dby}), flash_bwd_dq {dq_ms:.4f} ms (bound {qb:.4f}, {qby}); "
+          f"SDPA backward, whole {sdpa_bwd:.4f}")
 
 
 def phase_parity(dev):

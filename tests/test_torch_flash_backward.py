@@ -10,13 +10,15 @@ for a ragged S (the Pallas path refuses it). dq, dk and dv each within
 1e-5 relative Frobenius; inputs from numpy seeds, fp32. Then the autograd
 path, the CUDA wrapper's checks (through a tensor that reports a CUDA
 device), the kernels' tile loops against `_tile_in_band`, the ctypes
-signatures and the build digest. The CUDA kernels themselves are held
+signatures, the launch's error text and the build digest. The CUDA kernels themselves are held
 against this plain version on the card by chip_smoke.py.
 """
 
+import contextlib
 import ctypes
 import os
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -235,9 +237,10 @@ def _k_tile_range(qi, s, causal, window, bm=64, bn=64):
 
 
 #: each kernel's (Q tile rows, K tile columns): the forward's 128 x 128,
-#: the dK/dV kernel's 64-row Q tiles against 128 keys, the dQ kernel's
-#: (and the fp32 kernels') 64 x 64
-KERNEL_TILES = [(128, 128), (64, 128), (64, 64)]
+#: the dK/dV kernel's 64-row Q tiles against 128 keys, the bf16 dQ
+#: kernel's 128-row Q tiles against 64-key K tiles, and the fp32 kernels'
+#: 64 x 64
+KERNEL_TILES = [(128, 128), (64, 128), (128, 64), (64, 64)]
 
 
 @pytest.mark.parametrize("bm,bn", KERNEL_TILES)
@@ -342,3 +345,33 @@ def test_sass_opcode_counts_per_kernel():
         "_Z3fwdILi64EEvv": {"HGMMA": 2, "UTMALDG": 1, "HMMA": 0},
         "_Z2dqILi64EEvv": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1},
     }
+
+
+def test_tma_encode_error_mirrors_the_c_constant():
+    """The Python constant that tells a refused tensor map from a CUDA
+    error is the one the C entry points add to the CUresult."""
+    with open(os.path.join(CSRC, "flash_common.cuh")) as f:
+        value = re.search(r"constexpr int TMA_ENCODE_ERROR = (\d+);",
+                          f.read()).group(1)
+    assert tfa.TMA_ENCODE_ERROR == int(value)
+
+
+@pytest.mark.parametrize("ret,match", [
+    (tfa.TMA_ENCODE_ERROR + 1,
+     r"^tfde_flash_bwd_dq: the CUDA driver refused a TMA tensor map "
+     r"\(CUresult 1\)$"),
+    (700, r"^tfde_flash_bwd_dq launch failed: cudaError_t 700$")])
+def test_call_tells_a_refused_tensor_map_from_a_cuda_error(monkeypatch, ret,
+                                                          match):
+    """A C entry point's non-zero return raises: at TMA_ENCODE_ERROR and
+    above naming the refused tensor map and the driver's CUresult, below
+    it as a cudaError_t (a fake library, no card)."""
+    lib = types.SimpleNamespace(tfde_flash_bwd_dq=lambda *args: ret)
+    monkeypatch.setattr(tfa, "build",
+                        lambda source: types.SimpleNamespace(lib=lib))
+    monkeypatch.setattr(tfa.torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(tfa.torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    with pytest.raises(RuntimeError, match=match):
+        tfa._call("flash_bwd.cu", "tfde_flash_bwd_dq", torch.device("cuda"))

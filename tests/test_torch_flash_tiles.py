@@ -7,8 +7,8 @@ no visible pair inside S, the second sends a block whose every pair is
 visible and inside S down the mask-free path. Then the kernels' whole
 loops (the block's band of tiles, the warpgroups' blocks within a tile,
 the skip) cover every visible pair exactly once, with the forward's
-128 x 128 tiles and the dK/dV kernel's 128 keys x 64 queries (taken in
-halves at D 128). Pure Python and numpy; the kernels themselves are held
+128 x 128 tiles, the dK/dV kernel's 128 keys x 64 queries (taken in
+halves at D 128) and the dQ kernel's 128 query rows x 64 keys. Pure Python and numpy; the kernels themselves are held
 against the plain versions on the card by chip_smoke.py.
 """
 
@@ -20,8 +20,9 @@ from tfde_tpu_torch.ops import flash_attention as tfa
 from test_torch_flash_backward import _k_tile_range, _q_tile_range
 
 #: (rows, cols) of the block one warpgroup computes: the forward's 64 query
-#: rows x 128 keys, the dK/dV kernel's 64 queries x 64 keys (D 64) and 32
-#: queries x 64 keys (D 128, a Q tile in two halves)
+#: rows x 128 keys, the dK/dV kernel's 64 queries x 64 keys (D 64; also the
+#: dQ kernel's 64 query rows x 64 keys) and 32 queries x 64 keys (D 128, a
+#: Q tile in two halves)
 WG_BLOCKS = [(64, 128), (64, 64), (32, 64)]
 WINDOWS = [None, 1, 64, 65, 127, 128, 129]
 
@@ -136,3 +137,34 @@ def test_dkv_loops_cover_every_visible_pair_once(s, causal, window, qn):
     want = _visible(s, causal, window, 0, 0, s, s)
     assert seen.max() <= 1
     assert (seen[want] == 1).all()
+
+
+@pytest.mark.parametrize("s", [16, 64, 129, 200, 333, 1024])
+@pytest.mark.parametrize("causal,window",
+                         [(False, None)] + [(True, w) for w in WINDOWS])
+def test_dq_loops_cover_every_visible_pair_once(s, causal, window):
+    """The bf16 dQ kernel: one block per 128-row Q tile, its K loop over
+    `band<128, 64>`, two warpgroups of 64 rows that skip what
+    `tile_live<64, 64>` rejects and send what `tile_unmasked<64, 64>`
+    accepts down the mask-free path. Every visible pair inside S is
+    computed exactly once, and every mask-free block holds only visible
+    pairs inside S."""
+    pairs, n_unmasked = [], 0
+    for qi in range(-(-s // 128)):
+        for kb in _k_tile_range(qi, s, causal, window, 128, 64):
+            assert bool(tfa._tile_in_band(qi, kb, 128, 64, causal, window))
+            for w in range(2):
+                r0, c0 = qi * 128 + 64 * w, kb * 64
+                if not _tile_live(s, causal, window, r0, c0, 64, 64):
+                    continue
+                pairs.append((r0, c0, 64, 64))
+                if _tile_unmasked(s, causal, window, r0, c0, 64, 64):
+                    n_unmasked += 1
+                    assert _visible(s, causal, window, r0, c0, 64, 64).all()
+    seen = _covered(s, pairs)
+    want = _visible(s, causal, window, 0, 0, s, s)
+    assert seen.max() <= 1
+    assert (seen[want] == 1).all()
+    # interior blocks skip the mask wherever a whole block is visible
+    if s >= 200 and (window is None or window >= 128):
+        assert n_unmasked > 0

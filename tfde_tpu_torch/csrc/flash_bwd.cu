@@ -20,14 +20,15 @@
 //   query head, batch) and loops over the in-band K tiles of KV head
 //   h / (H / KV) (`band`, the forward's loop). Looping over the group
 //   covers GQA with no cross-block reduction and no atomics; the Pallas
-//   pair is MHA only. Two kernels, no atomics: deterministic run to run.
+//   pair is MHA only. Two kernels, no atomics, a fixed order of the sums:
+//   deterministic run to run.
 // - q/k/v/dO are read in the caller's BSHD layout through element strides
 //   (head dim contiguous); lse and delta as [B, H, S] fp32 (the TPU's
 //   128-lane broadcast is a Mosaic layout, not data).
 // - Ragged S: rows and columns past S are masked and never stored.
-// - bf16 runs every product on the tensor cores (wgmma in the dK/dV kernel,
-//   mma.sync in the dQ kernel); fp32 runs them in fp32 FMA on the CUDA
-//   cores (TF32 would miss the fp32 tolerance). head_dim 64 or 128.
+// - bf16 runs every product on the tensor cores (wgmma); fp32 runs them in
+//   fp32 FMA on the CUDA cores (TF32 would miss the fp32 tolerance).
+//   head_dim 64 or 128.
 //
 // Bound on the H100: at the training slice's shape (8 x 1024 tokens, 12
 // heads, D = 64, bf16, causal; 50.4 M visible pairs) the dK/dV kernel does
@@ -36,19 +37,22 @@
 // GFLOP, ~20 us) and ~64 MB (~19 us): both are bound by the operations,
 // with the bytes close behind.
 //
-// The bf16 dK/dV kernel, for Hopper: all four products are wgmma (S^T and
-// dP^T from shared memory, dV and dK with P^T and dS^T as register A
-// fragments); a block owns 128 keys with two consumer warpgroups of 64, so
-// every Q/dO tile streamed serves 128 keys; a producer warpgroup keeps the
-// Q/dO tiles in flight by TMA through an mbarrier ring, with lse/delta
-// beside them (cp.async); at D = 128, where the dK and dV accumulators
-// alone take 128 of a thread's 168 registers, each Q tile in two halves;
-// tiles whose every pair is visible skip the mask, warpgroup blocks with no
-// visible pair are skipped; no atomics, so dK and dV are the same run to
-// run. The dQ kernel
-// keeps its first design: mma.sync m16n8k16 with cp.async double buffering,
-// the score, dP and dS tiles in registers, out-of-band tiles neither loaded
-// nor computed; its redesign for Hopper is the next step.
+// Both bf16 kernels have one Hopper shape: 384-thread blocks of two
+// consumer warpgroups and a producer warpgroup whose one thread keeps TMA
+// loads in flight through an mbarrier ring; every product is a wgmma, the
+// operands that stream from shared memory and the ones computed in the
+// block (P, dS) from registers; warpgroup blocks with no visible pair are
+// skipped and blocks whose every pair is visible skip the mask; no atomics.
+// - dK/dV: a block owns 128 keys (64 a warpgroup), so every Q/dO tile
+//   streamed serves 128 keys; lse/delta ride beside the Q/dO tiles
+//   (cp.async); at D = 128, where the dK and dV accumulators alone take 128
+//   of a thread's 168 registers, each Q tile in two halves.
+// - dQ: a block owns 128 query rows (64 a warpgroup) with Q, dO, lse and
+//   delta stationary, so every K/V tile streamed serves 128 rows; S and dP
+//   are issued back to back (no running max sits between them) and P is
+//   computed while dP is still on the tensor cores; at D = 64 the dQ
+//   product of one tile stays in flight under the next tile's S and dP;
+//   the longest causal rows launch first.
 
 #include "flash_common.cuh"
 
@@ -81,13 +85,12 @@ struct Params {
 
 // dS of one (row, col) pair from its dot products q.k and dO.v: P
 // recomputed from lse, then P (dP - delta) [(1 - t^2)] scale. *pe gets P.
-template <bool FAST_EXP>
 __device__ __forceinline__ float grad_score(float qk, float dov, int row,
                                             int col, float lse, float delta,
                                             const Params& p, float* pe) {
   float t = 0.f;  // rows past S are masked and leave t unset
   const float z = row < p.S ? score(qk, row, col, p, &t) : NEG;
-  const float pr = FAST_EXP ? __expf(z - lse) : expf(z - lse);
+  const float pr = expf(z - lse);
   float ds = pr * (dov - delta);
   if (p.cap > 0.f) ds *= 1.f - t * t;
   *pe = pr;
@@ -210,7 +213,7 @@ dkv_fp32_kernel(const Params p) {
         for (int j = 0; j < CPT; ++j) {
           const int ql = tx + 16 * j, kl = ty * RPT + i;
           float pe;
-          const float ds = grad_score<false>(s[i][j], dp[i][j], q0 + ql,
+          const float ds = grad_score(s[i][j], dp[i][j], q0 + ql,
                                              k0 + kl, Ls[ql], Ds[ql], p, &pe);
           Ps[kl * PP + ql] = pe;
           Ss[kl * PP + ql] = ds;
@@ -344,7 +347,7 @@ dq_fp32_kernel(const Params p) {
       for (int j = 0; j < CPT; ++j) {
         const int ql = ty * RPT + i, kl = tx + 16 * j;
         float pe;
-        Ss[ql * SP + kl] = grad_score<false>(s[i][j], dp[i][j], q0 + ql,
+        Ss[ql * SP + kl] = grad_score(s[i][j], dp[i][j], q0 + ql,
                                              k0 + kl, lse[i], delta[i], p,
                                              &pe);
       }
@@ -377,56 +380,7 @@ dq_fp32_kernel(const Params p) {
   }
 }
 
-// ------------------------------------------------------------- bf16 dQ --
-// 128 threads = 4 warps; warp w owns query rows 16w .. 16w+15 of the
-// block's stationary Q tile, so each warp's score, dP and dS tiles are
-// 16 x 64 fragments in its registers (the layout in flash_common.cuh).
-// Tiles are staged row-major with a pitch of D + 8 bf16: the 8 rows one
-// fragment load or ldmatrix touches fall in distinct banks, and every row
-// stays 16-byte aligned for cp.async.
-constexpr int M_THREADS = 128;
 using bf16 = __nv_bfloat16;
-
-// rows [r0, r0 + BM) of one head of a BSHD bf16 tensor into a tile of
-// pitch D + 8 by cp.async (not committed); rows past S are zero-filled
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
-                                               long long row_stride, int r0,
-                                               int S, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < BM * CH; i += M_THREADS) {
-    const int r = i / CH, ch = i % CH, row = r0 + r;
-    const bool ok = row < S;
-    cp_async16(dst + r * (D + 8) + ch * 8,
-               src + (ok ? (long long)row : 0) * row_stride + ch * 8, ok);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(void* base, long long sb,
-                                                long long ss, long long sh,
-                                                int b, int hd, int r0,
-                                                float (*acc)[4],
-                                                int S, int lane) {
-  const int g = lane >> 2, c = (lane & 3) * 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + r * 8;
-    if (row < S) {
-      bf16* out = static_cast<bf16*>(base) + b * sb + row * ss + hd * sh;
-#pragma unroll
-      for (int t = 0; t < D / 8; ++t)
-        *reinterpret_cast<__nv_bfloat162*>(out + t * 8 + c) =
-            __floats2bfloat162_rn(acc[t][2 * r], acc[t][2 * r + 1]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // two stationary tiles (Q, dO) plus two stages of two streamed tiles
-  return sizeof(bf16) * 6 * (size_t)BM * (D + 8);
-}
 
 // -------------------------------------------------------- bf16 dK / dV --
 // 384 threads: warpgroups 0 and 1 are the consumers, each owning 64 of the
@@ -597,17 +551,18 @@ __device__ __forceinline__ void dkv_step(float (&dv)[D / 2], float (&dk)[D / 2],
   }
 }
 
-// rows key0 and key0 + 8 of one KV head of dK or dV, bf16
+// rows row0 and row0 + 8 of head hd of a BSHD bf16 tensor (dK, dV, dQ)
+// from a thread's wgmma accumulator; rows past S are not stored
 template <int D>
-__device__ __forceinline__ void store_keys(void* base, long long sb,
+__device__ __forceinline__ void store_rows(void* base, long long sb,
                                            long long ss, long long sh, int b,
-                                           int kvh, int key0, int c,
+                                           int hd, int row0, int c,
                                            const float (&acc)[D / 2], int S) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key < S) {
-      bf16* out = static_cast<bf16*>(base) + b * sb + key * ss + kvh * sh;
+    const int row = row0 + 8 * r;
+    if (row < S) {
+      bf16* out = static_cast<bf16*>(base) + b * sb + row * ss + hd * sh;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + c) =
@@ -710,8 +665,8 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                                   LD[stage][1], q0, kw0, key0, c, p);
       mbar_arrive(&empty[stage]);
     }
-    store_keys<D>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, kvh, key0, c, dv, p.S);
-    store_keys<D>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, kvh, key0, c, dk, p.S);
+    store_rows<D>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, kvh, key0, c, dv, p.S);
+    store_rows<D>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, kvh, key0, c, dk, p.S);
   }
 }
 
@@ -740,93 +695,265 @@ int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------------------------- bf16 dQ --
+// 384 threads: warpgroups 0 and 1 are the consumers, each owning 64 of the
+// block's 128 query rows of one query head, warpgroup 2 the producer. The
+// producer loads the Q and dO tiles once, then streams the in-band K/V
+// tiles of KV head h / (H / KV) through a ring of DQ_STAGES stages (full
+// barrier: the TMA bytes; empty barrier: the 256 consumer threads). lse and
+// delta are per query row: each consumer thread reads its two rows once,
+// before the loop. A consumer runs, for its 64 queries x a tile's 64 keys:
+//   S = Q K^T, then dP = dO V^T   wgmma, A and B from shared memory,
+//                                 K-major, each its own commit group
+//   P [(1 - tanh^2)] scale        in registers, once S is in, while dP runs
+//   dS = that (dP - delta)        in registers, rounded to bf16 (A fragments)
+//   dQ += dS K                    wgmma, dS from registers, K MN-major
+// At D = 64 the dQ product of one tile stays in flight while the next
+// tile's S and dP are issued; the wait for S takes it too, and its stage is
+// released then. Live in a consumer thread: S and dP 64 registers, dS's
+// fragments 16, the dQ accumulator 32 (D = 64) or 64 (D = 128), of
+// ptxas's 168. Measured on the H100 (PERF.md): one commit group for
+// S and dP ran 0.129 ms at the slice shape, two 0.116; a ping-pong of the
+// two warpgroups on named barriers 0.141; 8 stages in place of 4, or the
+// dS math under the previous dQ product, no faster.
+constexpr int DQ_BM = 128;        // query rows per block
+constexpr int DQ_BN = 64;         // keys per K/V tile
+constexpr int DQ_STAGES = 4;      // K/V tiles in flight
+constexpr int DQ_THREADS = 384;   // 2 consumer warpgroups, then the producer
+constexpr int DQ_QO_SLAB = DQ_BM * 128;  // bytes of a 64-column slab of Q or dO
+constexpr int DQ_KV_SLAB = DQ_BN * 128;  // ... of K or V
+
 template <int D>
-__global__ void __launch_bounds__(M_THREADS)
-dq_bf16_kernel(const Params p) {
-  constexpr int KP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Os = Qs + BM * KP;
-  bf16* KV = Os + BM * KP;  // stage s: K at 2s, V at 2s + 1
+constexpr size_t dq_smem_bytes() {
+  // Q and dO, then DQ_STAGES x (K, V), each D / 64 slabs; 1024 bytes of
+  // slack to align the base for the 128-byte swizzle
+  return (size_t)(D / 64) * (2 * DQ_QO_SLAB + 2 * DQ_STAGES * DQ_KV_SLAB) +
+         1024;
+}
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  const int q0 = blockIdx.x * BM;
-  const int wr = warp * 16;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  load_rows_bf16<D>(Qs, static_cast<const bf16*>(p.q) + b * p.q_sb +
-                            h * p.q_sh, p.q_ss, q0, p.S, tid);
-  load_rows_bf16<D>(Os, static_cast<const bf16*>(p.dout) + b * p.o_sb +
-                            h * p.o_sh, p.o_ss, q0, p.S, tid);
-  cp_async_commit();
-  float lse[2], delta[2];  // rows wr + g and wr + g + 8
+// P of one warpgroup's 64 queries x DQ_BN keys, in place in s, times the
+// factors dS takes besides dP - delta: P = exp(z - lse), z the capped,
+// scaled (MASKED: and masked) score, then s = P [* (1 - tanh^2)] * scale.
+// Element i is (query row0 + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2) + c +
+// (i & 1)); lse2 holds the two rows' lse times log2 e. A masked score
+// (-1e30) gives P = 0 whatever the row's lse, so a row with no visible key
+// gets dS = 0.
+template <bool MASKED>
+__device__ __forceinline__ void dq_p_tile(float (&s)[DQ_BN / 2], int row0,
+                                          int k0, int c, const float* lse2,
+                                          const Params& p) {
+  const float sl = p.scale * LOG2E;
+  const float inv_cap = p.cap > 0.f ? p.scale / p.cap : 0.f;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + r * 8;
-    lse[r] = row < p.S ? p.lse[lse_index(p, b, h, row)] : 0.f;
-    delta[r] = row < p.S ? p.delta[lse_index(p, b, h, row)] : 0.f;
-  }
-
-  int kb_begin, kb_end;
-  band(p, q0, kb_begin, kb_end);
-  auto load_tile = [&](int kb, int stage) {
-    bf16* ks = KV + 2 * stage * BN * KP;
-    load_rows_bf16<D>(ks, kg, p.k_ss, kb * BN, p.S, tid);
-    load_rows_bf16<D>(ks + BN * KP, vg, p.v_ss, kb * BN, p.S, tid);
-    cp_async_commit();
-  };
-  if (kb_begin < kb_end) load_tile(kb_begin, 0);
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[t][e] = 0.f;
-
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int stage = (kb - kb_begin) & 1;
-    if (kb + 1 < kb_end) {
-      load_tile(kb + 1, stage ^ 1);
-      cp_async_wait<1>();
+  for (int i = 0; i < DQ_BN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float t = 0.f, e;
+    if (MASKED) {
+      const int row = row0 + 8 * r, col = k0 + 8 * (i >> 2) + c + (i & 1);
+      const float z = row < p.S ? score(s[i], row, col, p, &t) : NEG;
+      e = fmaf(z, LOG2E, -lse2[r]);
+    } else if (p.cap > 0.f) {
+      t = tanhf(s[i] * inv_cap);
+      e = fmaf(p.cap * t, LOG2E, -lse2[r]);
     } else {
-      cp_async_wait<0>();
+      e = fmaf(s[i], sl, -lse2[r]);
     }
-    __syncthreads();
-    const bf16* ks = KV + 2 * stage * BN * KP;
-    const bf16* vs = ks + BN * KP;
-    const int k0 = kb * BN;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D>(s, Qs, wr, ks, KP, lane);
-    mma_abt<D>(dp, Os, wr, vs, KP, lane);
-
-    // dS in place: element (query wr+g+8(e/2), key 8j+c+e%2)
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pe;
-        dp[j][e] = grad_score<true>(s[j][e], dp[j][e],
-                                    q0 + wr + g + (e >> 1) * 8,
-                                    k0 + j * 8 + c + (e & 1), lse[e >> 1],
-                                    delta[e >> 1], p, &pe);
-      }
-    mma_cb<D>(dq, dp, ks, KP, lane);  // dQ += dS K
-    __syncthreads();  // this stage is free for the copy after next
+    s[i] = exp2_approx(e) * (p.cap > 0.f ? (1.f - t * t) * p.scale : p.scale);
   }
-  cp_async_wait<0>();
+}
 
-  store_rows_bf16<D>(p.dq, p.dq_sb, p.dq_ss, p.dq_sh, b, h, q0 + wr, dq,
-                     p.S, lane);
+// acc = A B^T over one tile, one commit group, not waited for: A the
+// warpgroup's 64 rows of Q or dO at a_addr, B a tile's DQ_BN rows of K or V
+// at b_addr, both K-major; D / 16 k-steps of 32 bytes inside a slab (S =
+// Q K^T, dP = dO V^T).
+template <int D>
+__device__ __forceinline__ void dq_ss_product(float (&acc)[DQ_BN / 2],
+                                              uint32_t a_addr,
+                                              uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t aoff = (kk / 4) * DQ_QO_SLAB + (kk % 4) * 32;
+    const uint32_t boff = (kk / 4) * DQ_KV_SLAB + (kk % 4) * 32;
+    wgmma_ss<DQ_BN>(acc, desc_sw128(a_addr + aoff, 16, 1024),
+                    desc_sw128(b_addr + boff, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// dQ += dS K over one tile: DQ_BN / 16 k-steps of 16 keys = 2048 bytes of
+// K rows each, K MN-major (the second 64-column slab at D = 128 one slab
+// on); committed as one group, not waited for.
+template <int D>
+__device__ __forceinline__ void dq_product(float (&dq)[D / 2],
+                                           const uint32_t (&dsa)[DQ_BN / 4],
+                                           uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < DQ_BN / 16; ++kk)
+    wgmma_rs<D>(dq, dsa + 4 * kk, desc_sw128(k_addr + kk * 2048, DQ_KV_SLAB,
+                                             1024),
+                1);
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do, const Params p) {
+  constexpr int NS = D / 64;  // slabs per tile
+  // D = 128 waits for each dQ product at once: with it in flight beside S,
+  // dP and the 64 dQ accumulators, ptxas serializes every wgmma (C7512)
+  constexpr bool OVERLAP = D == 64;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t qo_full, full[DQ_STAGES], empty[DQ_STAGES];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Os = Qs + NS * DQ_QO_SLAB;
+  unsigned char* KV = Os + NS * DQ_QO_SLAB;  // stage s: K at 2s, V at 2s + 1
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BM;  // longest rows first
+  const int kvh = h / (p.H / p.KV);
+  int kb_begin, kb_end;
+  band<DQ_BM, DQ_BN>(p, q0, kb_begin, kb_end);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(&qo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // -------------------------------------------- producer --
+    regs_dealloc<40>();
+    if (tid == 256) {
+      mbar_arrive_tx(&qo_full, 2 * NS * DQ_QO_SLAB);
+      for (int s = 0; s < NS; ++s) {
+        tma_load(Qs + s * DQ_QO_SLAB, &map_q, &qo_full, 64 * s, h, q0, b);
+        tma_load(Os + s * DQ_QO_SLAB, &map_do, &qo_full, 64 * s, h, q0, b);
+      }
+      for (int kb = kb_begin; kb < kb_end; ++kb) {
+        const int i = kb - kb_begin, stage = i % DQ_STAGES;
+        mbar_wait(&empty[stage], ((i / DQ_STAGES) & 1) ^ 1);
+        unsigned char* ks = KV + 2 * stage * NS * DQ_KV_SLAB;
+        mbar_arrive_tx(&full[stage], 2 * NS * DQ_KV_SLAB);
+        for (int s = 0; s < NS; ++s) {
+          tma_load(ks + s * DQ_KV_SLAB, &map_k, &full[stage], 64 * s, kvh,
+                   kb * DQ_BN, b);
+          tma_load(ks + (NS + s) * DQ_KV_SLAB, &map_v, &full[stage], 64 * s,
+                   kvh, kb * DQ_BN, b);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------- consumers --
+    regs_alloc<232>();
+    const int w = wg, t = tid % 128;
+    const int lane = t & 31, g = lane >> 2, c = (lane & 3) * 2;
+    const int r0 = q0 + 64 * w;               // this warpgroup's first row
+    const int row0 = r0 + 16 * (t >> 5) + g;  // this thread's rows: +0, +8
+    const uint32_t q_addr = smem_u32(Qs) + w * 64 * 128;
+    const uint32_t o_addr = smem_u32(Os) + w * 64 * 128;
+    const uint32_t kv_addr = smem_u32(KV);
+    float lse2[2], dl[2];  // rows past S: never stored, masked in dS
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const bool ok = row < p.S;
+      lse2[r] = ok ? p.lse[lse_index(p, b, h, row)] * LOG2E : 0.f;
+      dl[r] = ok ? p.delta[lse_index(p, b, h, row)] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    uint32_t dsa[DQ_BN / 4];  // dS rounded to bf16: dQ's A fragments
+    int pending = -1;         // the stage whose dQ product is in flight
+    mbar_wait(&qo_full, 0);
+
+    for (int kb = kb_begin; kb < kb_end; ++kb) {
+      const int i = kb - kb_begin, stage = i % DQ_STAGES;
+      const int k0 = kb * DQ_BN;
+      mbar_wait(&full[stage], (i / DQ_STAGES) & 1);
+      if (!tile_live<64, DQ_BN>(p, r0, k0)) {
+        mbar_arrive(&empty[stage]);
+        continue;
+      }
+      const uint32_t k_addr = kv_addr + 2 * stage * NS * DQ_KV_SLAB;  // V next
+      // S = Q K^T, then dP = dO V^T, each its own commit group: P is
+      // computed while dP is on the tensor cores
+      float s[DQ_BN / 2], dp[DQ_BN / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      dq_ss_product<D>(s, q_addr, k_addr);
+      dq_ss_product<D>(dp, o_addr, k_addr + NS * DQ_KV_SLAB);
+      wgmma_wait<1>();  // S, and the previous tile's dQ product
+      fence_regs(s);
+      fence_regs(dq);
+      fence_regs(dsa);
+      if (pending >= 0) mbar_arrive(&empty[pending]);
+      if (tile_unmasked<64, DQ_BN>(p, r0, k0))
+        dq_p_tile<false>(s, row0, k0, c, lse2, p);
+      else
+        dq_p_tile<true>(s, row0, k0, c, lse2, p);
+      wgmma_wait<0>();  // dP
+      fence_regs(dp);
+#pragma unroll
+      for (int e = 0; e < DQ_BN / 2; ++e)
+        dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]);
+      // dQ += dS K, dS rounded to bf16 (the TPU kernel casts it to the
+      // input dtype); left in flight at D = 64
+#pragma unroll
+      for (int kk = 0; kk < DQ_BN / 16; ++kk) acc_to_a(dsa + 4 * kk, dp, kk);
+      fence_regs(dq);
+      fence_regs(dsa);
+      wgmma_fence();
+      dq_product<D>(dq, dsa, k_addr);
+      if constexpr (OVERLAP) {
+        pending = stage;
+      } else {
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(dsa);
+        mbar_arrive(&empty[stage]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dsa);
+    if (pending >= 0) mbar_arrive(&empty[pending]);
+    store_rows<D>(p.dq, p.dq_sb, p.dq_ss, p.dq_sh, b, h, row0, c, dq, p.S);
+  }
+}
+
+template <int D>
+int launch_dq_bf16(const Params& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  if (int e = hopper::encode_rows_map(&mq, p.q, p.B, p.S, p.H, D, p.q_sb,
+                                      p.q_ss, p.q_sh, DQ_BM))
+    return TMA_ENCODE_ERROR + e;
+  if (int e = hopper::encode_rows_map(&mk, p.k, p.B, p.S, p.KV, D, p.k_sb,
+                                      p.k_ss, p.k_sh, DQ_BN))
+    return TMA_ENCODE_ERROR + e;
+  if (int e = hopper::encode_rows_map(&mv, p.v, p.B, p.S, p.KV, D, p.v_sb,
+                                      p.v_ss, p.v_sh, DQ_BN))
+    return TMA_ENCODE_ERROR + e;
+  if (int e = hopper::encode_rows_map(&mo, p.dout, p.B, p.S, p.H, D, p.o_sb,
+                                      p.o_ss, p.o_sh, DQ_BM))
+    return TMA_ENCODE_ERROR + e;
+  auto kernel = dq_bf16_kernel<D>;
+  const size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.H, p.B, (p.S + DQ_BM - 1) / DQ_BM);
+  kernel<<<grid, DQ_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
+  return (int)cudaGetLastError();
 }
 
 int check(const Params& p, int D, int dtype) {
@@ -897,7 +1024,8 @@ extern "C" int tfde_flash_bwd_dkv(
   return launch_dkv_bf16<128>(p, s);
 }
 
-// dQ [B, S, H, D]: grid (ceil(S / 64), H, B).
+// dQ [B, S, H, D]: grid (ceil(S / 64), H, B) for fp32, (H, B,
+// ceil(S / 128)) for bf16.
 extern "C" int tfde_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq,
@@ -925,9 +1053,6 @@ extern "C" int tfde_flash_bwd_dq(
   if (dtype == 0)
     return (int)launch(dq_fp32_kernel<128>, grid, F_THREADS,
                        dq_fp32_smem_bytes<128>(), p, s);
-  if (D == 64)
-    return (int)launch(dq_bf16_kernel<64>, grid, M_THREADS,
-                       dq_smem_bytes<64>(), p, s);
-  return (int)launch(dq_bf16_kernel<128>, grid, M_THREADS,
-                     dq_smem_bytes<128>(), p, s);
+  if (D == 64) return launch_dq_bf16<64>(p, s);
+  return launch_dq_bf16<128>(p, s);
 }

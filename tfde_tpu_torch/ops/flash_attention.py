@@ -45,7 +45,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _auto_block(s: int) -> int:
     """The JAX package's default tile edge: the largest of 512/256/128 that
     divides S, else min(S, 128). Kept for `bwd_tile_plan` parity; the
-    CUDA kernel's own tiles are 64 x 64 (csrc/flash_fwd.cu BM, BN)."""
+    CUDA kernels' own tiles are set in csrc/ (the bf16 kernels' 128-row
+    blocks, the fp32 kernels' 64 x 64)."""
     for bl in (512, 256, 128):
         if s % bl == 0:
             return bl
@@ -299,11 +300,20 @@ def _check_launchable(*tensors: torch.Tensor) -> None:
                          "every tensor needs 16-byte aligned rows")
 
 
+#: what a C entry point returns, plus the CUDA driver's CUresult, when the
+#: driver refuses a TMA tensor map (`TMA_ENCODE_ERROR` in
+#: csrc/flash_common.cuh; above every cudaError_t)
+TMA_ENCODE_ERROR = 10000
+
+
 def _call(source: str, name: str, device: torch.device, *args) -> None:
     fn = getattr(build(source).lib, name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
+    if err >= TMA_ENCODE_ERROR:
+        raise RuntimeError(f"{name}: the CUDA driver refused a TMA tensor map "
+                           f"(CUresult {err - TMA_ENCODE_ERROR})")
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
