@@ -37,7 +37,20 @@ without printing a result:
    `synthetic_tokens` (masked AdamW, lr 3e-4, warmup 5, cosine over 20,
    weight decay 0.1); the counters are zeroed just before and read just
    after: each of the three kernels must have run 12 x 20 times, every
-   loss must be finite and the last below the first.
+   loss must be finite and the last below the first;
+8. dp     — data parallelism on a one-rank NCCL group: BatchNormCNN under
+   MultiWorkerMirroredStrategy (DDP) on CUDA against the CPU for five
+   sgd(0.05) steps, in fp32 and in fp64 (and whether fp32 card runs repeat
+   their bits, with cuDNN's default algorithms and deterministic ones);
+   the reference recipe (global batch 128, sgd(0.2,
+   momentum 0.9), 300 steps of synthetic MNIST) with ms per step, images/s
+   and memory, its loss below 0.1 and the 10000 test images, the last
+   batch ragged and masked, at accuracy >= 0.95; on a machine with more
+   than one card, one process a card on NCCL (parity against the CPU, the
+   same bits on every rank, the recipe's ms per step and its scaling
+   efficiency against the same worker as one rank on one card); then, the group destroyed, `python -m
+   tfde_tpu_torch.mnist_multiworker --device cuda` as a user runs it. It
+   runs none of the flash kernels.
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -154,13 +167,17 @@ def _bound(b, s, h, kv, d, dtype, causal, window, kernel="fwd"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_device():
+def _card() -> str:
+    """The first card's `nvidia-smi --query-gpu=name,power.limit` line."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    lines = smi.stdout.strip().splitlines()
-    print(lines[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    print(_card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} (devices: "
           f"{torch.cuda.device_count()})")
@@ -605,45 +622,44 @@ KERNEL_GROUPS = (
 )
 
 
-def _profile_train(step_fn, state, batches, dev, step_ms):
-    """Device time of a few more train steps by kernel group, from
-    torch.profiler, and the device's idle share: 1 - busy / `step_ms`,
-    the unprofiled step time (the profiler slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
+def _profile_train(run, batches, dev, step_ms, label="train"):
+    """Profile a few more train steps (`run(batch)` -> the step's loss
+    tensor) with torch.profiler and print them (`_print_profile`)."""
+    from tfde_tpu_torch.testing import profile_steps
 
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for x in batches:
-            state, metrics = step_fn(state, (x,))
-            float(metrics["loss"])
-        torch.cuda.synchronize(dev)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-    kernels = [(e.key, e.self_device_time_total / 1e3 / len(batches))
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
-    busy = sum(ms for _, ms in kernels)
+    _print_profile(profile_steps(run, batches, dev), len(batches), step_ms,
+                   label)
+
+
+def _print_profile(prof, n, step_ms, label):
+    """Device time a step by kernel group and the top kernels; the device's
+    idle share, 1 - busy / `step_ms` (the unprofiled step time: the
+    profiler slows the host); the top host operators by self time (the
+    profiler inflates them; their order says where the host spends the
+    step)."""
+    kernels = prof["device"]
     if not kernels:
-        print("train profile: the profiler recorded no device time; busy "
+        print(f"{label} profile: the profiler recorded no device time; busy "
               "share not measured")
         return
+    busy = sum(ms for _, ms in kernels)
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     for key, ms in kernels:
         name = next((g for g, frags in KERNEL_GROUPS
                      if any(f in key.lower() for f in frags)), "other")
         groups[name] += ms
-    print(f"train profile ({len(batches)} steps, torch.profiler): device "
-          f"busy {busy:.2f} ms a step; idle share {1 - busy / step_ms:.3f} "
-          f"of the unprofiled {step_ms:.2f} ms step (profiled wall "
-          f"{wall_ms:.2f} ms)")
-    print("train profile: device ms a step by group "
+    print(f"{label} profile ({n} steps, torch.profiler): device busy "
+          f"{busy:.2f} ms a step; idle share {1 - busy / step_ms:.3f} of the "
+          f"unprofiled {step_ms:.2f} ms step (profiled wall "
+          f"{prof['wall_ms']:.2f} ms)")
+    print(f"{label} profile: device ms a step by group "
           + json.dumps({k: round(v, 3) for k, v in groups.items()}))
     for key, ms in sorted(kernels, key=lambda kv: -kv[1])[:10]:
-        print(f"train profile:   {ms:8.3f} ms  {key[:110]}")
+        print(f"{label} profile:   {ms:8.3f} ms  {key[:110]}")
+    for key, ms, calls in sorted(prof["host"], key=lambda kv: -kv[1])[:6]:
+        print(f"{label} profile: host {ms:8.3f} ms a step, {calls} calls  "
+              f"{key[:80]}")
 
 
 def phase_train(fa, dev):
@@ -699,11 +715,310 @@ def phase_train(fa, dev):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    _profile_train(step_fn, state, batches[steps:], dev, mean_s * 1e3)
+    _profile_train(lambda x: step_fn(state, (x,))[1]["loss"],
+                   batches[steps:], dev, mean_s * 1e3)
     return launches
 
 
-PHASES = ("kernels", "parity", "train_parity", "serve", "train")
+#: dp parity: the CUDA run (DDP on a one-rank NCCL group, cuDNN, fp32 with
+#: TF32 off) against the CPU run on the same weights and batches, five
+#: sgd(0.05) steps of BatchNormCNN. With cuDNN's default algorithms (those
+#: the recipe runs): the losses' max relative error, the final parameters
+#: and running statistics as one vector (relative Frobenius error) and
+#: their max abs error. Not tensor by tensor: the first BatchNorm's bias
+#: (~2e-2) has a gradient that nearly cancels (the next BatchNorm removes
+#: a shift of its input), and the default convolution backward
+#: algorithms, whose bits change run to run, leave it ~4e-4 of itself from
+#: an fp64 run in most runs, where the CPU and cuDNN's deterministic
+#: algorithms leave it ~5e-7. Under `cudnn.deterministic` every tensor is held relatively
+#: (`tensor_rel`), and so is every tensor of the same runs in fp64
+#: (`fp64_rel`), where rounding is ~1e-16.
+DP_TOL = {"loss": 1e-5, "params_rel": 1e-5, "params_abs": 1e-4,
+          "tensor_rel": 1e-4, "fp64_rel": 1e-9}
+#: dp training: the reference recipe (global batch 128, sgd(0.2, momentum
+#: 0.9), dropout 0.5), timed over steps 10-100; the eval at step 100 is
+#: printed only: the running statistics (momentum 0.99) still hold 0.99^100
+#: = 37% of their initial values there, and the JAX package's own run of the
+#: recipe evaluates at 0.44 (CPU). The accuracy is asserted after DP_STEPS.
+DP_BATCH, DP_TIMED, DP_STEPS, DP_EVAL_BATCH = 128, (10, 100), 300, 768
+#: dp: steps profiled after the run (torch.profiler), for the idle share
+DP_PROFILED = 20
+
+
+def _dp_eval(strategy, state, images, labels):
+    """(accuracy, mean loss, weight) of a whole-set pass of `make_eval_step`
+    in batches of DP_EVAL_BATCH, each padded by `pad_batch_for_mesh` to
+    that size: the last (10000 = 13 x 768 + 16) is ragged on purpose."""
+    from tfde_tpu_torch.training.step import make_eval_step, pad_batch_for_mesh
+
+    if DP_EVAL_BATCH % strategy.batch_divisor:
+        raise AssertionError("the eval batch does not divide by the mesh")
+    step = make_eval_step(strategy, state)
+    sums = {"loss_sum": 0.0, "correct_sum": 0.0, "weight": 0.0}
+    for i in range(0, len(images), DP_EVAL_BATCH):
+        batch = pad_batch_for_mesh((images[i:i + DP_EVAL_BATCH],
+                                    labels[i:i + DP_EVAL_BATCH]),
+                                   DP_EVAL_BATCH)
+        for k, v in step(state, batch).items():
+            sums[k] += float(v)
+    w = sums["weight"]
+    return sums["correct_sum"] / w, sums["loss_sum"] / w, w
+
+
+def _dp_parity(dev, images, labels):
+    """BatchNormCNN, five sgd(0.05) steps on the same weights and batches:
+    DDP on the one-rank NCCL group (CUDA) against no group (CPU), in fp32
+    (with cuDNN's default algorithms three times, under
+    `cudnn.deterministic` twice) and in fp64, held to DP_TOL; printed too:
+    whether the repeated card runs give the same bits, and how far each
+    fp32 run lies from the CPU's fp64 run. Returns the CPU fp32 run, for
+    `_dp_cards`."""
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.runtime.mesh import LocalMesh
+    from tfde_tpu_torch.training.optimizers import sgd
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    batches = [(images[i * 64:(i + 1) * 64], labels[i * 64:(i + 1) * 64])
+               for i in range(5)]
+    initial = BatchNormCNN(dropout_rate=0.0, device="cpu", seed=0).state_dict()
+    cuda_strategy = MultiWorkerMirroredStrategy()
+    if torch.distributed.get_backend(cuda_strategy.data_group) != "nccl":
+        raise AssertionError("the CUDA run is not on the NCCL group")
+    cpu_strategy = MultiWorkerMirroredStrategy(mesh=LocalMesh(("data",)))
+
+    def run(device, dtype, strategy, deterministic=False):
+        model = BatchNormCNN(dropout_rate=0.0, device=device, seed=0)
+        model.load_state_dict(initial)
+        model.to(dtype)
+        state = init_state(model, sgd(model, 0.05))
+        step = make_train_step(strategy, state)
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        return losses, {k: v.detach().cpu() for k, v in
+                        model.state_dict().items()}
+
+    l_cpu, p_cpu = run("cpu", torch.float32, cpu_strategy)
+    l_64, p_64 = run("cpu", torch.float64, cpu_strategy)
+    default = [run(dev, torch.float32, cuda_strategy) for _ in range(3)]
+    determ = [run(dev, torch.float32, cuda_strategy, True) for _ in range(2)]
+    l_cuda64, p_cuda64 = run(dev, torch.float64, cuda_strategy)
+
+    def worst(params, ref):
+        errs = {k: _rel(params[k], v) for k, v in ref.items()}
+        k = max(errs, key=errs.get)
+        return f"{errs[k]:.3e} ({k})", errs[k]
+
+    def same(runs):
+        return all(all(torch.equal(p[k], v) for k, v in runs[0][1].items())
+                   for _, p in runs[1:])
+
+    def loss_rel(losses, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+
+    what = (f"{cuda_strategy.describe()} as DDP on NCCL (CUDA) vs no group "
+            f"(CPU)")
+    _dp_compare(what, *default[0], l_cpu, p_cpu)
+    det_loss = loss_rel(determ[0][0], l_cpu)
+    det_text, det_err = worst(determ[0][1], p_cpu)
+    print(f"dp parity, run to run on the card (fp32): same bits in 3 runs "
+          f"with cuDNN's default algorithms: {same(default)}, in 2 with "
+          f"cudnn.deterministic: {same(determ)}; worst single tensor rel vs "
+          f"the CPU's fp32 run: default "
+          f"{[worst(p, p_cpu)[0] for _, p in default]}, deterministic "
+          f"{[worst(p, p_cpu)[0] for _, p in determ]} (tol "
+          f"{DP_TOL['tensor_rel']:g}; losses max rel {det_loss:.3e})")
+    if not (det_err <= DP_TOL["tensor_rel"] and det_loss <= DP_TOL["loss"]):
+        raise AssertionError(f"the fp32 run under cudnn.deterministic "
+                             f"({what}) disagrees with the CPU run: "
+                             f"{det_text}")
+    print(f"dp parity, distance from the CPU's fp64 run (worst single tensor "
+          f"rel): CPU fp32 {worst(p_cpu, p_64)[0]}; card fp32 default "
+          f"{[worst(p, p_64)[0] for _, p in default]}, deterministic "
+          f"{[worst(p, p_64)[0] for _, p in determ]}")
+    loss64 = loss_rel(l_cuda64, l_64)
+    text, err64 = worst(p_cuda64, p_64)
+    print(f"dp parity fp64: {what}: losses max rel {loss64:.3e}, worst single "
+          f"tensor rel {text} (tol {DP_TOL['fp64_rel']:g})")
+    if not (loss64 <= DP_TOL["fp64_rel"] and err64 <= DP_TOL["fp64_rel"]):
+        raise AssertionError(f"the fp64 data-parallel run ({what}) disagrees "
+                             f"with the CPU run")
+    return ({k: v.numpy() for k, v in initial.items()}, batches, l_cpu,
+            p_cpu)
+
+
+def _dp_compare(what, losses, params, l_cpu, p_cpu):
+    """Hold a run's losses and final parameters and statistics to the CPU
+    run's under DP_TOL; print the errors."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l_cpu))
+    vec_rel = _rel(torch.cat([params[k].flatten() for k in p_cpu]),
+                   torch.cat([v.flatten() for v in p_cpu.values()]))
+    abs_err = {k: float((params[k] - v).abs().max()) for k, v in p_cpu.items()}
+    worst = max(abs_err, key=abs_err.get)
+    print(f"dp parity: BatchNormCNN, 5 sgd(0.05) steps of 64, fp32, {what}: "
+          f"losses {[round(x, 6) for x in losses]} vs "
+          f"{[round(x, 6) for x in l_cpu]}, max rel {loss_rel:.3e} (tol "
+          f"{DP_TOL['loss']:g}); parameters and statistics as one vector rel "
+          f"{vec_rel:.3e} (tol {DP_TOL['params_rel']:g}), max abs "
+          f"{abs_err[worst]:.3e} ({worst}; tol {DP_TOL['params_abs']:g}); "
+          f"worst single-tensor rel "
+          f"{max(_rel(params[k], v) for k, v in p_cpu.items()):.3e}")
+    if not (loss_rel <= DP_TOL["loss"] and vec_rel <= DP_TOL["params_rel"]
+            and abs_err[worst] <= DP_TOL["params_abs"]):
+        raise AssertionError(f"the data-parallel run ({what}) disagrees with "
+                             f"the CPU run")
+
+
+def _dp_train(dev, train, test):
+    from tfde_tpu_torch.mnist_multiworker import global_batches
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.training.optimizers import sgd
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    model = BatchNormCNN(device=dev, seed=0)
+    state = init_state(model, sgd(model, 0.2, momentum=0.9))
+    strategy = MultiWorkerMirroredStrategy()
+    step = make_train_step(strategy, state)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    batches = list(global_batches(*train, DP_BATCH, DP_STEPS))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, clock = [], {}
+    for i, batch in enumerate(batches):
+        if i in DP_TIMED:
+            torch.cuda.synchronize(dev)
+            clock[i] = time.perf_counter()
+        if i == DP_TIMED[1]:
+            acc100, loss100, _ = _dp_eval(strategy, state, *test)
+        state, metrics = step(state, batch, generator)
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    ms = (clock[DP_TIMED[1]] - clock[DP_TIMED[0]]) * 1e3 / (
+        DP_TIMED[1] - DP_TIMED[0])
+    acc, eval_loss, weight = _dp_eval(strategy, state, *test)
+    _profile_train(lambda b: step(state, b, generator)[1]["loss"],
+                   batches[:DP_PROFILED], dev, ms, label="dp")
+    print(f"dp train: BatchNormCNN (dropout 0.5), {strategy.describe()} as "
+          f"DDP on NCCL, global batch {DP_BATCH}, sgd(0.2, momentum=0.9), "
+          f"{DP_STEPS} steps; losses at steps 1, 10, 100, {DP_STEPS}: "
+          f"{losses[0]:.4f}, {losses[9]:.4f}, {losses[99]:.4f}, "
+          f"{losses[-1]:.4f}")
+    print(f"dp train: {ms:.3f} ms per step (mean of steps "
+          f"{DP_TIMED[0] + 1}-{DP_TIMED[1]}, host clock after a synchronise), "
+          f"{DP_BATCH / ms * 1e3:.0f} images/s, max memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 20:.1f} MiB, on "
+          f"{_card()}")
+    print(f"dp eval: {int(weight)} test images in batches of "
+          f"{DP_EVAL_BATCH} (the last padded from {len(test[0]) % DP_EVAL_BATCH}"
+          f" and masked): accuracy {acc:.4f} (>= 0.95), loss {eval_loss:.4f}; "
+          f"at step 100 (printed only): accuracy {acc100:.4f}, loss "
+          f"{loss100:.4f}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < 0.1:
+        raise AssertionError(f"the loss ends at {losses[-1]}, not below 0.1")
+    if weight != len(test[0]) or not acc >= 0.95:
+        raise AssertionError(f"eval over {weight} images: accuracy {acc}")
+
+
+def _dp_cards(parity_ref):
+    """Across every card of the machine, one process a card on an NCCL
+    group (`testing.dp_ranks_worker`): the parity run split over the cards
+    against the CPU run, the same bits on every rank, and the recipe at
+    DP_BATCH a card, timed over steps 11-100 (the slowest rank's clock),
+    with its scaling efficiency against the same worker run as one rank on
+    one card just before (the same process setup on both sides)."""
+    from tfde_tpu_torch.testing import dp_ranks_worker, run_ranks
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"dp cards: {n} card on this machine; the run across cards "
+              f"needs two or more (not run)")
+        return
+    initial, batches, l_cpu, p_cpu = parity_ref
+
+    def ranks(world, profiled):
+        store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", f"dp_store_{os.getpid()}_{world}")
+        os.makedirs(os.path.dirname(store), exist_ok=True)
+        try:
+            return run_ranks(dp_ranks_worker, [
+                (world, store, "cuda", ("BatchNormCNN", initial, batches,
+                                        0.05),
+                 DP_BATCH, DP_TIMED[1], DP_TIMED[0], profiled)] * world,
+                timeout=600)
+        finally:
+            if os.path.exists(store):
+                os.remove(store)
+
+    one_ms = ranks(1, 0)[0]["ms"]
+    out = ranks(n, DP_PROFILED)
+    for r, o in enumerate(out):
+        if (o["backend"], o["device"]) != ("nccl", f"cuda:{r}"):
+            raise AssertionError(f"rank {r} ran on {o['backend']}, {o['device']}")
+    first = out[0]["parity"]
+    same = all(np.array_equal(v, o["parity"]["state_dict"][k])
+               for o in out[1:] for k, v in first["state_dict"].items())
+    ms = max(o["ms"] for o in out)
+    rate, one = DP_BATCH * n / ms * 1e3, DP_BATCH / one_ms * 1e3
+    losses = out[0]["losses"]
+    print(f"dp cards: the same parameter bits on all {n} ranks: {same}")
+    print(f"dp cards: recipe at {DP_BATCH} a card (global {DP_BATCH * n}), "
+          f"{DP_TIMED[1]} steps: losses at steps 1, 10, {DP_TIMED[1]}: "
+          f"{losses[0]:.4f}, {losses[9]:.4f}, {losses[-1]:.4f}; {ms:.3f} ms "
+          f"per step (slowest rank; per rank "
+          f"{[round(o['ms'], 3) for o in out]}), {rate:.0f} images/s, scaling "
+          f"efficiency {rate / (n * one):.3f} against the same worker as "
+          f"one rank on one card ({one_ms:.3f} ms per step, {one:.0f} "
+          f"images/s), on {n} x {_card()}")
+    _print_profile(out[0]["profile"], DP_PROFILED, ms, "dp cards rank 0")
+    _dp_compare(f"DDP over {n} cards on NCCL ({64 // n} rows a card) vs the CPU",
+                [h["loss"] for h in first["history"]],
+                {k: torch.as_tensor(v) for k, v in first["state_dict"].items()},
+                l_cpu, p_cpu)
+    if not same:
+        raise AssertionError("the ranks' parameters differ")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss across cards did not fall: {losses}")
+
+
+def phase_dp(dev):
+    """The data-parallel slice on the card: a one-rank NCCL group (NCCL
+    refuses two ranks on one card; on one card every multi-rank check is a
+    gloo test on the CPU), BatchNormCNN under MultiWorkerMirroredStrategy
+    (DDP) against the CPU, the reference recipe trained and evaluated; the
+    group destroyed, the same across every card where the machine has
+    more than one (`_dp_cards`); then `mnist_multiworker.main` run as a
+    user would (its `bootstrap()` at world size 1)."""
+    import torch.distributed as dist
+
+    from tfde_tpu_torch import mnist_multiworker
+    from tfde_tpu_torch.data import datasets
+
+    train, test = datasets.mnist(flatten=True)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        parity_ref = _dp_parity(dev, *train)
+        _dp_train(dev, train, test)
+    finally:
+        dist.destroy_process_group()
+    _dp_cards(parity_ref)
+    t0 = time.perf_counter()
+    state, metrics = mnist_multiworker.main(["--device", "cuda"])
+    print(f"dp entry point: mnist_multiworker.main(['--device', 'cuda']): "
+          f"{state.step} steps of PlainCNN, last {json.dumps(metrics)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if state.step != 15 or not math.isfinite(metrics["loss"]):
+        raise AssertionError(f"the entry point ended at step {state.step} "
+                             f"with {metrics}")
+
+
+PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp")
 
 
 def main(argv=None) -> int:
@@ -740,6 +1055,8 @@ def main(argv=None) -> int:
     if "serve" in phases:
         phase_serve(fa, dev)
     launches = phase_train(fa, dev) if "train" in phases else None
+    if "dp" in phases:
+        phase_dp(dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

@@ -8,14 +8,20 @@ numpy arrays — this module never imports flax or jax) goes through
 - Embed `embedding` [V, E]          -> `weight` [V, E]
 - LayerNorm `scale` / `bias`        -> `weight` / `bias`
 - Dense `kernel` [in, out]          -> Linear `weight` [out, in]
+- Conv `kernel` HWIO [kh, kw, in, out] -> Conv2d `weight` OIHW
 - DenseGeneral q/k/v `kernel` [E, H, D] -> `weight` [H*D, E]
 - DenseGeneral `out` `kernel` [H, D, E] -> `weight` [E, H*D]
 - any `bias` [...]                  -> flattened
+- BatchNorm `batch_stats` `mean` / `var` -> buffers `running_mean` /
+  `running_var`
+
+A Dense kernel after a flatten keeps its rows: the port's CNNs flatten
+in NHWC order, as flax does (`models/cnn.py`).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,6 +37,8 @@ def _convert(path: tuple, leaf) -> tuple:
             arr = arr.reshape(arr.shape[0], -1).T    # [E, H, D] -> [H*D, E]
         elif arr.ndim == 2:
             arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
         else:
             raise ValueError(f"unexpected kernel rank {arr.ndim} at {path}")
         name = "weight"
@@ -38,14 +46,19 @@ def _convert(path: tuple, leaf) -> tuple:
         name = "weight"
     elif name == "bias":
         arr = arr.reshape(-1)
+    elif name in ("mean", "var"):
+        name = f"running_{name}"
     else:
         raise ValueError(f"unknown flax param {'/'.join(path)}")
     return ".".join([*mods, name]), torch.tensor(np.ascontiguousarray(arr))
 
 
-def from_flax_params(params: Mapping) -> dict:
+def from_flax_params(params: Mapping,
+                     batch_stats: Optional[Mapping] = None) -> dict:
     """Nested {module: {param: array}} (the flax "params" collection, leaves
-    as numpy arrays) -> {dotted torch name: fp32 tensor}."""
+    as numpy arrays) -> {dotted torch name: fp32 tensor}; with
+    `batch_stats` (the flax "batch_stats" collection) the BatchNorm
+    running statistics join it."""
     out = {}
 
     def walk(node, path):
@@ -57,4 +70,6 @@ def from_flax_params(params: Mapping) -> dict:
             out[name] = tensor
 
     walk(params, ())
+    if batch_stats is not None:
+        walk(batch_stats, ())
     return out

@@ -4,7 +4,8 @@ The reference's loss scaling: a sum over examples divided by the global
 batch (or, for a masked LM, by the global target count), so that a batch
 split over replicas and summed gives the single-replica gradient of the
 global mean. Cross-entropy runs in fp32 whatever the logits' dtype, as
-the JAX package computes it (optax's integer-label CE on fp32 logits).
+the JAX package computes it (optax's integer-label CE on fp32 logits);
+fp64 logits (a reference run) stay fp64.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ def softmax_cross_entropy_with_integer_labels(logits: torch.Tensor,
                                               labels: torch.Tensor
                                               ) -> torch.Tensor:
     """Per-example CE from logits [..., C] and integer labels [...] (an
-    [N, 1] column of labels is accepted), in fp32."""
+    [N, 1] column of labels is accepted), in fp32 or wider."""
     labels = labels.reshape(logits.shape[:-1]).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     return -logp.gather(-1, labels[..., None])[..., 0]
 
 

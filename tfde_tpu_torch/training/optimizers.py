@@ -1,5 +1,6 @@
 """Optimizer helpers — counterpart of `tfde_tpu/training/optimizers.py`,
-with the one optax schedule the training entry point uses.
+with the one optax schedule the training entry point uses, and optax's
+`sgd`.
 
 `adamw(...)` is optax.adamw with the standard decay mask: weight decay
 applies to matmul weights and embeddings only — biases and LayerNorm
@@ -19,7 +20,7 @@ exactly that once the lr is set before each step (`TrainState`).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -51,6 +52,17 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
             return init_value
         frac = 1.0 - max(count, 0) / warmup_steps
         return (init_value - peak_value) * frac + peak_value
+
+    return schedule
+
+
+def as_schedule(learning_rate: Union[float, Schedule]) -> Schedule:
+    """A schedule as it is; a number as the constant schedule."""
+    if callable(learning_rate):
+        return learning_rate
+
+    def schedule(_count: int, lr=float(learning_rate)) -> float:
+        return lr
 
     return schedule
 
@@ -93,9 +105,28 @@ def adamw(model: nn.Module, learning_rate: Union[float, Schedule],
           weight_decay: float = 1e-4) -> AdamW:
     """optax.adamw with the decay mask (see the module docstring);
     `learning_rate` is a constant or a schedule of the update count."""
-    if callable(learning_rate):
-        schedule = learning_rate
-    else:
-        def schedule(_count: int, lr=float(learning_rate)) -> float:
-            return lr
-    return AdamW(model, schedule, b1, b2, eps, weight_decay)
+    return AdamW(model, as_schedule(learning_rate), b1, b2, eps,
+                 weight_decay)
+
+
+class SGD(torch.optim.SGD):
+    """torch SGD carrying the schedule `TrainState.apply_gradients` reads
+    the lr of each update from."""
+
+    def __init__(self, model: nn.Module, schedule: Schedule,
+                 momentum: Optional[float], nesterov: bool):
+        super().__init__(model.parameters(), lr=float(schedule(0)),
+                         momentum=momentum or 0.0, dampening=0.0,
+                         nesterov=nesterov)
+        self.schedule = schedule
+
+
+def sgd(model: nn.Module, learning_rate: Union[float, Schedule],
+        momentum: Optional[float] = None, nesterov: bool = False) -> SGD:
+    """optax.sgd: with a momentum, the trace t = g + momentum * t (from
+    t = 0, so the first update is lr * g) and the update lr * t, or lr * (g
+    + momentum * t) with `nesterov`; without one, lr * g. torch SGD with no
+    dampening computes exactly that."""
+    if nesterov and not momentum:
+        raise ValueError("nesterov needs a momentum")
+    return SGD(model, as_schedule(learning_rate), momentum, nesterov)

@@ -4,25 +4,34 @@ The JAX `TrainState` is an immutable pytree {step, params, opt_state}
 that `apply_gradients` replaces. Here the parameters live in the model
 (fp32 master weights, cast to the compute dtype inside each layer) and
 the moments in the torch optimizer, so the state is a small mutable
-holder and `apply_gradients` updates it in place.
+holder and `apply_gradients` updates it in place. A model's BatchNorm
+running statistics are buffers of the model (the JAX state's
+`batch_stats`).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
+import torch
 from torch import nn
 
-from tfde_tpu_torch.training.optimizers import AdamW, Schedule
+from tfde_tpu_torch.training.optimizers import Schedule, as_schedule
 
 
 class TrainState:
-    """`step` (updates applied so far), the model, the optimizer `tx` and
-    the lr schedule."""
+    """`step` (updates applied so far), the model, the optimizer `tx` (any
+    torch optimizer over the model's parameters) and the lr schedule: a
+    schedule of the update count, a number (a constant schedule), or None
+    for the schedule the port's optimizers carry (`tx.schedule`)."""
 
-    def __init__(self, model: nn.Module, tx: AdamW, schedule: Schedule):
+    def __init__(self, model: nn.Module, tx: torch.optim.Optimizer,
+                 schedule: Optional[Union[float, Schedule]] = None):
         self.step = 0
         self.model = model
         self.tx = tx
-        self.schedule = schedule
+        self.schedule = as_schedule(tx.schedule if schedule is None
+                                     else schedule)
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer update from the gradients held in the parameters'
