@@ -49,8 +49,33 @@ without printing a result:
    than one card, one process a card on NCCL (parity against the CPU, the
    same bits on every rank, the recipe's ms per step and its scaling
    efficiency against the same worker as one rank on one card); then, the group destroyed, `python -m
-   tfde_tpu_torch.mnist_multiworker --device cuda` as a user runs it. It
-   runs none of the flash kernels.
+   tfde_tpu_torch.mnist_multiworker --device cuda` as a user runs it
+   (PlainCNN through `Dataset` -> `device_prefetch` -> `Estimator.train`,
+   15 steps). It runs none of the flash kernels;
+9. lifecycle — the Estimator on the card (`testing.recipe`): the dp
+   recipe (BatchNormCNN at the reference widths, dropout 0.5, seed 0,
+   `cudnn.deterministic`, global batch 128, sgd(0.2, momentum 0.9)) from
+   `Dataset.from_tensor_slices(train).shuffle(60000, seed=0).repeat()
+   .batch(128)` through `device_prefetch` (pinned staging, a copy stream)
+   and `Estimator.train` to step 300 on a one-rank NCCL group, a
+   checkpoint every 100: its ms per step over steps 11-100 beside the dp
+   phase's old loop and the old loop again under `cudnn.deterministic`,
+   the feed's blocking share of that window, the feed alone (inline, and
+   with `background=True`, whose batches must equal the inline feed's),
+   and the device's idle share over 20 steady steps of a resumed run;
+   `Estimator.evaluate` of the 10000 test images in
+   batches of 768 at accuracy >= 0.95; a checkpoint's bytes, save and
+   restore ms; a child process (`python -m tfde_tpu_torch.testing`)
+   that raises SIGTERM in itself after step 150 must die by the signal
+   with its newest checkpoint at 150, and a run resuming it to 300 must
+   end with every parameter and buffer of the uninterrupted run, bit for
+   bit; `mnist_multiworker.main` with `--model-dir`, `--epochs 2` then
+   3, must resume at step 10 and end at 15; GPT-2 small (bf16 compute)
+   through the Estimator with `loss_fn`/`eval_fn`, 4 steps with a
+   checkpoint every 2 and a fresh Estimator resuming to 6, must end with
+   the bits of 6 uninterrupted steps, each run launching each flash
+   kernel 12 times a step (counters zeroed just before each run). Every
+   model_dir lies under build/ and is removed at the end.
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -923,6 +948,7 @@ def _dp_train(dev, train, test):
         raise AssertionError(f"the loss ends at {losses[-1]}, not below 0.1")
     if weight != len(test[0]) or not acc >= 0.95:
         raise AssertionError(f"eval over {weight} images: accuracy {acc}")
+    return ms
 
 
 def _dp_cards(parity_ref):
@@ -993,7 +1019,9 @@ def phase_dp(dev):
     (DDP) against the CPU, the reference recipe trained and evaluated; the
     group destroyed, the same across every card where the machine has
     more than one (`_dp_cards`); then `mnist_multiworker.main` run as a
-    user would (its `bootstrap()` at world size 1)."""
+    user would (its `bootstrap()` at world size 1). Returns the recipe's
+    ms per step through the old loop, which the lifecycle phase prints
+    beside the Estimator's."""
     import torch.distributed as dist
 
     from tfde_tpu_torch import mnist_multiworker
@@ -1004,21 +1032,414 @@ def phase_dp(dev):
                             world_size=1)
     try:
         parity_ref = _dp_parity(dev, *train)
-        _dp_train(dev, train, test)
+        ms = _dp_train(dev, train, test)
     finally:
         dist.destroy_process_group()
     _dp_cards(parity_ref)
     t0 = time.perf_counter()
     state, metrics = mnist_multiworker.main(["--device", "cuda"])
     print(f"dp entry point: mnist_multiworker.main(['--device', 'cuda']): "
-          f"{state.step} steps of PlainCNN, last {json.dumps(metrics)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{state.step} steps of PlainCNN through the Estimator, last "
+          f"{json.dumps(metrics)} in {time.perf_counter() - t0:.1f} s")
     if state.step != 15 or not math.isfinite(metrics["loss"]):
         raise AssertionError(f"the entry point ended at step {state.step} "
                              f"with {metrics}")
+    return ms
 
 
-PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp")
+#: lifecycle: the recipe's steps, checkpoint interval, and the step after
+#: which the child process interrupts itself
+LC_STEPS, LC_SAVE, LC_KILL = 300, 100, 150
+#: lifecycle: steps of the resumed run before its profiled window
+LC_WARM = 5
+#: lifecycle GPT: steps of the interrupted run, of the whole run, and the
+#: checkpoint interval
+LC_GPT_FIRST, LC_GPT_STEPS, LC_GPT_SAVE = 4, 6, 2
+
+
+def _lc_old_loop_ms(dev, train):
+    """ms per step of the dp phase's old loop (`global_batches` +
+    `make_train_step`, the batch copied in the step) over steps 11-100,
+    under the cuDNN settings in force."""
+    from tfde_tpu_torch.mnist_multiworker import global_batches
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.training.optimizers import sgd
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    model = BatchNormCNN(device=dev, seed=0)
+    state = init_state(model, sgd(model, 0.2, momentum=0.9))
+    step = make_train_step(MultiWorkerMirroredStrategy(), state)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    for i, batch in enumerate(global_batches(*train, DP_BATCH, DP_TIMED[1])):
+        if i == DP_TIMED[0]:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+        step(state, batch, generator)
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / (DP_TIMED[1] - DP_TIMED[0])
+
+
+def _lc_feed(dev, train, background):
+    """`device_prefetch` alone (inline or with its worker thread) over the
+    recipe's pipeline, nothing else running."""
+    from tfde_tpu_torch.data import Dataset, device_prefetch
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+
+    ds = (Dataset.from_tensor_slices(train).shuffle(len(train[0]), seed=0)
+          .repeat().batch(DP_BATCH, drop_remainder=True))
+    return device_prefetch(iter(ds), MultiWorkerMirroredStrategy(), dev,
+                           background=background)
+
+
+def _lc_feed_ms(dev, train, background=False):
+    """ms per batch of the feed alone (`_lc_feed`: the host pull, the
+    staging copy, the copy to the card) over batches 11-100."""
+    feed = _lc_feed(dev, train, background)
+    for i, _ in enumerate(feed):
+        if i == DP_TIMED[0]:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+        if i == DP_TIMED[1]:
+            break
+    torch.cuda.synchronize(dev)
+    feed.close()
+    return (time.perf_counter() - t0) * 1e3 / (DP_TIMED[1] - DP_TIMED[0])
+
+
+def _lc_background_feed(dev, train):
+    """The feed's background mode on the card: its first DP_TIMED[1]
+    batches equal the inline feed's bit for bit. Returns (batches
+    compared, its ms per batch over batches 11-100)."""
+    inline, worker = _lc_feed(dev, train, False), _lc_feed(dev, train, True)
+    n = 0
+    for a, b in zip(inline, worker):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"the background feed's batch {n} differs "
+                                 f"from the inline feed's")
+        n += 1
+        if n == DP_TIMED[1]:
+            break
+    inline.close()
+    worker.close()
+    return n, _lc_feed_ms(dev, train, background=True)
+
+
+def _lc_recipe(dev, root, dp_ms):
+    """The recipe through the Estimator to LC_STEPS (run A): ms per step and
+    the feed's blocking share over steps 11-100 beside the old loop's
+    (the dp phase's, and again here under cudnn.deterministic) and the
+    feed's alone, the eval, a checkpoint's bytes and save and restore
+    times, the idle share of DP_PROFILED more steps. Returns A's
+    parameters and buffers at LC_STEPS, on the host."""
+    from tfde_tpu_torch import testing
+    from tfde_tpu_torch.checkpoint.manager import STATE_FILE, CheckpointManager
+    from tfde_tpu_torch.data import Dataset, datasets
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.training.optimizers import sgd
+    from tfde_tpu_torch.training.step import init_state
+
+    est, input_fn, start = testing.recipe(os.path.join(root, "a"), dev,
+                                          batch=DP_BATCH, save_every=LC_SAVE)
+    if start != 0:
+        raise AssertionError(f"run A found a checkpoint at step {start}")
+    clock, wait = {}, {}
+
+    def hook(state, step):
+        if step in DP_TIMED:
+            torch.cuda.synchronize(dev)
+            clock[step] = time.perf_counter()
+            wait[step] = est.feed.wait_seconds
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = est.train(input_fn, LC_STEPS, _eval_hook=hook)
+    wall = time.perf_counter() - t0
+    a_params = {k: v.detach().cpu().clone()
+                for k, v in est.model.state_dict().items()}
+    loss = float(est.metrics["loss"])
+    window = clock[DP_TIMED[1]] - clock[DP_TIMED[0]]
+    ms = window * 1e3 / (DP_TIMED[1] - DP_TIMED[0])
+    blocked = wait[DP_TIMED[1]] - wait[DP_TIMED[0]]
+    train, (ex, ey) = datasets.mnist(flatten=True)
+    old_det = _lc_old_loop_ms(dev, train)
+    feed_ms = _lc_feed_ms(dev, train)
+    compared, worker_ms = _lc_background_feed(dev, train)
+    m = est.evaluate(lambda: Dataset.from_tensor_slices((ex, ey))
+                     .batch(DP_EVAL_BATCH))
+    old = "not run in this call" if dp_ms is None else f"{dp_ms:.3f} ms"
+    print(f"lifecycle recipe: BatchNormCNN (dropout 0.5), global batch "
+          f"{DP_BATCH}, sgd(0.2, momentum=0.9), cudnn.deterministic, Dataset "
+          f"-> device_prefetch -> Estimator.train to step {state.step} on a "
+          f"one-rank NCCL group ({wall:.1f} s, checkpoints every {LC_SAVE}); "
+          f"last loss {loss:.4f}; max memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 20:.1f} MiB")
+    print(f"lifecycle recipe: {ms:.3f} ms per step (mean of steps "
+          f"{DP_TIMED[0] + 1}-{DP_TIMED[1]}, host clock after a synchronise; "
+          f"the window holds step {DP_TIMED[1]}'s summary and checkpoint), "
+          f"{DP_BATCH / ms * 1e3:.0f} images/s; the old loop (global_batches, "
+          f"pageable copies in the step): {old} in the dp phase (cuDNN's "
+          f"default algorithms), {old_det:.3f} ms here under "
+          f"cudnn.deterministic; the feed's blocking share "
+          f"{blocked / window:.4f} ({blocked * 1e3:.2f} ms of "
+          f"{window * 1e3:.1f}); the feed alone {feed_ms:.3f} ms a batch "
+          f"inline, {worker_ms:.3f} with background=True (its first "
+          f"{compared} batches equal the inline feed's bit for bit); on "
+          f"{_card()}")
+    print(f"lifecycle eval: Estimator.evaluate over {len(ex)} test images in "
+          f"batches of {DP_EVAL_BATCH} (the last {len(ex) % DP_EVAL_BATCH}): "
+          f"{json.dumps(m)} (accuracy >= 0.95)")
+    if not (math.isfinite(loss) and loss < 0.1):
+        raise AssertionError(f"the Estimator's recipe ends at loss {loss}")
+    if not m["accuracy"] >= 0.95:
+        raise AssertionError(f"the Estimator's eval: {m}")
+
+    # one checkpoint of the trained state: bytes, save (async: the part on
+    # the loop, then the commit), restore into a fresh model
+    mngr = CheckpointManager(os.path.join(root, "timing"))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mngr.save(state)
+    t1 = time.perf_counter()
+    mngr.wait()
+    t2 = time.perf_counter()
+    path = os.path.join(root, "timing", str(state.step), STATE_FILE)
+    model = BatchNormCNN(device=dev, seed=1)
+    fresh = init_state(model, sgd(model, 0.2, momentum=0.9))
+    t3 = time.perf_counter()
+    CheckpointManager(os.path.join(root, "timing")).restore_latest(fresh)
+    torch.cuda.synchronize(dev)
+    t4 = time.perf_counter()
+    same = all(torch.equal(v.cpu(), a_params[k])
+               for k, v in model.state_dict().items())
+    print(f"lifecycle checkpoint: {os.path.getsize(path)} bytes (parameters, "
+          f"BatchNorm statistics, momentum, step); save {(t1 - t0) * 1e3:.2f} "
+          f"ms on the loop (copy to host) + {(t2 - t1) * 1e3:.2f} ms to the "
+          f"commit; restore {(t4 - t3) * 1e3:.2f} ms; restored bits equal: "
+          f"{same}, on {_card()}")
+    if not same or fresh.step != state.step:
+        raise AssertionError("the restored checkpoint differs from the state")
+
+    # the idle share of DP_PROFILED steady steps: the profiler runs from
+    # the hook after step LC_STEPS + LC_WARM to the hook after the last of
+    # them, so the feed's start, the first step and the final save fall
+    # outside it
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfde_tpu_torch.testing import profile_summary
+
+    first = LC_STEPS + LC_WARM
+    last = first + DP_PROFILED
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def window(state, step):
+        if step in (first, last):
+            torch.cuda.synchronize(dev)
+            marks[step] = time.perf_counter()
+            if step == first:
+                prof.start()
+            else:
+                prof.stop()
+
+    est.train(input_fn, last, _eval_hook=window)
+    prof = profile_summary(prof, DP_PROFILED,
+                           (marks[last] - marks[first]) * 1e3 / DP_PROFILED)
+    _print_profile(prof, DP_PROFILED, ms, "lifecycle")
+    est.close()
+    return a_params
+
+
+def _lc_resume(dev, root, a_params):
+    """Run B, a child process interrupted by its own SIGTERM after step
+    LC_KILL; run C resumes B's model_dir to LC_STEPS here and must end
+    with run A's bits."""
+    from tfde_tpu_torch import testing
+    from tfde_tpu_torch.checkpoint.manager import CheckpointManager
+
+    dir_b = os.path.join(root, "b")
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tfde_tpu_torch.testing", dir_b,
+         os.path.join(root, "b.json"), "--device", "cuda", "--max-steps",
+         str(LC_STEPS), "--batch", str(DP_BATCH), "--save-every",
+         str(LC_SAVE), "--kill-after", str(LC_KILL)],
+        env=env, capture_output=True, text=True, timeout=600)
+    steps = CheckpointManager(os.path.join(dir_b, "checkpoints")).all_steps()
+    print(f"lifecycle resume: run B (child process, SIGTERM to itself after "
+          f"step {LC_KILL}) exit code {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s, checkpoints {steps}; "
+          f"{proc.stderr.strip().splitlines()[-1] if proc.stderr else ''}")
+    if proc.returncode != -15 or steps[-1:] != [LC_KILL]:
+        raise AssertionError(f"run B: exit code {proc.returncode}, "
+                             f"checkpoints {steps}:\n{proc.stderr[-3000:]}")
+    est, input_fn, start = testing.recipe(dir_b, dev, batch=DP_BATCH,
+                                          save_every=LC_SAVE)
+    state = est.train(input_fn, LC_STEPS)
+    est.close()
+    c_params = est.model.state_dict()
+    differ = [k for k, v in a_params.items()
+              if not torch.equal(c_params[k].cpu(), v)]
+    print(f"lifecycle resume: run C resumed at step {start} and ended at "
+          f"{state.step}: {len(a_params) - len(differ)} of {len(a_params)} "
+          f"parameters and buffers equal to run A's bit for bit (dropout "
+          f"0.5 on)")
+    if start != LC_KILL or state.step != LC_STEPS or differ:
+        raise AssertionError(f"run C (from step {start}) differs from run A "
+                             f"in {differ}")
+
+
+def _lc_entry_point(root):
+    """`mnist_multiworker.main` with --model-dir, twice: the second run must
+    resume at step 10, end at 15, and say so in its log."""
+    import logging
+
+    from tfde_tpu_torch import mnist_multiworker
+
+    d = os.path.join(root, "entry")
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Keep(logging.INFO)
+    lc_log = logging.getLogger("tfde_tpu_torch.training.lifecycle")
+    lc_log.addHandler(handler)
+    level = lc_log.level
+    lc_log.setLevel(logging.INFO)
+    try:
+        argv = ["--device", "cuda", "--model-dir", d]
+        first, _ = mnist_multiworker.main(argv + ["--epochs", "2"])
+        del records[:]
+        second, metrics = mnist_multiworker.main(argv + ["--epochs", "3"])
+    finally:
+        lc_log.removeHandler(handler)
+        lc_log.setLevel(level)
+    resumed = [r for r in records if r.startswith("resuming at step")]
+    print(f"lifecycle entry point: mnist_multiworker.main({argv} + "
+          f"['--epochs', '2']) ended at step {first.step}; with --epochs 3: "
+          f"{resumed}, ended at step {second.step}, last "
+          f"{json.dumps(metrics)}")
+    if (first.step, second.step) != (10, 15) or not resumed or not (
+            resumed[0].startswith("resuming at step 10 of 15")):
+        raise AssertionError(f"the entry point did not resume: {records}")
+
+
+def _lc_gpt(fa, dev, root):
+    """GPT-2 small through the Estimator with loss_fn/eval_fn: LC_GPT_FIRST
+    steps with a checkpoint every LC_GPT_SAVE, a fresh Estimator resuming
+    to LC_GPT_STEPS, against LC_GPT_STEPS uninterrupted steps; each run's
+    flash launches counted from zero."""
+    import itertools
+
+    from tfde_tpu_torch.data import Dataset
+    from tfde_tpu_torch.data.datasets import synthetic_tokens
+    from tfde_tpu_torch.models.gpt import GPT2Small, next_token_loss
+    from tfde_tpu_torch.training import Estimator, RunConfig
+    from tfde_tpu_torch.training.optimizers import (
+        adamw, warmup_cosine_decay_schedule)
+
+    tokens = synthetic_tokens(64, 1024, vocab=50257, seed=2)
+    ds = (Dataset.from_tensor_slices((tokens,)).shuffle(64, seed=0).repeat()
+          .batch(8, drop_remainder=True))
+
+    def eval_fn(model, batch, generator):
+        loss, metrics = next_token_loss(model, batch, generator)
+        return {"loss": loss, **metrics}
+
+    def run(model_dir, steps, skip=0):
+        model = GPT2Small(vocab_size=50257, max_position=1024,
+                          dtype=torch.bfloat16, device=dev, seed=0)
+        tx = adamw(model, warmup_cosine_decay_schedule(0.0, 3e-4, 2,
+                                                       LC_GPT_STEPS),
+                   weight_decay=0.1)
+        est = Estimator(model, tx, config=RunConfig(
+            model_dir=model_dir, save_checkpoints_steps=LC_GPT_SAVE,
+            keep_checkpoint_max=1), loss_fn=next_token_loss, eval_fn=eval_fn)
+        fa.flash_forward.launches = 0
+        fa.flash_backward.dkv_launches = 0
+        fa.flash_backward.dq_launches = 0
+        t0 = time.perf_counter()
+        state = est.train(lambda: itertools.islice(iter(ds), skip, None),
+                          steps)
+        torch.cuda.synchronize(dev)
+        launches = (fa.flash_forward.launches, fa.flash_backward.dkv_launches,
+                    fa.flash_backward.dq_launches)
+        return est, state, launches, time.perf_counter() - t0
+
+    whole, state, launches, secs = run(None, LC_GPT_STEPS)
+    want = {k: v.detach().cpu() for k, v in whole.model.state_dict().items()}
+    m = whole.evaluate(lambda: Dataset.from_tensor_slices((tokens[:16],))
+                       .batch(8))
+    whole.close()
+    del whole
+    checks = [(LC_GPT_STEPS, state.step, launches)]
+    print(f"lifecycle gpt: GPT-2 small, bf16 compute, batch 8 x 1024, AdamW: "
+          f"{state.step} uninterrupted steps through the Estimator in "
+          f"{secs:.1f} s, launches fwd/dkv/dq {launches}; eval {json.dumps(m)}")
+    d = os.path.join(root, "gpt")
+    first, state, launches, secs = run(d, LC_GPT_FIRST)
+    first.close()
+    del first
+    checks.append((LC_GPT_FIRST, state.step, launches))
+    ckpt = os.path.join(d, "checkpoints", str(LC_GPT_FIRST), "state.pt")
+    size = os.path.getsize(ckpt)
+    resumed, state, launches, secs2 = run(d, LC_GPT_STEPS, LC_GPT_FIRST)
+    resumed.close()
+    checks.append((LC_GPT_STEPS - LC_GPT_FIRST, state.step - LC_GPT_FIRST,
+                   launches))
+    got = resumed.model.state_dict()
+    differ = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+    print(f"lifecycle gpt: {LC_GPT_FIRST} steps with a checkpoint every "
+          f"{LC_GPT_SAVE} ({size} bytes each) in {secs:.1f} s, then a fresh "
+          f"Estimator resumed to {state.step} in {secs2:.1f} s, launches "
+          f"fwd/dkv/dq {launches}: {len(want) - len(differ)} of {len(want)} "
+          f"parameters equal to the uninterrupted run's bit for bit")
+    del resumed
+    for steps, ran, counts in checks:
+        if ran != steps or counts != (12 * steps,) * 3:
+            raise AssertionError(f"a GPT run of {steps} steps ran {ran} with "
+                                 f"launches {counts}, not 12 a step")
+    if differ or not math.isfinite(m["loss"]):
+        raise AssertionError(f"the resumed GPT run differs in {differ} "
+                             f"(eval {m})")
+
+
+def phase_lifecycle(fa, dev, dp_ms=None):
+    """The Estimator lifecycle on the card (docstring, phase 9): the recipe
+    and its resume on a one-rank NCCL group under cudnn.deterministic,
+    then the entry point and GPT-2 small with no group. Every model_dir
+    lies under build/ and is removed at the end."""
+    import shutil
+
+    import torch.distributed as dist
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"lifecycle_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        torch.backends.cudnn.deterministic = True
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            a_params = _lc_recipe(dev, root, dp_ms)
+            _lc_resume(dev, root, a_params)
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = False
+        _lc_entry_point(root)
+        _lc_gpt(fa, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
+          "lifecycle")
 
 
 def main(argv=None) -> int:
@@ -1055,8 +1476,9 @@ def main(argv=None) -> int:
     if "serve" in phases:
         phase_serve(fa, dev)
     launches = phase_train(fa, dev) if "train" in phases else None
-    if "dp" in phases:
-        phase_dp(dev)
+    dp_ms = phase_dp(dev) if "dp" in phases else None
+    if "lifecycle" in phases:
+        phase_lifecycle(fa, dev, dp_ms)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

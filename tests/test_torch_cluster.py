@@ -131,7 +131,13 @@ def test_single_process_bootstrap_builds_no_group(monkeypatch):
     assert not cluster.initialized() and not dist.is_initialized()
 
 
-def test_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch):
+def test_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path,
+                                                    caplog):
+    """Without --device the entry point asks for CUDA and raises here; with
+    --device cpu and --model-dir it checkpoints, and a second run with
+    more epochs resumes there and runs only the steps left."""
+    import logging
+
     import torch
 
     from tfde_tpu_torch import mnist_multiworker
@@ -141,8 +147,15 @@ def test_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mnist_multiworker.main(["--steps-per-epoch", "1", "--epochs", "1"])
-    with pytest.raises(NotImplementedError, match="model-dir"):
-        mnist_multiworker.main(["--device", "cpu", "--model-dir", "/x"])
+    argv = ["--device", "cpu", "--model-dir", str(tmp_path),
+            "--steps-per-epoch", "2"]
+    state, _ = mnist_multiworker.main(argv + ["--epochs", "2"])
+    assert state.step == 4
+    with caplog.at_level(logging.INFO):
+        state, metrics = mnist_multiworker.main(argv + ["--epochs", "3"])
+    assert state.step == 6 and np.isfinite(metrics["loss"])
+    assert "resuming at step 4 of 6" in caplog.text
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["4", "6"]
 
 
 def _free_port() -> int:

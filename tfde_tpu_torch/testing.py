@@ -9,6 +9,11 @@ import JAX. Each child uses one CPU thread; a group a worker builds
 rendezvouses through a `FileStore` (``file://``) or, for
 `bootstrap_worker`, through `bootstrap()`'s TCP store on a port the test
 picked free. Every group is destroyed in a `finally`.
+
+`recipe` is the verify recipe through the Estimator, and
+``python -m tfde_tpu_torch.testing MODEL_DIR OUT_JSON --max-steps N``
+(`recipe_main`) runs it in a process of its own, which the preemption
+test and `chip_smoke.py`'s lifecycle phase interrupt by SIGTERM.
 """
 
 from __future__ import annotations
@@ -157,7 +162,12 @@ def profile_steps(run: Callable, batches: Sequence, device) -> dict:
         for b in batches:
             float(run(b))
         sync()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    return profile_summary(prof, n, (time.perf_counter() - t0) * 1e3 / n)
+
+
+def profile_summary(prof, n: int, wall_ms: float) -> dict:
+    """A finished torch.profiler `prof` over `n` steps as `profile_steps`
+    returns it, with `wall_ms` the wall ms a step."""
     events = prof.key_averages()
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     return {
@@ -260,3 +270,223 @@ def bootstrap_worker(rank: int, env: dict, argv: list) -> dict:
                            for k, v in state.model.state_dict().items()}}
     finally:
         cluster.shutdown()
+
+
+def feed_worker(rank: int, world: int, store_path: str, batches: list
+                ) -> dict:
+    """`data.device.device_prefetch` on the CPU over `batches` under each
+    `AutoShardPolicy`, inline and in the background, on rank `rank` of a
+    `world`-rank gloo group (MultiWorkerMirroredStrategy):
+    {(policy name, "inline" or "background"): the placed leaves of each
+    batch as numpy arrays}."""
+    from tfde_tpu_torch.data.device import Placed, device_prefetch
+    from tfde_tpu_torch.data.pipeline import AutoShardPolicy
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+
+    _init_file_group(rank, world, store_path)
+    try:
+        out = {}
+        for policy in AutoShardPolicy:
+            for mode in ("inline", "background"):
+                got = out[policy.name, mode] = []
+                for b in device_prefetch(batches,
+                                         MultiWorkerMirroredStrategy(), "cpu",
+                                         policy=policy,
+                                         background=mode == "background"):
+                    if not isinstance(b, Placed):
+                        raise TypeError(
+                            f"the feed yielded a {type(b).__name__}")
+                    got.append([x.numpy().copy() for x in b])
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def checkpoint_worker(rank: int, world: int, store_path: str, directory: str,
+                      state_dict: dict, batch: tuple, steps: int) -> dict:
+    """BatchNormCNN (dropout off) from `state_dict` takes `steps`
+    sgd(0.05, momentum 0.9) steps of the global `batch` over a `world`-rank
+    gloo group, then a `CheckpointManager` over the group saves it into
+    `directory` (rank 0 writes). Returns the state_dict and the momentum
+    buffers as numpy arrays, and what `save` returned."""
+    from tfde_tpu_torch.checkpoint.manager import CheckpointManager
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.training.optimizers import sgd
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    _init_file_group(rank, world, store_path)
+    try:
+        model = BatchNormCNN(dropout_rate=0.0, device="cpu")
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in state_dict.items()})
+        state = init_state(model, sgd(model, 0.05, momentum=0.9))
+        step = make_train_step(MultiWorkerMirroredStrategy(), state)
+        for _ in range(steps):
+            step(state, batch)
+        mngr = CheckpointManager(directory, group=dist.group.WORLD)
+        saved = mngr.save(state)
+        mngr.wait()
+        return {"saved": saved,
+                "state_dict": {k: v.numpy().copy()
+                               for k, v in model.state_dict().items()},
+                "momentum": [state.tx.state[p]["momentum_buffer"].numpy().copy()
+                             for p in model.parameters()]}
+    finally:
+        dist.destroy_process_group()
+
+
+def estimator_worker(rank: int, world: int, store_path: str, model_name: str,
+                     state_dict: dict, train: tuple, batch: int,
+                     max_steps: int, lr: float, model_dir: str,
+                     test: tuple, eval_batch: int) -> dict:
+    """`model_name` (dropout off) from `state_dict` trained by
+    `Estimator.train` under MultiWorkerMirroredStrategy on rank `rank` of a
+    `world`-rank gloo group: `Dataset.from_tensor_slices(train).shuffle(n,
+    seed=0).repeat().batch(batch, drop_remainder=True)` with
+    `AutoShardPolicy.OFF` (every rank the global batch, the feed its
+    rows), sgd(lr), summaries every step into `model_dir` (rank 0), no
+    checkpoints; then `evaluate` over `test` in batches of `eval_batch`.
+    Returns the final state_dict as numpy arrays and the eval metrics."""
+    from tfde_tpu_torch.data.pipeline import AutoShardPolicy, Dataset
+    from tfde_tpu_torch.models.cnn import BatchNormCNN, PlainCNN
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.training.lifecycle import Estimator, RunConfig
+    from tfde_tpu_torch.training.optimizers import sgd
+
+    _init_file_group(rank, world, store_path)
+    try:
+        model = (BatchNormCNN(dropout_rate=0.0, device="cpu")
+                 if model_name == "BatchNormCNN" else PlainCNN(device="cpu"))
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in state_dict.items()})
+        est = Estimator(model, sgd(model, lr), MultiWorkerMirroredStrategy(),
+                        RunConfig(model_dir=model_dir, save_summary_steps=1,
+                                  save_checkpoints_steps=None))
+        est.train(lambda: Dataset.from_tensor_slices(train)
+                  .shuffle(len(train[0]), seed=0).repeat()
+                  .batch(batch, drop_remainder=True), max_steps,
+                  shard_policy=AutoShardPolicy.OFF)
+        metrics = est.evaluate(
+            lambda: Dataset.from_tensor_slices(test).batch(eval_batch))
+        est.close()
+        return {"eval": metrics,
+                "state_dict": {k: v.detach().numpy().copy()
+                               for k, v in model.state_dict().items()}}
+    finally:
+        dist.destroy_process_group()
+
+
+#: batches the Estimator's feed (`device_prefetch`, buffer_size 2) stages
+#: ahead of the step that runs
+FEED_LOOKAHEAD = 2
+
+
+def recipe(model_dir: str, device="cpu", n_train: int = 60000,
+           batch: int = 128, save_every: int = 100,
+           kill_after: Optional[int] = None):
+    """The verify recipe through the Estimator: BatchNormCNN (dropout 0.5,
+    weights from seed 0) on `device`, sgd(0.2, momentum 0.9), synthetic
+    MNIST (`n_train` images) through `Dataset.from_tensor_slices(train)
+    .shuffle(n_train, seed=0).repeat().batch(batch, drop_remainder=True)`,
+    a checkpoint every `save_every` steps into `model_dir`. Returns
+    (estimator, input_fn, the step it resumes from).
+
+    The Estimator calls `input_fn` afresh on every train() (as the JAX
+    package's does), so the stream skips the batches of the steps the
+    newest checkpoint holds: a resumed run reads at each step the batch an
+    uninterrupted one reads there. With `kill_after=k` the stream raises
+    SIGTERM in this process as the feed stages the batch FEED_LOOKAHEAD
+    after step k's, which the loop sees before step k + 1: the run stops
+    after step k, force-saves it and dies by the signal."""
+    import itertools
+    import signal
+
+    from tfde_tpu_torch.checkpoint.manager import CheckpointManager
+    from tfde_tpu_torch.data import datasets
+    from tfde_tpu_torch.data.pipeline import Dataset
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.training.lifecycle import Estimator, RunConfig
+    from tfde_tpu_torch.training.optimizers import sgd
+
+    (tx, ty), _ = datasets.mnist(flatten=True, n_train=n_train, n_test=8)
+    start = CheckpointManager(os.path.join(model_dir, "checkpoints")
+                              ).latest_step or 0
+    model = BatchNormCNN(device=device, seed=0)
+    est = Estimator(model, sgd(model, 0.2, momentum=0.9),
+                    MultiWorkerMirroredStrategy(),
+                    RunConfig(model_dir=model_dir,
+                              save_checkpoints_steps=save_every))
+    ds = (Dataset.from_tensor_slices((tx, ty)).shuffle(n_train, seed=0)
+          .repeat().batch(batch, drop_remainder=True))
+
+    def input_fn():
+        for i, b in enumerate(itertools.islice(iter(ds), start, None), start):
+            if kill_after is not None and i == kill_after + FEED_LOOKAHEAD:
+                signal.raise_signal(signal.SIGTERM)
+            yield b
+
+    return est, input_fn, start
+
+
+def state_digest(model: torch.nn.Module) -> str:
+    """sha256 over the bytes of every parameter and buffer, in name
+    order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def recipe_main(argv=None) -> None:
+    """``python -m tfde_tpu_torch.testing MODEL_DIR OUT_JSON [options]``:
+    `recipe` trained to --max-steps in this process (on CUDA: fp32 with
+    TF32 off, cuDNN's deterministic algorithms, a one-rank NCCL group),
+    then {"step", "resumed_from", "digest"} written to OUT_JSON. With
+    --kill-after k the process dies by SIGTERM after committing step k,
+    and writes nothing."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description=recipe_main.__doc__)
+    ap.add_argument("model_dir")
+    ap.add_argument("out_json")
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--max-steps", type=int, required=True)
+    ap.add_argument("--n-train", type=int, default=60000)
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--save-every", type=int, default=100)
+    ap.add_argument("--kill-after", type=int, default=None)
+    args = ap.parse_args(argv)
+    torch.set_num_threads(1)
+    from tfde_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        est, input_fn, start = recipe(args.model_dir, device,
+                                      args.n_train, args.batch,
+                                      args.save_every, args.kill_after)
+        state = est.train(input_fn, args.max_steps)
+        est.close()
+        with open(args.out_json, "w") as f:
+            json.dump({"step": state.step, "resumed_from": start,
+                       "digest": state_digest(state.model)}, f)
+    finally:
+        if cuda:
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    recipe_main()

@@ -79,7 +79,16 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
     return mask
 
 
-class AdamW(torch.optim.AdamW):
+class _Scheduled:
+    """An optimizer that carries `schedule` through copies: torch's
+    `Optimizer.__getstate__` keeps only its defaults, state and groups
+    (the concurrent evaluator restores into a deep copy)."""
+
+    def __getstate__(self):
+        return {**super().__getstate__(), "schedule": self.schedule}
+
+
+class AdamW(_Scheduled, torch.optim.AdamW):
     """torch AdamW over two groups, the parameters `decay_mask` decays
     (weight decay `weight_decay`) and the rest (none), carrying the
     schedule that `TrainState.apply_gradients` reads the lr of each
@@ -109,7 +118,7 @@ def adamw(model: nn.Module, learning_rate: Union[float, Schedule],
                  weight_decay)
 
 
-class SGD(torch.optim.SGD):
+class SGD(_Scheduled, torch.optim.SGD):
     """torch SGD carrying the schedule `TrainState.apply_gradients` reads
     the lr of each update from."""
 

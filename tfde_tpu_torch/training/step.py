@@ -1,6 +1,6 @@
 """Train and eval steps — counterpart of `tfde_tpu/training/step.py`
 (`init_state`, `make_train_step`, `make_eval_step`, `pad_batch_for_mesh`,
-`make_custom_train_step`).
+`make_custom_train_step`, `make_custom_eval_step`).
 
 The JAX step is one compiled program over a mesh; here each runs eagerly
 on the model's device. `make_train_step` is the classification step
@@ -11,6 +11,12 @@ Loss convention, the JAX package's: the mean over the global batch. Each
 rank computes the mean over its equal share of the batch, and DDP's
 average of the ranks' gradients is then the gradient of the global
 mean.
+
+A step takes a batch in one of two kinds. A host batch (numpy arrays or
+CPU tensors) is the GLOBAL batch: the step keeps this rank's rows and
+copies them to the model's device. A `data.device.Placed` batch, which
+`device_prefetch` yields, is already this rank's rows on the model's
+device, and the step uses it as it is.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from tfde_tpu_torch.data.device import Placed
 from tfde_tpu_torch.ops import losses, metrics as metrics_lib
 from tfde_tpu_torch.parallel.strategies import Strategy, check_ported
 from tfde_tpu_torch.training.optimizers import Schedule
@@ -113,7 +120,15 @@ def make_custom_train_step(loss_fn: Callable, grad_accum: int = 1):
 
 
 def _to_device(strategy: Strategy, batch, device: torch.device) -> tuple:
-    """This rank's rows of each global-batch leaf, as tensors on `device`."""
+    """This rank's rows of each leaf on `device`: a `Placed` batch as it is
+    (it must lie on `device`), a host batch's global rows sliced and
+    copied."""
+    if isinstance(batch, Placed):
+        for x in batch:
+            if x.device != device:
+                raise ValueError(f"a placed batch on {x.device} for a model "
+                                 f"on {device}")
+        return tuple(batch)
     return tuple(torch.as_tensor(strategy.local_rows(x), device=device)
                  for x in batch)
 
@@ -132,8 +147,9 @@ def make_train_step(strategy: Strategy, state: TrainState,
     one synchronous data-parallel SGD step of a classifier.
 
     The model is wrapped once, here, by `strategy.replicate` (DDP over
-    the ``data`` group). Each call takes the GLOBAL batch (numpy arrays
-    or tensors, labels [N, 1] or [N]), keeps this rank's rows, runs the
+    the ``data`` group). Each call takes the GLOBAL host batch (numpy
+    arrays or tensors, labels [N, 1] or [N]) and keeps this rank's rows,
+    or a `Placed` batch of this rank's rows; it runs the
     forward in training mode (BatchNorm on global-batch statistics over
     the ``data`` group, dropout from `generator`), the mean cross-entropy, DDP's averaged
     backward and the optimizer update. `metrics` are global-batch values,
@@ -180,9 +196,10 @@ def make_eval_step(strategy: Strategy, state: TrainState):
     """step(state, (images, labels, mask)) -> {"loss_sum", "correct_sum",
     "weight"}: masked sums over the global batch (padded by
     `pad_batch_for_mesh` to a multiple of `strategy.batch_divisor`), each
-    rank evaluating its rows with the running BatchNorm statistics and the
-    three sums added over the ranks. The caller accumulates them over the
-    pass and divides once at the end."""
+    rank evaluating its rows (sliced from a host batch, or a `Placed`
+    batch as it is) with the running BatchNorm statistics and the three
+    sums added over the ranks. The caller accumulates them over the pass
+    and divides once at the end."""
     group = strategy.data_group
     device = next(state.model.parameters()).device
 
@@ -199,6 +216,46 @@ def make_eval_step(strategy: Strategy, state: TrainState):
             [(per_ex * mask).sum(), (correct * mask).sum(), mask.sum()]))
         return {"loss_sum": sums[0], "correct_sum": sums[1],
                 "weight": sums[2]}
+
+    return step
+
+
+def make_custom_eval_step(strategy: Strategy, state: TrainState,
+                          eval_fn: Callable):
+    """step(state, batch) -> {metric: weighted sum, ..., "weight"} for a
+    user metric function, the eval twin of `make_custom_train_step`, on
+    one device.
+
+    `eval_fn(model, batch, generator) -> {metric: batch mean}` has the
+    loss's signature; it runs under `torch.no_grad` with `generator`
+    None (an eval draws nothing). An optional ``"weight"`` entry is the
+    batch's weight in the pass (e.g. a count of masked positions; by
+    default the batch's leading dimension). The step returns each metric
+    times the weight, and the weight, as fp32 tensors: the caller adds
+    them over the pass and divides once. A batch is a `Placed` batch or a
+    host batch, copied to the model's device. Raises NotImplementedError
+    above one data-parallel rank: the port's custom step is single-device.
+    """
+    if strategy.batch_divisor > 1:
+        raise NotImplementedError(
+            "a custom eval_fn runs on one device only: the port's custom "
+            "steps are single-device (the data-parallel custom step comes "
+            "with the scale-out slice)")
+    device = next(state.model.parameters()).device
+
+    @torch.no_grad()
+    def step(state: TrainState, batch) -> dict:
+        batch = _to_device(strategy, batch if isinstance(batch, tuple)
+                           else (batch,), device)
+        metrics = dict(eval_fn(state.model, batch, None))
+        weight = metrics.pop("weight", None)
+        weight = (torch.tensor(float(batch[0].shape[0]), device=device)
+                  if weight is None else
+                  torch.as_tensor(weight, dtype=torch.float32, device=device))
+        out = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+               * weight for k, v in metrics.items()}
+        out["weight"] = weight.float()
+        return out
 
     return step
 
