@@ -75,7 +75,32 @@ without printing a result:
    checkpoint every 2 and a fresh Estimator resuming to 6, must end with
    the bits of 6 uninterrupted steps, each run launching each flash
    kernel 12 times a step (counters zeroed just before each run). Every
-   model_dir lies under build/ and is removed at the end.
+   model_dir lies under build/ and is removed at the end;
+10. export — the reference's two Estimator recipes and the serving export:
+   `python -m tfde_tpu_torch.mnist_estimator --working-dir D --num-epochs
+   1 --no-tensorboard` in a child process, as a user runs it (TF32 off
+   through ``NVIDIA_TF32_OVERRIDE=0``; BatchNormCNN at the reference
+   widths, batch 128, 468 steps under ParameterServerStrategy, at one
+   process without a group), which must exit 0 with a checkpoint at 468,
+   one artifact under D/export/exporter and a finite final eval; its ms
+   per step from the logged steps/sec beside the dp phase's; the artifact
+   served on the card (`load_serving`) at batch sizes 1, 7, 128 and 10000
+   against the model restored from the checkpoint (softmax on the card)
+   and against the same artifact served on the CPU, each within 1e-5, and
+   its argmax accuracy over the 10000 test images against the final eval
+   accuracy within 1e-4; the seconds and bytes of an export and the served
+   and live ms of a batch of 128; `train_and_evaluate` with a
+   BestExporter over the evals after steps 1 and 2 and the final one,
+   whose newest artifact must be the one best_metric.json names;
+   `python -m tfde_tpu_torch.mnist_tf2 --custom-loop --max-steps 100`,
+   then `--model-dir D2 --max-steps 200`, each exiting 0 at its step
+   count with a finite loss; a GPT whose forward launches the flash
+   kernel must refuse to export (NotImplementedError after one probe
+   launch); on a machine with two cards or more, ParameterServerStrategy
+   one process a card on NCCL against the mirrored run (the same bits on
+   every rank, each rank's optimizer-state bytes: 296,264 at four). It
+   runs none of the flash kernels but the probe's. Every directory lies
+   under build/ and is removed at the end.
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -1438,8 +1463,300 @@ def phase_lifecycle(fa, dev, dp_ms=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: export: the batch sizes the served artifact must answer, its tolerance
+#: against the restored model on the card (TF32 off) and against its own
+#: serving on the CPU, and against the Estimator's final eval accuracy
+EX_BATCHES, EX_TOL, EX_ACC_TOL = (1, 7, 128, 10000), 1e-5, 1e-4
+#: export across cards: each rank's optimizer-state bytes at four ranks
+#: (BatchNormCNN, momentum SGD, fp32): a quarter of Dense_0's weight
+#: (58,800 of its 235,200 elements) and the 15,266 replicated elements
+EX_PS_BYTES = {4: 4 * (58_800 + 15_266)}
+
+
+def _ex_child(argv, root, what):
+    """`python -m <argv>` in a child process from this checkout, with TF32
+    off (``NVIDIA_TF32_OVERRIDE=0``: torch's default runs cuDNN's
+    convolutions in TF32, and the child's eval accuracy is held to the
+    artifact's in fp32): (its stderr log, seconds); raises unless it
+    exits 0."""
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stderr, secs
+
+
+def _ex_evals(log):
+    """The (step, metrics) of every eval an Estimator logged."""
+    import ast
+    import re
+
+    return [(int(m[1]), ast.literal_eval(m[2])) for m in re.finditer(
+        r"eval\[mnist-eval\] @ step (\d+): (\{.*\})", log)]
+
+
+def _ex_recipe(dev, root, dp_ms):
+    """`python -m tfde_tpu_torch.mnist_estimator` as a user runs it (one
+    epoch); then its artifact served on the card against the restored
+    model and against its own CPU serving, its accuracy against the
+    final eval, and the export, bytes and times of an artifact."""
+    import re
+
+    from tfde_tpu_torch.checkpoint.manager import CheckpointManager
+    from tfde_tpu_torch.data import datasets
+    from tfde_tpu_torch.export import export_serving, load_serving
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.training.optimizers import sgd
+    from tfde_tpu_torch.training.step import init_state
+
+    d = os.path.join(root, "estimator")
+    argv = ["tfde_tpu_torch.mnist_estimator", "--working-dir", d,
+            "--num-epochs", "1", "--no-tensorboard"]
+    log, secs = _ex_child(argv, root, "mnist_estimator")
+    evals = _ex_evals(log)
+    rates = [float(x) for x in re.findall(r"step \d+: ([\d.]+) steps/sec",
+                                          log)]
+    steps = CheckpointManager(os.path.join(d, "checkpoints")).all_steps()
+    export_dir = os.path.join(d, "export", "exporter")
+    stamps = sorted(os.listdir(export_dir)) if os.path.isdir(export_dir) else []
+    old = "not run in this call" if dp_ms is None else f"{dp_ms:.3f} ms"
+    step_ms = [round(1e3 / r, 3) for r in rates]
+    print(f"export recipe: python -m {' '.join(argv)} (BatchNormCNN at the "
+          f"reference widths, batch 128, sgd(0.01), ParameterServerStrategy "
+          f"at one process: bootstrap builds no group, so the update is "
+          f"replicated) exit 0 in {secs:.1f} s; checkpoints {steps}, "
+          f"artifacts {stamps}; evals {evals}; ms per step by 100-step window "
+          f"(1 / the logged steps/sec) {step_ms}, the dp phase's old loop "
+          f"{old}; on {_card()}")
+    if not (steps and steps[-1] == 468 and len(stamps) == 1 and evals
+            and evals[-1][0] == 468 and math.isfinite(evals[-1][1]["loss"])):
+        raise AssertionError(f"mnist_estimator: checkpoints {steps}, "
+                             f"artifacts {stamps}, evals {evals}")
+    final = evals[-1][1]
+
+    # the artifact against the model restored from the last checkpoint
+    _, (ex, ey) = datasets.mnist(flatten=True)
+    model = BatchNormCNN(device=dev, seed=1)
+    state = init_state(model, sgd(model, 0.01))
+    CheckpointManager(os.path.join(d, "checkpoints")).restore_latest(state)
+    served = load_serving(export_dir)
+    on_cpu = load_serving(export_dir, device="cpu")
+    x_all = torch.as_tensor(ex, device=dev)
+    worst = {}
+    with torch.no_grad():
+        for n in EX_BATCHES:
+            x = x_all[:n]
+            got = served.module(x)
+            live = torch.softmax(model(x), dim=-1)
+            cpu = torch.as_tensor(on_cpu.predict(ex[:n]))
+            if got.shape != (n, 10):
+                raise AssertionError(f"served {tuple(got.shape)} for {n}")
+            worst[n] = (float((got - live).abs().max()),
+                        float((got.cpu() - cpu).abs().max()))
+    probs = served.predict(ex)
+    acc = float((probs.argmax(-1) == ey.reshape(-1)).mean())
+    print(f"export served: {export_dir}/{stamps[0]} on {served.device}: "
+          f"max abs against the restored model's softmax on the card and "
+          f"against the same artifact served on the CPU, by batch size "
+          f"{worst} (tol {EX_TOL:g}, TF32 off); argmax accuracy over "
+          f"{len(ex)} test images {acc:.4f} against the final eval's "
+          f"{final['accuracy']:.4f} (tol {EX_ACC_TOL:g})")
+    if not (all(a <= EX_TOL and c <= EX_TOL for a, c in worst.values())
+            and abs(acc - final["accuracy"]) <= EX_ACC_TOL):
+        raise AssertionError("the served artifact disagrees")
+
+    # an export of the restored model: seconds, bytes; served and live ms
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = export_serving(model, (None, 784), os.path.join(root, "timing"))
+    export_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    x = x_all[:128]
+    with torch.no_grad():
+        served_ms = _time_ms(lambda: served.module(x), dev)
+        live_ms = _time_ms(lambda: torch.softmax(model(x), dim=-1), dev)
+        walls = []
+        for fn in (lambda: served.module(x),
+                   lambda: torch.softmax(model(x), dim=-1)):
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t0) * 1e3 / 50)
+    print(f"export timing: export_serving of BatchNormCNN {export_s:.2f} s "
+          f"(a CPU copy traced by torch.export, written); artifact "
+          f"{size} bytes ({', '.join(sorted(os.listdir(out)))}); a batch of "
+          f"128: served {served_ms:.4f} ms, live {live_ms:.4f} ms device "
+          f"time (CUDA events, L2 flushed); {walls[0]:.4f} and "
+          f"{walls[1]:.4f} ms a call on the host clock over 50 calls; on "
+          f"{_card()}")
+
+
+def _ex_best(dev, root):
+    """train_and_evaluate with a BestExporter over two throttled evals (a
+    throttle of 0: one after each of 2 steps) and the final one: the
+    newest artifact must be the one best_metric.json names."""
+    from tfde_tpu_torch.data import Dataset, datasets
+    from tfde_tpu_torch.export import BestExporter
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel.strategies import ParameterServerStrategy
+    from tfde_tpu_torch.training import (
+        Estimator, EvalSpec, RunConfig, TrainSpec, train_and_evaluate)
+    from tfde_tpu_torch.training.optimizers import sgd
+
+    (tx, ty), (ex, ey) = datasets.mnist(flatten=True)
+    d = os.path.join(root, "best")
+    model = BatchNormCNN(device=dev, seed=0)
+    est = Estimator(model, sgd(model, 0.2, momentum=0.9),
+                    ParameterServerStrategy(),
+                    RunConfig(model_dir=d, save_checkpoints_steps=None))
+    def eval_fn():
+        return Dataset.from_tensor_slices((ex, ey)).batch(DP_EVAL_BATCH)
+
+    _, final = train_and_evaluate(
+        est, TrainSpec(lambda: Dataset.from_tensor_slices((tx, ty))
+                       .shuffle(len(tx), seed=0).repeat()
+                       .batch(DP_BATCH, drop_remainder=True), 2),
+        EvalSpec(eval_fn, exporters=[BestExporter("best", (None, 784))],
+                 start_delay_secs=0, throttle_secs=0))
+    est.close()
+    best = os.path.join(d, "export", "best")
+    stamps = sorted((x for x in os.listdir(best) if x.isdigit()), key=int)
+    with open(os.path.join(best, "best_metric.json")) as f:
+        bar = json.load(f)
+    print(f"export best: BestExporter over the evals after steps 1 and 2 and "
+          f"the final one ({final}): artifacts {stamps}, best_metric.json "
+          f"{bar}")
+    if bar["artifact"] != os.path.join(best, stamps[-1]):
+        raise AssertionError("the newest artifact is not the best one")
+
+
+def _ex_tf2(root):
+    """The second recipe: mnist_tf2's custom loop, then its Estimator."""
+    import re
+
+    log, secs = _ex_child(["tfde_tpu_torch.mnist_tf2", "--custom-loop",
+                           "--max-steps", "100"], root, "mnist_tf2 custom")
+    m = re.search(r"custom loop done: step=(\d+) loss=([\d.naif]+)", log)
+    d2 = os.path.join(root, "tf2")
+    log2, secs2 = _ex_child(["tfde_tpu_torch.mnist_tf2", "--model-dir", d2,
+                             "--max-steps", "200"], root, "mnist_tf2")
+    evals = _ex_evals(log2)
+    stamps = os.listdir(os.path.join(d2, "export", "exporter"))
+    print(f"export tf2: --custom-loop --max-steps 100: {m and m.group(0)} "
+          f"({secs:.1f} s); --model-dir --max-steps 200: final eval "
+          f"{evals[-1] if evals else None}, artifacts {stamps} "
+          f"({secs2:.1f} s)")
+    if not (m and int(m[1]) == 100 and math.isfinite(float(m[2])) and evals
+            and evals[-1][0] == 200 and math.isfinite(evals[-1][1]["loss"])
+            and len(stamps) == 1):
+        raise AssertionError("mnist_tf2 did not end as it should")
+
+
+def _ex_flash_refused(dev, root):
+    """A GPT whose forward launches the flash kernels on the card must not
+    export: NotImplementedError, after one probe launch."""
+    from tfde_tpu_torch.export import export_serving
+    from tfde_tpu_torch.models.gpt import GPT
+    from tfde_tpu_torch.ops import flash_attention as fa
+
+    model = GPT(vocab_size=97, hidden_size=128, depth=1, num_heads=2,
+                mlp_dim=256, max_position=64, dtype=torch.bfloat16,
+                device=dev)
+    before = fa.flash_forward.launches
+    try:
+        export_serving(model, (None, 16), os.path.join(root, "gpt"),
+                       input_dtype=torch.int64)
+    except NotImplementedError as e:
+        print(f"export gpt: a GPT (head dim 64) on the card refused after "
+              f"{fa.flash_forward.launches - before} probe launch: {e}")
+    else:
+        raise AssertionError("a flash GPT exported from the card")
+    if fa.flash_forward.launches - before != 1:
+        raise AssertionError("the probe did not launch the flash kernel")
+
+
+def _ex_cards():
+    """On a machine with two cards or more: ParameterServerStrategy, one
+    process a card on NCCL (`testing.ps_ranks_worker`), against the
+    mirrored run of the same steps; the same bits on every rank, and each
+    rank's optimizer-state bytes."""
+    from tfde_tpu_torch.data import datasets
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.testing import ps_ranks_worker, run_ranks
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"export cards: {n} card on this machine; the run across cards "
+              f"needs two or more (not run)")
+        return
+    (tx, ty), _ = datasets.mnist(flatten=True, n_train=320, n_test=8)
+    batches = [(tx[i * 64:(i + 1) * 64], ty[i * 64:(i + 1) * 64])
+               for i in range(5)]
+    initial = {k: v.numpy() for k, v in BatchNormCNN(
+        dropout_rate=0.0, device="cpu", seed=0).state_dict().items()}
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", f"ps_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    try:
+        out = run_ranks(ps_ranks_worker, [
+            (n, store, ("BatchNormCNN", initial, batches, 0.05, 0.9))] * n,
+            timeout=600)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    ps = [o["ParameterServerStrategy"] for o in out]
+    mirrored = out[0]["MultiWorkerMirroredStrategy"]
+    same = all(np.array_equal(v, o["state_dict"][k]) for o in ps[1:]
+               for k, v in ps[0]["state_dict"].items())
+    err = max(float(np.abs(v - mirrored["state_dict"][k]).max())
+              for k, v in ps[0]["state_dict"].items())
+    bits = err == 0.0
+    opt_bytes = [o["opt_state_bytes"] for o in ps]
+    print(f"export cards: ParameterServerStrategy over {n} cards on NCCL "
+          f"(BatchNormCNN, 5 sgd(0.05, momentum 0.9) steps of 64, "
+          f"cudnn.deterministic): the same bits on every rank: {same}; "
+          f"against the mirrored run max abs {err:.3e} (bits equal: {bits}); "
+          f"optimizer-state bytes a rank {opt_bytes} (mirrored "
+          f"{mirrored['opt_state_bytes']}), on {n} x {_card()}")
+    if not same or err > 1e-7:
+        raise AssertionError("the PS run across cards disagrees")
+    if n in EX_PS_BYTES and set(opt_bytes) != {EX_PS_BYTES[n]}:
+        raise AssertionError(f"optimizer-state bytes {opt_bytes}, not "
+                             f"{EX_PS_BYTES[n]}")
+
+
+def phase_export(dev, dp_ms=None):
+    """The reference's two Estimator recipes and the serving export on the
+    card (docstring, phase 10). Every directory lies under build/ and is
+    removed at the end."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"export_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        _ex_recipe(dev, root, dp_ms)
+        _ex_best(dev, root)
+        _ex_tf2(root)
+        _ex_flash_refused(dev, root)
+        _ex_cards()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
-          "lifecycle")
+          "lifecycle", "export")
 
 
 def main(argv=None) -> int:
@@ -1479,6 +1796,8 @@ def main(argv=None) -> int:
     dp_ms = phase_dp(dev) if "dp" in phases else None
     if "lifecycle" in phases:
         phase_lifecycle(fa, dev, dp_ms)
+    if "export" in phases:
+        phase_export(dev, dp_ms)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

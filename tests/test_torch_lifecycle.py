@@ -68,6 +68,7 @@ from tfde_tpu.training.step import init_state as j_init_state
 from tfde_tpu_torch import testing
 from tfde_tpu_torch.checkpoint.manager import CheckpointManager
 from tfde_tpu_torch.data import AutoShardPolicy, Dataset
+from tfde_tpu_torch.export.serving import FinalExporter
 from tfde_tpu_torch.models.cnn import BatchNormCNN, PlainCNN
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import gpt_tiny_test, next_token_loss
@@ -492,16 +493,15 @@ def test_unported_run_config_fields_raise(field, value):
 
 
 def test_unported_estimator_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="exporters"):
-        EvalSpec(_eval_fn, exporters=[object()])
+    with pytest.raises(NotImplementedError, match="savedmodel"):
+        FinalExporter("exporter", (None, 784), savedmodel=True)
     model = PlainCNN(device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(NotImplementedError,
+                       match="'LoRA through the Estimator'"):
         Estimator(model, sgd(model, 0.1), _local(), lora=object(),
                   lora_base_params={})
     est = Estimator(model, sgd(model, 0.1), _local(),
                     eval_strategy=Strategy(mesh=LocalMesh(("data",))))
-    with pytest.raises(NotImplementedError, match="export"):
-        est.export_saved_model(object())
     est.train(_train_fn, 1)
     with pytest.raises(NotImplementedError, match="mirrored"):
         est.evaluate(_eval_fn)

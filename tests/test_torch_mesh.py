@@ -105,9 +105,8 @@ def test_unported_strategy_options_raise(kwargs, error):
 
 
 @pytest.mark.parametrize("name", [
-    "ParameterServerStrategy", "FSDPStrategy", "TensorParallelStrategy",
-    "SequenceParallelStrategy", "ExpertParallelStrategy",
-    "PipelineParallelStrategy"])
+    "FSDPStrategy", "TensorParallelStrategy", "SequenceParallelStrategy",
+    "ExpertParallelStrategy", "PipelineParallelStrategy"])
 def test_unported_strategies_raise(name):
     with pytest.raises(NotImplementedError, match="scale-out slice"):
         getattr(strategies, name)()

@@ -32,8 +32,8 @@ MAX_STEPS, KILL_AFTER = 30, 12
 def _child(tmp_path, tag, model_dir, kill_after=None):
     out = str(tmp_path / f"{tag}.json")
     argv = [sys.executable, "-m", "tfde_tpu_torch.testing", model_dir, out,
-            "--max-steps", str(MAX_STEPS), "--n-train", "512", "--batch",
-            "32", "--save-every", "10"]
+            "--device", "cpu", "--max-steps", str(MAX_STEPS), "--n-train",
+            "512", "--batch", "32", "--save-every", "10"]
     if kill_after is not None:
         argv += ["--kill-after", str(kill_after)]
     env = dict(os.environ)

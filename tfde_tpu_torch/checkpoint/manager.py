@@ -15,9 +15,14 @@ written by `torch.save` and read by `torch.load(weights_only=True)`:
 - Commit: a step is written into ``<directory>/<step>.tmp-<pid>`` and
   renamed to ``<directory>/<step>`` by `os.replace`, so a directory a
   crash left half-written is never read (only names of digits are steps).
-- Ranks: the state is replicated, so rank 0 of `group` writes. Every rank
-  restores onto its own device (`map_location`). The ranks must share the
-  directory, as the JAX package's ranks share theirs.
+- Ranks: the parameters are replicated, so rank 0 of `group` writes.
+  The optimizer state is saved in the replicated layout: under ZeRO-1
+  (`ParameterServerStrategy`) every rank joins the all-gather of the
+  slices before rank 0's host copy, and on restore each rank keeps its
+  slice, so a checkpoint moves between the mirrored strategies and
+  ZeRO-1 either way. Every rank restores onto its own device
+  (`map_location`). The ranks must share the directory, as the JAX
+  package's ranks share theirs.
 - Saves are asynchronous, the JAX default: `save` copies the state to host
   memory at once (the next step changes the parameters in place) and
   writes it on one background thread; `wait` joins the write and then,
@@ -26,8 +31,8 @@ written by `torch.save` and read by `torch.load(weights_only=True)`:
 
 Not ported: the retry policy over remote file systems (``TFDE_RETRY_*``,
 the resilience slice) and remote directories; ZeRO's packed optimizer
-state and its cross-format and cross-world restores (with ZeRO, in the
-scale-out slice).
+state (``opt_sharding='shard'``) and restores across world sizes (with
+the packed layout, in the scale-out slice).
 """
 
 from __future__ import annotations
@@ -83,7 +88,7 @@ def _first_difference(saved: dict, state: "TrainState") -> Optional[str]:
     if len(groups) != len(live_groups):
         return (f"optimizer.param_groups ({len(groups)} saved, "
                 f"{len(live_groups)} live)")
-    params = [p for g in state.tx.param_groups for p in g["params"]]
+    params = state.optimizer_params()
     for i, (g, lg) in enumerate(zip(groups, live_groups)):
         names = sorted(set(g) ^ set(lg))
         if names:
@@ -155,10 +160,11 @@ class CheckpointManager:
             if step in self._steps:
                 return False
             self._steps = sorted(self._steps + [step])
+        optimizer = state.optimizer_state_dict()  # ZeRO-1: gathers slices
         if self._rank() == 0:
             payload = {"step": step,
                        "model": _to_host(state.model.state_dict()),
-                       "optimizer": _to_host(state.tx.state_dict())}
+                       "optimizer": _to_host(optimizer)}
             self._join()  # one write at a time
             self._thread = threading.Thread(
                 target=self._write, args=(step, payload), daemon=True,
@@ -258,7 +264,7 @@ class CheckpointManager:
                 f"since it was written. Resume with the original model and "
                 f"optimizer, or clear the checkpoint directory to restart")
         state.model.load_state_dict(payload["model"])
-        state.tx.load_state_dict(payload["optimizer"])
+        state.load_optimizer_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         with self._lock:
             self._steps = sorted(set(self._steps) | set(steps))

@@ -1,6 +1,7 @@
 """Distribution strategies — counterpart of
 `tfde_tpu/parallel/strategies.py`: the two mirrored (synchronous
-data-parallel) strategies, on `DistributedDataParallel`.
+data-parallel) strategies on `DistributedDataParallel`, and
+`ParameterServerStrategy`, the same with ZeRO-1 optimizer state.
 
 In the JAX package a strategy is sharding rules over a mesh and XLA
 inserts the gradient `psum`. Here the strategy owns a mesh
@@ -10,14 +11,17 @@ the backward pass. Every rank sees the whole global batch and takes its
 own rows, rank r rows [r n/R, (r+1) n/R): the JAX batch split over the
 ``data`` axis in process order, and the reference's
 `AutoShardPolicy.OFF` (every worker iterates the same stream).
+`shard_update` then lays out the optimizer's state: whole on every rank
+for the mirrored strategies, sliced over the ``data`` group for
+`ParameterServerStrategy` (`training.train_state.ShardedUpdate`).
 
 Not ported yet, and raising NotImplementedError: the int8 gradient
-transport (``grad_transport='int8'``), ZeRO weight-update sharding
-(``opt_sharding='shard'``), and the other strategies (parameter server,
-FSDP, tensor, sequence, expert, pipeline). They come with the scale-out
-slice (ROADMAP, queue 1, "Then"). The port does not read
-``$TFDE_GRAD_TRANSPORT`` or ``$TFDE_OPT_SHARDING`` either: its only
-transport is fp32 and its only update layout is replicated.
+transport (``grad_transport='int8'``), ZeRO's packed weight-update
+sharding (``opt_sharding='shard'``, the JAX `parallel/zero.py` layout),
+and the other strategies (FSDP, tensor, sequence, expert, pipeline).
+They come with the scale-out slice (ROADMAP, queue 1, "Then"). The port
+does not read ``$TFDE_GRAD_TRANSPORT`` or ``$TFDE_OPT_SHARDING`` either:
+its only transport is fp32.
 """
 
 from __future__ import annotations
@@ -49,12 +53,14 @@ def check_ported(grad_transport=None, opt_sharding=None) -> None:
     if opt_sharding not in (None, "replicated"):
         if opt_sharding == "shard":
             raise NotImplementedError(
-                f"opt_sharding='shard' (ZeRO) is not ported yet: it {_LATER}")
+                f"opt_sharding='shard' (ZeRO's packed layout) is not ported "
+                f"yet: it {_LATER}")
         raise ValueError(f"unknown opt_sharding {opt_sharding!r}")
 
 
 class Strategy:
-    """Base: replicated parameters, the batch split over the ``data`` axis.
+    """Base: replicated parameters and optimizer state, the batch split
+    over the ``data`` axis.
 
     `grad_transport` takes only 'fp32' (or None) and `opt_sharding` only
     'replicated' (or None); 'int8' and 'shard' are not ported yet.
@@ -130,6 +136,10 @@ class Strategy:
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
             process_group=group, broadcast_buffers=False)
 
+    def shard_update(self, state) -> None:
+        """Lay out `state`'s optimizer for this strategy's update; the
+        mirrored strategies keep it whole on every rank."""
+
     def describe(self) -> str:
         return f"{type(self).__name__}(mesh={self._axis_sizes()})"
 
@@ -152,8 +162,31 @@ class _Unported(Strategy):
             f"{type(self).__name__} is not ported yet: it {_LATER}")
 
 
-class ParameterServerStrategy(_Unported):
-    """The JAX package's ZeRO-1 parameter-server capability; not ported."""
+class ParameterServerStrategy(Strategy):
+    """The parameter-server capability, synchronous: ZeRO-1 (JAX :192-212).
+
+    The reference hosts variables on ps tasks that workers read and update
+    over gRPC (tf2_mnist:189). Here, as in the JAX package, the hosting
+    is of the optimizer state, sliced over the ``data`` group: the
+    gradients are averaged by DDP as under MultiWorkerMirroredStrategy,
+    each rank updates its slice of each parameter of at least
+    `min_shard_elems` elements (and the whole of each smaller one), and
+    an all-gather gives every rank the whole updated parameters. The math
+    is the mirrored step's; the optimizer state a rank holds shrinks by
+    the rank count for the sharded parameters. Parameters stay replicated,
+    so a PS-trained model evaluates under either mirrored strategy.
+    """
+
+    def __init__(self, mesh: Optional[Mesh] = None,
+                 min_shard_elems: int = 2**14, grad_transport=None,
+                 opt_sharding=None):
+        super().__init__(mesh, grad_transport=grad_transport,
+                         opt_sharding=opt_sharding)
+        self.min_shard_elems = min_shard_elems
+
+    def shard_update(self, state) -> None:
+        """ZeRO-1 over the ``data`` group (nothing to do at one rank)."""
+        state.shard_optimizer(self.data_group, self.min_shard_elems)
 
 
 class FSDPStrategy(_Unported):

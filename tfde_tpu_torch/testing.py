@@ -12,8 +12,9 @@ picked free. Every group is destroyed in a `finally`.
 
 `recipe` is the verify recipe through the Estimator, and
 ``python -m tfde_tpu_torch.testing MODEL_DIR OUT_JSON --max-steps N``
-(`recipe_main`) runs it in a process of its own, which the preemption
-test and `chip_smoke.py`'s lifecycle phase interrupt by SIGTERM.
+(`recipe_main`; on CUDA unless ``--device cpu``) runs it in a process of
+its own, which the preemption test and `chip_smoke.py`'s lifecycle phase
+interrupt by SIGTERM.
 """
 
 from __future__ import annotations
@@ -99,38 +100,65 @@ def mesh_worker(rank: int, world: int, store_path: str) -> dict:
         dist.destroy_process_group()
 
 
+def _optimizer(model, optimizer: str, lr: float, momentum=None):
+    """'sgd': sgd(lr, momentum); 'adam': the port's adamw with weight decay
+    0, which is optax.adam."""
+    from tfde_tpu_torch.training.optimizers import adamw, sgd
+
+    if optimizer == "adam":
+        return adamw(model, lr, weight_decay=0.0)
+    return sgd(model, lr, momentum=momentum)
+
+
+def _numpy_opt_state(sd: dict) -> dict:
+    """{parameter index: {entry: numpy array}} of an optimizer state dict."""
+    return {i: {k: v.detach().cpu().numpy().copy() for k, v in e.items()
+                if isinstance(v, torch.Tensor)}
+            for i, e in sd["state"].items()}
+
+
 def train_cnn(model_name: str, state_dict: dict, batches: Sequence[tuple],
               lr: float, momentum: Optional[float] = None,
-              eval_batches: Sequence[tuple] = (), device="cpu") -> dict:
+              eval_batches: Sequence[tuple] = (), device="cpu",
+              strategy: str = "MultiWorkerMirroredStrategy",
+              optimizer: str = "sgd", min_shard_elems: int = 2**14) -> dict:
     """`model_name` ('PlainCNN' or 'BatchNormCNN', dropout off) on `device`
-    from `state_dict` (numpy arrays), one `make_train_step` SGD step per
-    global batch under MultiWorkerMirroredStrategy over the process group
-    (one rank when there is none), then one `make_eval_step` call per eval
+    from `state_dict` (numpy arrays), one `make_train_step` step per
+    global batch under `strategy` (MultiWorkerMirroredStrategy or
+    ParameterServerStrategy with `min_shard_elems`) over the process group
+    (one rank when there is none), with `optimizer` ('sgd' at `lr` and
+    `momentum`, or 'adam' at `lr`), then one `make_eval_step` call per eval
     batch (images, labels, mask). Returns the per-step metrics, the eval
-    sums and the final state_dict as numpy arrays."""
+    sums, the final state_dict and the optimizer state in the replicated
+    layout as numpy arrays, and this rank's optimizer-state bytes."""
     from tfde_tpu_torch.models.cnn import BatchNormCNN, PlainCNN
-    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
-    from tfde_tpu_torch.training.optimizers import sgd
+    from tfde_tpu_torch.parallel import strategies
     from tfde_tpu_torch.training.step import (
         init_state, make_eval_step, make_train_step)
+    from tfde_tpu_torch.training.train_state import opt_state_bytes
 
     model = (BatchNormCNN(dropout_rate=0.0, device=device)
              if model_name == "BatchNormCNN" else PlainCNN(device=device))
     model.load_state_dict({k: torch.as_tensor(np.asarray(v))
                            for k, v in state_dict.items()})
-    state = init_state(model, sgd(model, lr, momentum=momentum))
-    strategy = MultiWorkerMirroredStrategy()
-    step = make_train_step(strategy, state)
+    state = init_state(model, _optimizer(model, optimizer, lr, momentum))
+    strat = (strategies.ParameterServerStrategy(
+        min_shard_elems=min_shard_elems)
+        if strategy == "ParameterServerStrategy"
+        else strategies.MultiWorkerMirroredStrategy())
+    step = make_train_step(strat, state)
     history = []
     for batch in batches:
         state, metrics = step(state, batch)
         history.append({k: float(v) for k, v in metrics.items()})
-    eval_step = make_eval_step(strategy, state)
+    eval_step = make_eval_step(strat, state)
     evals = [{k: float(v) for k, v in eval_step(state, b).items()}
              for b in eval_batches]
     return {"history": history, "eval": evals,
             "state_dict": {k: v.detach().cpu().numpy().copy()
-                           for k, v in model.state_dict().items()}}
+                           for k, v in model.state_dict().items()},
+            "opt_state": _numpy_opt_state(state.optimizer_state_dict()),
+            "opt_state_bytes": opt_state_bytes(state.tx)}
 
 
 def dp_train_worker(rank: int, world: int, store_path: str, *args) -> dict:
@@ -138,6 +166,82 @@ def dp_train_worker(rank: int, world: int, store_path: str, *args) -> dict:
     _init_file_group(rank, world, store_path)
     try:
         return train_cnn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_train_runs_worker(rank: int, world: int, store_path: str,
+                         runs: Sequence[tuple]) -> list:
+    """`train_cnn(*args, **kwargs)` for each (args, kwargs) of `runs`, in
+    order, on rank `rank` of one `world`-rank gloo group."""
+    _init_file_group(rank, world, store_path)
+    try:
+        return [train_cnn(*args, **kwargs) for args, kwargs in runs]
+    finally:
+        dist.destroy_process_group()
+
+
+def ps_checkpoint_worker(rank: int, world: int, store_path: str,
+                         directory: str, state_dict: dict,
+                         batches: Sequence[tuple], first: str, second: str,
+                         split: int) -> dict:
+    """BatchNormCNN (dropout off) from `state_dict`, sgd(0.05, momentum
+    0.9), one `make_train_step` step a global batch, on rank `rank` of a
+    `world`-rank gloo group. Strategy names as `train_cnn` takes them.
+    Run "whole": all `batches` under `second`. Run "resumed": the first
+    `split` under `first`, a checkpoint into `directory` (rank 0 writes),
+    then a fresh model and optimizer under `second` that restore it and
+    take the rest; twice, restoring before the train step is built (as
+    the Estimator does) and after (as `reload_from_checkpoint` does).
+    Returns each run's state_dict and optimizer state (the replicated
+    layout) as numpy arrays, and the step each resumed run restored."""
+    from tfde_tpu_torch.checkpoint.manager import CheckpointManager
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel import strategies
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    def fresh():
+        model = BatchNormCNN(dropout_rate=0.0, device="cpu", seed=1)
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in state_dict.items()})
+        return init_state(model, _optimizer(model, "sgd", 0.05, 0.9))
+
+    def step_of(name, state):
+        return make_train_step(getattr(strategies, name)(), state)
+
+    def result(state):
+        return {"state_dict": {k: v.detach().numpy().copy()
+                               for k, v in state.model.state_dict().items()},
+                "opt_state": _numpy_opt_state(state.optimizer_state_dict()),
+                "step": state.step}
+
+    _init_file_group(rank, world, store_path)
+    try:
+        out = {}
+        state = fresh()
+        step = step_of(second, state)
+        for b in batches:
+            step(state, b)
+        out["whole"] = result(state)
+        state = fresh()
+        step = step_of(first, state)
+        for b in batches[:split]:
+            step(state, b)
+        mngr = CheckpointManager(directory, group=dist.group.WORLD)
+        mngr.save(state)
+        mngr.wait()
+        for order in ("restore_first", "step_first"):
+            state = fresh()
+            if order == "step_first":
+                step = step_of(second, state)
+            restored = CheckpointManager(directory).restore_latest(state)
+            if order == "restore_first":
+                step = step_of(second, state)
+            out[order] = {"restored_at": restored.step}
+            for b in batches[split:]:
+                step(state, b)
+            out[order].update(result(state))
+        return out
     finally:
         dist.destroy_process_group()
 
@@ -247,6 +351,27 @@ def dp_ranks_worker(rank: int, world: int, store_path: str, device_type: str,
         return {"parity": parity_run, "losses": [float(x) for x in losses],
                 "ms": ms, "profile": prof, "backend": dist.get_backend(),
                 "device": str(device)}
+    finally:
+        dist.destroy_process_group()
+
+
+def ps_ranks_worker(rank: int, world: int, store_path: str,
+                    parity: tuple) -> dict:
+    """Rank `rank` of a `world`-rank NCCL group on ``cuda:<rank>`` (fp32,
+    TF32 off, cuDNN's deterministic algorithms, so that the two runs can
+    be compared bit for bit): `train_cnn(*parity)` under
+    ParameterServerStrategy, then under MultiWorkerMirroredStrategy.
+    Returns both results."""
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    _init_file_group(rank, world, store_path, "nccl")
+    try:
+        return {s: train_cnn(*parity, device=device, strategy=s)
+                for s in ("ParameterServerStrategy",
+                          "MultiWorkerMirroredStrategy")}
     finally:
         dist.destroy_process_group()
 
@@ -377,6 +502,54 @@ def estimator_worker(rank: int, world: int, store_path: str, model_name: str,
         dist.destroy_process_group()
 
 
+def ps_eval_worker(rank: int, world: int, store_path: str, model_dir: str,
+                   state_dict: dict, train: tuple, test: tuple, batch: int,
+                   steps: int) -> dict:
+    """BatchNormCNN (dropout off) from `state_dict` trained by
+    `Estimator.train` under ParameterServerStrategy (ZeRO-1 at
+    `min_shard_elems=1024`) with `eval_strategy=MirroredStrategy()`, on
+    rank `rank` of a `world`-rank gloo group: `steps` global batches of
+    `batch` under `AutoShardPolicy.OFF`, sgd(0.05, momentum 0.9), a
+    checkpoint at the end; `evaluate` over `test` in batches of `batch`.
+    Then a fresh Estimator under ParameterServerStrategy alone restores
+    the checkpoint and evaluates the same set. Returns both evals and
+    whether the update was sharded."""
+    from tfde_tpu_torch.data.pipeline import AutoShardPolicy, Dataset
+    from tfde_tpu_torch.models.cnn import BatchNormCNN
+    from tfde_tpu_torch.parallel.strategies import (
+        MirroredStrategy, ParameterServerStrategy)
+    from tfde_tpu_torch.training.lifecycle import Estimator, RunConfig
+
+    def estimator(**kw):
+        model = BatchNormCNN(dropout_rate=0.0, device="cpu", seed=1)
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in state_dict.items()})
+        return Estimator(model, _optimizer(model, "sgd", 0.05, 0.9),
+                         ParameterServerStrategy(min_shard_elems=1024),
+                         RunConfig(model_dir=model_dir,
+                                   save_checkpoints_steps=steps), **kw)
+
+    def test_fn():
+        return Dataset.from_tensor_slices(test).batch(batch)
+
+    _init_file_group(rank, world, store_path)
+    try:
+        est = estimator(eval_strategy=MirroredStrategy())
+        state = est.train(lambda: Dataset.from_tensor_slices(train)
+                          .shuffle(len(train[0]), seed=0).repeat()
+                          .batch(batch, drop_remainder=True), steps,
+                          shard_policy=AutoShardPolicy.OFF)
+        mirrored = est.evaluate(test_fn)
+        sharded = state.sharded is not None
+        est.close()
+        fresh = estimator()
+        ps = fresh.evaluate(test_fn)
+        fresh.close()
+        return {"mirrored": mirrored, "ps": ps, "sharded": sharded}
+    finally:
+        dist.destroy_process_group()
+
+
 #: batches the Estimator's feed (`device_prefetch`, buffer_size 2) stages
 #: ahead of the step that runs
 FEED_LOOKAHEAD = 2
@@ -444,8 +617,9 @@ def state_digest(model: torch.nn.Module) -> str:
 
 def recipe_main(argv=None) -> None:
     """``python -m tfde_tpu_torch.testing MODEL_DIR OUT_JSON [options]``:
-    `recipe` trained to --max-steps in this process (on CUDA: fp32 with
-    TF32 off, cuDNN's deterministic algorithms, a one-rank NCCL group),
+    `recipe` trained to --max-steps in this process on --device, CUDA
+    unless ``cpu`` (on CUDA: fp32 with TF32 off, cuDNN's deterministic
+    algorithms, a one-rank NCCL group),
     then {"step", "resumed_from", "digest"} written to OUT_JSON. With
     --kill-after k the process dies by SIGTERM after committing step k,
     and writes nothing."""
@@ -455,7 +629,7 @@ def recipe_main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=recipe_main.__doc__)
     ap.add_argument("model_dir")
     ap.add_argument("out_json")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-steps", type=int, required=True)
     ap.add_argument("--n-train", type=int, default=60000)
     ap.add_argument("--batch", type=int, default=128)

@@ -1,7 +1,7 @@
 """Estimator-style training lifecycle — counterpart of
 `tfde_tpu/training/lifecycle.py` (`RunConfig` :70, `TrainSpec` :122,
-`EvalSpec` :131, `Estimator` :140, `continuous_eval` :891,
-`train_and_evaluate` :954).
+`EvalSpec` :131, `Estimator` :140, `export_saved_model` :836,
+`continuous_eval` :891, `train_and_evaluate` :954).
 
 The `tf.estimator.train_and_evaluate` behaviour the reference relies on,
 made explicit as in the JAX package: TrainSpec.max_steps bounds training
@@ -13,7 +13,9 @@ RunConfig.save_checkpoints_steps into model_dir, restored by default on
 restart (mnist_keras:245-248); scalar summaries every save_summary_steps
 and steps/sec every log_step_count_steps (mnist_keras:246-247); a
 SIGTERM or SIGINT during `train()` force-saves the current step and
-re-raises the signal.
+re-raises the signal; EvalSpec's exporters (`export.serving`): the
+metric-gated ones (BestExporter) after every eval, every one after the
+final eval (mnist_keras:264).
 
 What differs from the JAX package:
 - the Estimator takes a torch `nn.Module` that already holds its initial
@@ -32,8 +34,7 @@ What differs from the JAX package:
   of its own, with no process group.
 
 Not ported yet, each raising NotImplementedError when set to anything but
-its default: LoRA (`lora`, `lora_base_params`) and export
-(`EvalSpec.exporters`, `export_saved_model`), the export slice;
+its default: LoRA (`lora`, `lora_base_params`), an item of its own;
 `RunConfig.profile_steps`, `metrics_port`, `metrics_push_url`,
 `metrics_push_interval` and `sentry`, the observability slice;
 ``grad_transport='int8'`` and ``opt_sharding='shard'``, the scale-out
@@ -63,7 +64,8 @@ from tfde_tpu_torch.data.device import device_prefetch
 from tfde_tpu_torch.data.pipeline import AutoShardPolicy
 from tfde_tpu_torch.observability.tensorboard import SummaryWriter
 from tfde_tpu_torch.parallel.strategies import (
-    MirroredStrategy, MultiWorkerMirroredStrategy, Strategy, check_ported)
+    MirroredStrategy, MultiWorkerMirroredStrategy, ParameterServerStrategy,
+    Strategy, check_ported)
 from tfde_tpu_torch.resilience.preemption import PreemptionGuard
 from tfde_tpu_torch.runtime.mesh import LocalMesh
 from tfde_tpu_torch.training.step import (
@@ -74,7 +76,12 @@ from tfde_tpu_torch.training.train_state import TrainState
 log = logging.getLogger(__name__)
 
 _OBSERVABILITY = "comes with the observability slice (ROADMAP, queue 1)"
-_EXPORT = "comes with the export slice (ROADMAP, queue 1)"
+_LORA = ("comes with its own item (ROADMAP, queue 1, 'LoRA through the "
+         "Estimator')")
+#: the strategies whose parameters are whole on every rank: a model
+#: trained under one evaluates under another
+_REPLICATED_PARAMS = (MirroredStrategy, MultiWorkerMirroredStrategy,
+                      ParameterServerStrategy)
 
 
 @dataclasses.dataclass
@@ -124,8 +131,8 @@ class TrainSpec:
 
 @dataclasses.dataclass
 class EvalSpec:
-    """The eval input and cadence; `exporters` must stay empty (export is
-    not ported yet)."""
+    """The eval input and cadence, and the exporters (`export.serving`
+    FinalExporter/BestExporter) `train_and_evaluate` runs."""
 
     input_fn: Callable[[], Iterable]
     steps: Optional[int] = None  # None = full pass (mnist_keras:271)
@@ -133,11 +140,6 @@ class EvalSpec:
     exporters: Sequence = ()
     start_delay_secs: float = 10.0
     throttle_secs: float = 10.0
-
-    def __post_init__(self):
-        if self.exporters:
-            raise NotImplementedError(
-                f"EvalSpec.exporters are not ported yet: export {_EXPORT}")
 
 
 def _step_seed(seed: int, step: int, rank: int) -> int:
@@ -160,10 +162,12 @@ class Estimator:
     parameters (`training.optimizers`), whose schedule sets each update's
     lr. `strategy` (default `MultiWorkerMirroredStrategy`) replicates the
     model;
-    `eval_strategy` evaluates under another mirrored strategy (the
-    reference's `DistributeConfig(eval_distribute=MirroredStrategy)`,
-    mnist_keras_distributed.py:241-243): both hold replicated state, so
-    only the eval step's group changes. `loss_fn(model, batch, generator)
+    `eval_strategy` evaluates under another strategy (the reference's
+    `DistributeConfig(train_distribute=ParameterServerStrategy,
+    eval_distribute=MirroredStrategy)`, mnist_keras_distributed.py:
+    240-243): the mirrored strategies and ParameterServerStrategy (ZeRO-1)
+    all hold whole parameters on every rank, so only the eval step's group
+    changes. `loss_fn(model, batch, generator)
     -> (loss, metrics)` is a custom objective (the GPT path,
     `make_custom_train_step`, with `grad_accum` microbatches);
     `eval_fn(model, batch, generator) -> {metric: batch mean}` its eval
@@ -179,7 +183,7 @@ class Estimator:
                  lora=None, lora_base_params=None):
         if lora is not None or lora_base_params is not None:
             raise NotImplementedError(f"LoRA through the Estimator is not "
-                                      f"ported yet: it {_EXPORT}")
+                                      f"ported yet: it {_LORA}")
         self.model = model
         self.tx = optimizer
         self.strategy = strategy or MultiWorkerMirroredStrategy()
@@ -256,14 +260,14 @@ class Estimator:
     def _eval_strat(self) -> Strategy:
         if self.eval_strategy is None:
             return self.strategy
-        mirrored = (MirroredStrategy, MultiWorkerMirroredStrategy)
-        if not (isinstance(self.strategy, mirrored)
-                and isinstance(self.eval_strategy, mirrored)):
+        if not (isinstance(self.strategy, _REPLICATED_PARAMS)
+                and isinstance(self.eval_strategy, _REPLICATED_PARAMS)):
             raise NotImplementedError(
                 f"evaluating a {type(self.strategy).__name__}-trained model "
-                f"under {type(self.eval_strategy).__name__}: only the two "
-                f"mirrored strategies, which both hold replicated state, "
-                f"are ported")
+                f"under {type(self.eval_strategy).__name__}: only the "
+                f"strategies that hold whole parameters on every rank "
+                f"(the two mirrored ones, ParameterServerStrategy) are "
+                f"ported")
         return self.eval_strategy
 
     # -- train ---------------------------------------------------------------
@@ -456,8 +460,26 @@ class Estimator:
                                      train=False)
             yield torch.softmax(logits.float(), dim=-1).cpu().numpy()
 
-    def export_saved_model(self, exporter, metrics=None):
-        raise NotImplementedError(f"export is not ported yet: it {_EXPORT}")
+    def export_saved_model(self, exporter, metrics: Optional[dict] = None
+                           ) -> Optional[str]:
+        """Run `exporter` on the live (or checkpointed) model, on the chief
+        only; the artifact's directory, or None. A metric-gated exporter
+        (one with `maybe_export`, BestExporter) gets `metrics` and decides;
+        without metrics (no eval yet, an empty eval) it is skipped with a
+        warning, since a gated export of a model never evaluated would
+        break its contract."""
+        state = (self._state if self._state is not None
+                 else self._state_for_inference("export"))
+        if not _is_chief() or self.config.model_dir is None:
+            return None
+        if hasattr(exporter, "maybe_export"):
+            if not metrics:
+                log.warning("skipping metric-gated exporter %r: no eval "
+                            "metrics available", exporter.name)
+                return None
+            return exporter.maybe_export(self.config.model_dir, state.model,
+                                         metrics)
+        return exporter.export(self.config.model_dir, state.model)
 
     def close(self) -> None:
         if self._ckpt is not None:
@@ -481,7 +503,11 @@ def continuous_eval(estimator: Estimator, eval_spec: EvalSpec,
 
     Stops when `stop_after_step` is reached, `idle_timeout_secs` pass with
     no new checkpoint, or `stop_event` is set (after a final catch-up
-    pass). Returns (last evaluated step, its metrics)."""
+    pass). Returns (last evaluated step, its metrics).
+
+    The metric-gated exporters of `eval_spec` (BestExporter) run after
+    every evaluated checkpoint; the others wait for the end of training
+    (the caller's final export)."""
     poll = eval_spec.throttle_secs if poll_secs is None else poll_secs
     seen, last = -1, {}
     idle_since = time.time()
@@ -496,6 +522,7 @@ def continuous_eval(estimator: Estimator, eval_spec: EvalSpec,
         idle_since = time.time()
         last = estimator.evaluate(eval_spec.input_fn, eval_spec.steps,
                                   eval_spec.name)
+        _run_exporters(estimator, eval_spec, last, gated_only=True)
         return True
 
     while True:
@@ -522,7 +549,8 @@ def train_and_evaluate(estimator: Estimator, train_spec: TrainSpec,
                        ) -> Tuple[TrainState, dict]:
     """The reference's lifecycle loop (mnist_keras:283), explicit: train to
     max_steps, evaluating at most every throttle_secs once
-    start_delay_secs have passed, then a final eval. Returns (final state,
+    start_delay_secs have passed, then a final eval, then every exporter
+    (the metric-gated ones also after each eval). Returns (final state,
     final eval metrics).
 
     eval_mode "inline" (default): the eval runs between steps on the
@@ -552,14 +580,26 @@ def train_and_evaluate(estimator: Estimator, train_spec: TrainSpec,
         if now - last_eval["t"] < eval_spec.throttle_secs:
             return
         last_eval["t"] = now
-        estimator.evaluate(eval_spec.input_fn, eval_spec.steps, eval_spec.name)
+        m = estimator.evaluate(eval_spec.input_fn, eval_spec.steps,
+                               eval_spec.name)
+        _run_exporters(estimator, eval_spec, m, gated_only=True)
 
     state = estimator.train(train_spec.input_fn, train_spec.max_steps,
                             shard_policy=train_spec.shard_policy,
                             _eval_hook=eval_hook)
     metrics = estimator.evaluate(eval_spec.input_fn, eval_spec.steps,
                                  eval_spec.name)
+    _run_exporters(estimator, eval_spec, metrics)
     return state, metrics
+
+
+def _run_exporters(estimator: Estimator, eval_spec: EvalSpec, metrics: dict,
+                   gated_only: bool = False) -> None:
+    """Run the eval spec's exporters (only the metric-gated ones with
+    `gated_only`) against `metrics`."""
+    for exporter in eval_spec.exporters:
+        if not gated_only or hasattr(exporter, "maybe_export"):
+            estimator.export_saved_model(exporter, metrics=metrics)
 
 
 def _train_with_continuous_eval(estimator: Estimator, train_spec: TrainSpec,
@@ -618,4 +658,8 @@ def _train_with_continuous_eval(estimator: Estimator, train_spec: TrainSpec,
         raise RuntimeError("continuous evaluator failed during training"
                            ) from box["error"]
     _, metrics = box.get("result", (-1, {}))
+    # the gated exporters ran after each evaluated checkpoint; this pass
+    # runs the others, and skips a gated one when no eval ran (re-gating on
+    # the last metrics exports nothing: the bar is strict)
+    _run_exporters(estimator, eval_spec, metrics)
     return state, metrics

@@ -158,8 +158,10 @@ def make_train_step(strategy: Strategy, state: TrainState,
     Metric values are detached tensors on the model's device: reading them
     is the caller's sync.
 
-    Only `grad_accum=1`, the fp32 gradient transport and replicated
-    updates are ported; anything else raises.
+    The update's layout is the strategy's (`Strategy.shard_update`):
+    replicated, or ZeRO-1 under `ParameterServerStrategy`. Only
+    `grad_accum=1`, the fp32 gradient transport and those two layouts are
+    ported; anything else raises.
     """
     if grad_accum != 1:
         raise NotImplementedError(
@@ -168,6 +170,7 @@ def make_train_step(strategy: Strategy, state: TrainState,
             f"device)")
     check_ported(comms, opt_sharding)
     module = strategy.replicate(state.model)
+    strategy.shard_update(state)
     group = strategy.data_group
     params = [p for p in state.model.parameters() if p.requires_grad]
     device = params[0].device
