@@ -100,7 +100,32 @@ without printing a result:
    one process a card on NCCL against the mirrored run (the same bits on
    every rank, each rank's optimizer-state bytes: 296,264 at four). It
    runs none of the flash kernels but the probe's. Every directory lies
-   under build/ and is removed at the end.
+   under build/ and is removed at the end;
+11. resnet — CIFAR-10 ResNet-50 and the host input pipeline: the native
+   loader's library built with g++ (seconds); one epoch of the 50,000
+   training rows through NativeBatchLoader (batch 128, seed 0) holding
+   every row once (label counts, a multiset of row fingerprints), its
+   batches/s beside the Dataset path's; the native crc32c equal to the
+   table walk on 1 MiB, both rates; the rows as 8 TFRecord shards, one
+   epoch through StreamingTFRecordLoader (window 8192, seed 0) and
+   device_prefetch to the card, the same multiset, records/s; a tiny
+   ResNet of each block (stage_sizes [1, 1], 16 filters, CIFAR stem, fp32,
+   TF32 off) on the card against the CPU on the same weights: eval logits,
+   and one make_train_step as DDP on a one-rank NCCL group (loss, every
+   gradient, the updated parameters and statistics, DP_TOL), with cuDNN's
+   default algorithms and under cudnn.deterministic; the bf16 model's
+   logits; `resnet50_cifar` (bf16 trunk, fp32 master weights, seed 0) from
+   `cifar10_resnet.make_train_dataset(128, use_native=True)` through
+   `Estimator.train` under MultiWorkerMirroredStrategy on a one-rank NCCL
+   group for 200 steps of the entry point's schedule (ms per step and
+   images/s over steps 51-200, memory, the feed's blocking share, every
+   loss finite and the last 20 below the first 20 on average), 10 more
+   profiled (the idle share, the top device operations, the all-reduces a
+   step), the flash counters zeroed just before and 0 after; then
+   `python -m tfde_tpu_torch.cifar10_resnet --max-steps 20` in a child
+   process, which must exit 0 at step 20, fed by the native loader. It
+   runs none of the flash kernels. Every file lies under build/ and is
+   removed at the end.
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -1755,8 +1780,434 @@ def phase_export(dev, dp_ms=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: resnet: the recipe's global batch, steps, timed window (steps after the
+#: first of these up to the last), steps before the profiled window and
+#: profiled steps, the entry point's steps; the streaming check's shards
+#: and shuffle window
+RN_BATCH, RN_STEPS, RN_TIMED, RN_WARM, RN_PROFILED = 128, 200, (50, 200), 5, 10
+RN_ENTRY_STEPS, RN_SHARDS, RN_WINDOW = 20, 8, 8192
+#: resnet parity: the bf16 model's eval logits, card against CPU (relative
+#: Frobenius): a bf16 rounding at every conv and BatchNorm output, where
+#: a sum in another order flips the last bit (the CPU tests hold the port's
+#: bf16 model to the JAX one at the same bound)
+RN_BF16_TOL = 1e-2
+
+
+def _row_sums(images: np.ndarray, labels: np.ndarray) -> np.ndarray:
+    """One uint64 fingerprint a row: its image's 32-bit words and its label
+    times fixed odd weights, summed modulo 2^64."""
+    words = np.ascontiguousarray(images).reshape(len(images), -1)
+    words = words.view(np.uint32).astype(np.uint64)
+    w = (np.random.default_rng(7).integers(1, 2 ** 62, words.shape[1],
+                                           dtype=np.uint64) | np.uint64(1))
+    with np.errstate(over="ignore"):
+        return ((words * w).sum(axis=1, dtype=np.uint64)
+                + labels.reshape(-1).astype(np.uint64) * np.uint64(0x9E37))
+
+
+def _rn_native(root, train):
+    """The native library: g++ build seconds; one epoch of the training set
+    through NativeBatchLoader (batch 128, seed 0) must hold every row
+    once; its batches/s beside the Dataset path's; the native crc32c
+    against the table walk on 1 MiB, and both rates."""
+    from tfde_tpu_torch import native
+    from tfde_tpu_torch.data import Dataset
+    from tfde_tpu_torch.observability.tensorboard import crc32c_table
+
+    t0 = time.perf_counter()
+    native.compile_library(os.path.join(root, "native", "loader.so"))
+    build_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("the native loader's library did not load")
+    x, y = train
+    want = np.sort(_row_sums(x, y))
+
+    def epoch(batches):
+        t0 = time.perf_counter()
+        sums, labels, n = [], [], 0
+        for bx, by in batches:
+            sums.append(_row_sums(bx, by))
+            labels.append(by.reshape(-1).copy())
+            n += 1
+        return time.perf_counter() - t0, n, np.concatenate(sums), \
+            np.concatenate(labels)
+
+    secs, n, sums, labels = epoch(native.NativeBatchLoader(
+        [x, y], batch_size=RN_BATCH, seed=0, repeat=1))
+    ds_secs, ds_n, ds_sums, _ = epoch(
+        Dataset.from_tensor_slices((x, y)).shuffle(len(x), seed=0)
+        .batch(RN_BATCH))
+    # the timed loops above fingerprint every row; the loaders alone:
+    t0 = time.perf_counter()
+    bare = sum(1 for _ in native.NativeBatchLoader([x, y], RN_BATCH, seed=0,
+                                                   repeat=1))
+    bare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_bare = sum(1 for _ in Dataset.from_tensor_slices((x, y))
+                  .shuffle(len(x), seed=0).batch(RN_BATCH))
+    ds_bare_s = time.perf_counter() - t0
+    counts_ok = np.array_equal(np.bincount(labels, minlength=10),
+                               np.bincount(y.reshape(-1), minlength=10))
+    once = np.array_equal(np.sort(sums), want) and len(sums) == len(x)
+    data = np.random.default_rng(1).integers(0, 256, 2 ** 20,
+                                             dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    for _ in range(64):
+        got = native.crc32c(data)
+    crc_s = (time.perf_counter() - t0) / 64
+    t0 = time.perf_counter()
+    table = crc32c_table(data)
+    table_s = time.perf_counter() - t0
+    print(f"resnet native: g++ build {build_s:.2f} s; one epoch of {len(x)} "
+          f"rows at batch {RN_BATCH}, seed 0: {n} batches, every row once: "
+          f"{once}, label counts equal: {counts_ok}; {bare / bare_s:.0f} "
+          f"batches/s (NativeBatchLoader) vs {ds_bare / ds_bare_s:.0f} "
+          f"(Dataset shuffle+batch), {n / secs:.0f} vs {ds_n / ds_secs:.0f} "
+          f"with a fingerprint of every row; crc32c of 1 MiB native "
+          f"{got:#010x} = table {table:#010x}: {got == table}, "
+          f"{len(data) / crc_s / 1e6:.0f} MB/s native vs "
+          f"{len(data) / table_s / 1e6:.2f} MB/s table, on the host")
+    if not (once and counts_ok and n == -(-len(x) // RN_BATCH)
+            and np.array_equal(np.sort(ds_sums), want) and got == table):
+        raise AssertionError("the native loader or crc32c disagrees")
+
+
+def _rn_streaming(dev, root, train):
+    """The training set as RN_SHARDS TFRecord shards, one epoch through
+    StreamingTFRecordLoader (window RN_WINDOW, seed 0, batch RN_BATCH) and
+    device_prefetch to the card: the rows that arrive must be the rows
+    written, as a multiset; records/s."""
+    from tfde_tpu_torch.data.device import device_prefetch
+    from tfde_tpu_torch.data.streaming import StreamingTFRecordLoader
+    from tfde_tpu_torch.data.tfrecord import write_tfrecord
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.runtime.mesh import LocalMesh
+
+    x, y = train
+    shape = x.shape[1:]
+    t0 = time.perf_counter()
+    paths = []
+    for s in range(RN_SHARDS):
+        path = os.path.join(root, f"cifar-{s:02d}.tfrecord")
+        write_tfrecord(path, (x[i].tobytes() + y[i].tobytes()
+                              for i in range(s, len(x), RN_SHARDS)))
+        paths.append(path)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(p) for p in paths)
+
+    def parse(rec):
+        return (np.frombuffer(rec[:-8], np.float32).reshape(shape),
+                np.frombuffer(rec[-8:], np.int64))
+
+    loader = StreamingTFRecordLoader(paths, parse, batch_size=RN_BATCH,
+                                     window=RN_WINDOW, seed=0, repeat=1)
+    feed = device_prefetch(loader, MultiWorkerMirroredStrategy(
+        mesh=LocalMesh(("data",))), dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    batches = list(feed)  # every batch on the card before any is read
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    on_card = all(t.device == dev for b in batches for t in b)
+    sums = np.concatenate([_row_sums(bx.cpu().numpy(), by.cpu().numpy())
+                           for bx, by in batches])
+    same = np.array_equal(np.sort(sums), np.sort(_row_sums(x, y)))
+    print(f"resnet streaming: {len(x)} rows as {RN_SHARDS} TFRecord shards "
+          f"({nbytes} bytes, written in {write_s:.2f} s); one epoch through "
+          f"StreamingTFRecordLoader (window {RN_WINDOW}, seed 0, batch "
+          f"{RN_BATCH}) and device_prefetch to the card: {len(batches)} "
+          f"batches on {dev}: {on_card}, the rows written as a multiset: "
+          f"{same}; {len(sums) / secs:.0f} records/s (read, CRC, parse, "
+          f"shuffle, gather, stage), on {_card()}")
+    if not (on_card and same and len(sums) == len(x)):
+        raise AssertionError("the streamed rows differ from those written")
+
+
+def _rn_parity(dev):
+    """A tiny ResNet (stage_sizes [1, 1], 16 filters, CIFAR stem) with each
+    block, fp32 with TF32 off, on the same weights on the card and the CPU:
+    eval logits, and one make_train_step (DDP on a one-rank NCCL group on
+    the card, no group on the CPU) held to DP_TOL: loss, every gradient
+    tensor, the updated parameters and running statistics as one vector
+    and tensor by tensor, first with cuDNN's default algorithms, then, if
+    a tensor is off, under cudnn.deterministic; then the bf16 model's
+    logits within RN_BF16_TOL."""
+    import torch.distributed as dist
+
+    from tfde_tpu_torch import testing
+
+    rng = np.random.default_rng(0)
+    images = rng.random((32, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, (32, 1)).astype(np.int64)
+    schedule = (0.1, 0, 3)  # no warmup: the first update moves the weights
+    for block in ("BottleneckBlock", "BasicBlock"):
+        spec = dict(stage_sizes=[1, 1], block=block, num_filters=16,
+                    dtype="float32", cifar_stem=True)
+        sd = {k: v.numpy().copy() for k, v in
+              testing.resnet_model(spec, "cpu").state_dict().items()}
+        for k in sd:  # the zero-initialised scales would hide their convs
+            if k.endswith("weight") and sd[k].ndim == 1:
+                sd[k] = sd[k] + rng.normal(0, 0.3, sd[k].shape).astype(
+                    np.float32)
+            elif k.endswith("running_var"):
+                sd[k] = sd[k] + rng.uniform(0.2, 1.0, sd[k].shape).astype(
+                    np.float32)
+        logits = {}
+        for where in ("cpu", dev):
+            model = testing.resnet_model(spec, where)
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                   sd.items()})
+            with torch.no_grad():
+                logits[str(where)] = model(torch.as_tensor(
+                    images, device=where)).cpu()
+        eval_rel = _rel(logits[str(dev)], logits["cpu"])
+        cpu = testing.train_resnet(spec, sd, [(images, labels)], schedule)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            runs = {}
+            for deterministic in (False, True):
+                torch.backends.cudnn.deterministic = deterministic
+                try:
+                    runs[deterministic] = testing.train_resnet(
+                        spec, sd, [(images, labels)], schedule, device=dev)
+                finally:
+                    torch.backends.cudnn.deterministic = False
+        finally:
+            dist.destroy_process_group()
+
+        def errors(run):
+            loss = abs(run["history"][0]["loss"] - cpu["history"][0]["loss"]
+                       ) / abs(cpu["history"][0]["loss"])
+            grads = _grads_rel({k: torch.as_tensor(v) for k, v in
+                                run["grads"].items()},
+                               {k: torch.as_tensor(v) for k, v in
+                                cpu["grads"].items()})
+            got = {k: torch.as_tensor(v) for k, v in run["state_dict"].items()}
+            want = {k: torch.as_tensor(v) for k, v in
+                    cpu["state_dict"].items()}
+            vec = _rel(torch.cat([got[k].flatten() for k in want]),
+                       torch.cat([v.flatten() for v in want.values()]))
+            tensor = max(_rel(got[k], v) for k, v in want.items())
+            return loss, grads, vec, tensor
+
+        def ok(e, per_tensor):
+            loss, grads, vec, tensor = e
+            return (loss <= DP_TOL["loss"] and vec <= DP_TOL["params_rel"]
+                    and (not per_tensor or (grads <= DP_TOL["tensor_rel"]
+                                            and tensor <= DP_TOL["tensor_rel"])))
+
+        default, determ = errors(runs[False]), errors(runs[True])
+        needed = not ok(default, True)
+        print(f"resnet parity: {block} ResNet(stage_sizes=[1, 1], 16 "
+              f"filters, CIFAR stem), fp32, TF32 off, 32 images: eval logits "
+              f"card vs CPU rel {eval_rel:.3e} (tol 1e-5); one make_train_step "
+              f"(sgd nesterov, warmup-cosine) as DDP on a one-rank NCCL group "
+              f"vs the CPU: (loss rel, worst gradient rel, parameters and "
+              f"statistics as one vector rel, worst single tensor rel) with "
+              f"cuDNN's default algorithms "
+              f"{tuple(float(f'{v:.3e}') for v in default)}, under "
+              f"cudnn.deterministic {tuple(float(f'{v:.3e}') for v in determ)}"
+              f" (DP_TOL: loss {DP_TOL['loss']:g}, vector "
+              f"{DP_TOL['params_rel']:g}, tensors {DP_TOL['tensor_rel']:g}); "
+              f"cudnn.deterministic needed: {needed}")
+        if not (eval_rel <= 1e-5 and ok(default, False)
+                and ok(determ, True)):
+            raise AssertionError(f"the {block} ResNet on the card disagrees "
+                                 f"with the CPU")
+        spec16 = dict(spec, dtype="bfloat16")
+        logits16 = {}
+        for where in ("cpu", dev):
+            model = testing.resnet_model(spec16, where)
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                   sd.items()})
+            with torch.no_grad():
+                logits16[str(where)] = model(torch.as_tensor(
+                    images, device=where)).cpu()
+        rel16 = _rel(logits16[str(dev)], logits16["cpu"])
+        print(f"resnet parity: {block}, bf16 trunk: eval logits card vs CPU "
+              f"rel {rel16:.3e} (tol {RN_BF16_TOL:g})")
+        if not rel16 <= RN_BF16_TOL:
+            raise AssertionError(f"the bf16 {block} ResNet on the card "
+                                 f"disagrees with the CPU")
+
+
+def _rn_recipe(fa, dev):
+    """resnet50_cifar (bf16 trunk, fp32 master weights, seed 0) from
+    make_train_dataset(RN_BATCH, use_native=True) through Estimator.train
+    under MultiWorkerMirroredStrategy on a one-rank NCCL group, with the
+    entry point's schedule and optimizer at max_steps RN_STEPS: ms per
+    step and images/s over the RN_TIMED window, memory, every loss; then
+    RN_PROFILED more steps profiled (after RN_WARM), the all-reduces a
+    step; the flash kernels must not launch."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfde_tpu_torch import cifar10_resnet
+    from tfde_tpu_torch.data.pipeline import AutoShardPolicy
+    from tfde_tpu_torch.models.resnet import resnet50_cifar
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.testing import profile_summary
+    from tfde_tpu_torch.training import Estimator
+    from tfde_tpu_torch.training.optimizers import (
+        sgd, warmup_cosine_decay_schedule)
+    from tfde_tpu_torch.training.step import make_train_step
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        model = resnet50_cifar(device=dev, seed=0)
+        peak = 0.4 * RN_BATCH / 1024.0
+        warmup = min(100, max(RN_STEPS - 1, 1))  # the entry point's
+        tx = sgd(model, warmup_cosine_decay_schedule(0.0, peak, warmup,
+                                                     RN_STEPS),
+                 momentum=0.9, nesterov=True)
+        strategy = MultiWorkerMirroredStrategy()
+        est = Estimator(model, tx, strategy)
+        # every step's loss, kept on the card: the Estimator keeps only the
+        # last step's metrics, and a read a step would sync the loop
+        step_fn = make_train_step(strategy, est._ensure_state())
+        kept = []
+
+        def recording(state, batch, generator):
+            state, metrics = step_fn(state, batch, generator)
+            kept.append(metrics["loss"])
+            return state, metrics
+
+        est._train_step = recording
+        clock, wait = {}, {}
+
+        def hook(state, step):
+            if step in RN_TIMED:
+                torch.cuda.synchronize(dev)
+                clock[step] = time.perf_counter()
+                wait[step] = est.feed.wait_seconds
+
+        def input_fn():
+            return cifar10_resnet.make_train_dataset(RN_BATCH,
+                                                     use_native=True)
+
+        fa.flash_forward.launches = 0
+        fa.flash_backward.dkv_launches = 0
+        fa.flash_backward.dq_launches = 0
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        steps = est.train(input_fn, RN_STEPS, AutoShardPolicy.OFF,
+                          _eval_hook=hook).step
+        wall = time.perf_counter() - t0
+        flash = (fa.flash_forward.launches, fa.flash_backward.dkv_launches,
+                 fa.flash_backward.dq_launches)
+        losses = [float(x) for x in kept]
+        window_s = clock[RN_TIMED[1]] - clock[RN_TIMED[0]]
+        ms = window_s * 1e3 / (RN_TIMED[1] - RN_TIMED[0])
+        blocked = wait[RN_TIMED[1]] - wait[RN_TIMED[0]]
+        mem = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        first, last = RN_STEPS + RN_WARM, RN_STEPS + RN_WARM + RN_PROFILED
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        marks = {}
+
+        def window(state, step):
+            if step in (first, last):
+                torch.cuda.synchronize(dev)
+                marks[step] = time.perf_counter()
+                if step == first:
+                    prof.start()
+                else:
+                    prof.stop()
+
+        est.train(input_fn, last, AutoShardPolicy.OFF, _eval_hook=window)
+        est.close()
+    finally:
+        dist.destroy_process_group()
+    summary = profile_summary(prof, RN_PROFILED,
+                              (marks[last] - marks[first]) * 1e3
+                              / RN_PROFILED)
+    reduces = {k: calls for k, _, calls in summary["host"]
+               if "all_reduce" in k.lower() or "allreduce" in k.lower()}
+    nccl_ms = sum(ms for k, ms in summary["device"] if "nccl" in k.lower())
+    print(f"resnet recipe: resnet50_cifar (23,520,842 parameters, bf16 "
+          f"trunk, fp32 master weights and head), seed 0, "
+          f"make_train_dataset({RN_BATCH}, use_native=True) -> "
+          f"device_prefetch -> Estimator.train under {strategy.describe()} "
+          f"as DDP on a one-rank NCCL group, sgd(nesterov, momentum 0.9), "
+          f"warmup {warmup} + cosine to {RN_STEPS}, peak lr {peak:g}: "
+          f"{steps} steps in {wall:.1f} s; losses by step "
+          f"{ {i: round(losses[i - 1], 4) for i in (1, 10, 50, 100, RN_STEPS) if i <= len(losses)} }")
+    print(f"resnet recipe: {ms:.3f} ms per step (mean of steps "
+          f"{RN_TIMED[0] + 1}-{RN_TIMED[1]}, host clock after a synchronise), "
+          f"{RN_BATCH / ms * 1e3:.0f} images/s, max memory allocated "
+          f"{mem:.2f} GiB; the feed's blocking share {blocked / window_s:.4f}"
+          f" ({blocked * 1e3:.1f} ms of {window_s * 1e3:.1f}); on {_card()}")
+    print(f"resnet recipe: all-reduce calls a step (profiled host ops) "
+          f"{json.dumps(reduces)}, NCCL device ms a step {nccl_ms:.3f} (at "
+          f"one rank the BatchNorms reduce nothing: their 53 statistics "
+          f"all-reduces, and 53 more for the gradient, run at two ranks or "
+          f"more)")
+    _print_profile(summary, RN_PROFILED, ms, "resnet")
+    head, tail = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    print(f"resnet recipe: mean loss of the first 20 steps {head:.4f}, of "
+          f"the last 20 {tail:.4f}; flash launches {list(flash)} (must be 0)")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != RN_STEPS:
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    if not tail < head:
+        raise AssertionError(f"the loss did not fall: {head} -> {tail}")
+    if any(flash):
+        raise AssertionError(f"the ResNet path launched flash kernels: "
+                             f"{flash}")
+
+
+def _rn_entry_point(root):
+    """`python -m tfde_tpu_torch.cifar10_resnet --max-steps RN_ENTRY_STEPS`
+    in a child process, as a user runs it: exit 0 at that step, fed by the
+    native loader."""
+    argv = ["tfde_tpu_torch.cifar10_resnet", "--max-steps",
+            str(RN_ENTRY_STEPS)]
+    log, secs = _ex_child(argv, root, "cifar10_resnet")
+    fed = [line for line in log.splitlines() if "input: " in line]
+    done = [line for line in log.splitlines() if "done at step" in line]
+    print(f"resnet entry point: python -m {' '.join(argv)} (TF32 off) exit "
+          f"0 in {secs:.1f} s; {fed}; {done}")
+    if not (fed and "the native loader" in fed[-1] and done
+            and f"done at step {RN_ENTRY_STEPS} (" in done[-1]):
+        raise AssertionError(f"cifar10_resnet: {log[-3000:]}")
+
+
+def phase_resnet(fa, dev):
+    """CIFAR-10 ResNet-50 and the host input pipeline on the card
+    (docstring, phase 11). Every file lies under build/ and is removed at
+    the end."""
+    import shutil
+
+    from tfde_tpu_torch.data import datasets
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"resnet_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    load = datasets.cifar10
+    try:
+        t0 = time.perf_counter()
+        arrays = load()
+        source = ("a local cifar10.npz" if datasets._find("cifar10.npz")
+                  else "the synthetic stand-in")
+        print(f"resnet: CIFAR-10 ({len(arrays[0][0])} training rows, "
+              f"{source}) in {time.perf_counter() - t0:.1f} s, made once "
+              f"for the phase")
+        datasets.cifar10 = lambda: arrays  # the recipe's input_fn reloads
+        _rn_native(root, arrays[0])
+        _rn_streaming(dev, root, arrays[0])
+        _rn_parity(dev)
+        _rn_recipe(fa, dev)
+        _rn_entry_point(root)
+    finally:
+        datasets.cifar10 = load
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
-          "lifecycle", "export")
+          "lifecycle", "export", "resnet")
 
 
 def main(argv=None) -> int:
@@ -1798,6 +2249,8 @@ def main(argv=None) -> int:
         phase_lifecycle(fa, dev, dp_ms)
     if "export" in phases:
         phase_export(dev, dp_ms)
+    if "resnet" in phases:
+        phase_resnet(fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

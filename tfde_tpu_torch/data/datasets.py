@@ -1,9 +1,9 @@
 """Datasets — the generators of `tfde_tpu/data/datasets.py` that the
 ported paths need, copied so that the port never imports the JAX
-package: the synthetic token corpus, and MNIST (a local ``mnist.npz``
-where `_find` finds one, else the deterministic synthetic stand-in,
-bit for bit the JAX package's arrays for the same sizes). Nothing is
-downloaded.
+package: the synthetic token corpus, MNIST and CIFAR-10 (`cifar10` :131,
+`_load_npz` :116). Each image set is a local ``.npz`` where `_find` finds
+one, else the deterministic synthetic stand-in, bit for bit the JAX
+package's arrays for the same sizes. Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -94,6 +94,35 @@ def mnist(flatten: bool = True, n_train: int = 60000, n_test: int = 10000) -> Ar
         train = (train[0].reshape(len(train[0]), -1), train[1])
         test = (test[0].reshape(len(test[0]), -1), test[1])
     return train, test
+
+
+def _load_npz(path, n_train: int, n_test: int) -> Arrays:
+    """The standard npz layout (x_train/y_train/x_test/y_test, uint8
+    images) -> float [0, 1] images, int64 [N, 1] labels."""
+    with np.load(path) as d:
+        tr = (
+            (d["x_train"] / 255.0).astype(np.float32)[:n_train],
+            np.asarray(d["y_train"]).astype(np.int64).reshape(-1, 1)[:n_train],
+        )
+        te = (
+            (d["x_test"] / 255.0).astype(np.float32)[:n_test],
+            np.asarray(d["y_test"]).astype(np.int64).reshape(-1, 1)[:n_test],
+        )
+    return tr, te
+
+
+def cifar10(n_train: int = 50000, n_test: int = 10000) -> Arrays:
+    """CIFAR-10: [N, 32, 32, 3] float images in [0, 1], int64 labels
+    [N, 1]. A local ``cifar10.npz`` where `_find` finds one; else the
+    synthetic stand-in: 32x32 class templates from seed 1, one channel
+    repeated three times."""
+    path = _find("cifar10.npz")
+    if path is not None:
+        return _load_npz(path, n_train, n_test)
+    train, test = _synthetic_images(n_train, n_test, 32, 10, seed=1)
+    tr = np.repeat(train[0][..., None], 3, axis=-1), train[1]
+    te = np.repeat(test[0][..., None], 3, axis=-1), test[1]
+    return tr, te
 
 
 def synthetic_tokens(n: int, seq_len: int, vocab: int = 30522,

@@ -20,6 +20,10 @@ back to pageable or synchronous copies. On the CPU, which the caller asks
 for by passing the CPU as the device, the feed yields plain CPU tensors
 with no pinning and no streams.
 
+Either way a batch is copied when it is staged, before the feed pulls the
+next one: a source may hand out views of buffers it reuses on its next
+pull (`native.NativeBatchLoader`'s ring slots).
+
 `device_resident_feed` (:187, the whole dataset on the device) comes with
 a later slice.
 """
@@ -186,7 +190,7 @@ def device_prefetch(batches: Iterable, strategy, device,
         leaves = _host_leaves(batch, strategy, policy)
         if cuda:
             return stager(leaves)
-        return [torch.as_tensor(x) for x in leaves], None
+        return [torch.tensor(x) for x in leaves], None  # a copy, as on CUDA
 
     def deliver(staged) -> Placed:
         tensors, event = staged

@@ -55,23 +55,37 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class GlobalBatchNorm(nn.Module):
-    """flax `nn.BatchNorm(use_scale=False, use_bias=True, momentum,
-    epsilon)` over channel dimension 1 of [N, C] or [N, C, H, W].
+    """flax `nn.BatchNorm(use_scale, use_bias=True, momentum, epsilon,
+    dtype)` over channel dimension 1 of [N, C] or [N, C, H, W].
 
-    In training the per-channel sum, sum of squares and count are summed
-    over `group`, the data-parallel group the train step passes down
+    In training the per-channel sum, sum of squares and count, in fp32 at
+    least whatever the input dtype, are summed over `group`, the
+    data-parallel group the train step passes down
     (`training.step.make_train_step`), with the autograd all-reduce, whose
     backward sums the gradient over the group too, so each rank's gradient
     is its share of the gradient of the global-batch loss. With no group,
-    or a group of one, the statistics are this process's. Running statistics: ``r = momentum * r + (1 -
-    momentum) * batch``, with the biased batch variance.
+    or a group of one, the statistics are this process's. Running
+    statistics: ``r = momentum * r + (1 - momentum) * batch``, with the
+    biased batch variance.
+
+    The output is flax's: ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` in that precision, cast to `dtype` where one is given (flax's
+    bf16 BatchNorm returns bf16). `use_scale` adds the scale, as a
+    parameter named `weight` (one at the start, or zero with
+    `zero_scale`: the last BatchNorm of a residual block).
     """
 
     def __init__(self, num_features: int, momentum: float = 0.99,
-                 eps: float = 1e-3, device=None):
+                 eps: float = 1e-3, device=None, use_scale: bool = False,
+                 zero_scale: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
+        self.weight = (nn.Parameter(torch.full(
+            (num_features,), 0.0 if zero_scale else 1.0, device=device))
+            if use_scale else None)
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean",
                              torch.zeros(num_features, device=device))
@@ -100,8 +114,11 @@ class GlobalBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         shape = (1, c) + (1,) * (x.dim() - 2)
-        y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
-        return y + self.bias.view(shape)
+        mul = torch.rsqrt(var.view(shape) + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight.view(shape)
+        y = (x - mean.view(shape)) * mul + self.bias.view(shape)
+        return y if self.dtype is None else y.to(self.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

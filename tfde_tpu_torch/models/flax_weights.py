@@ -16,7 +16,11 @@ numpy arrays — this module never imports flax or jax) goes through
   `running_var`
 
 A Dense kernel after a flatten keeps its rows: the port's CNNs flatten
-in NHWC order, as flax does (`models/cnn.py`).
+in NHWC order, as flax does (`models/cnn.py`). A BatchNorm `scale` lands
+in `weight`, as a LayerNorm's does: the ResNet's params and batch_stats
+(`conv_init`, `bn_init`, `BottleneckBlock_i/Conv_j`, `BatchNorm_j`,
+`conv_proj`, `norm_proj`, `Dense_0`) map onto `models/resnet.py` by
+these rules alone.
 """
 
 from __future__ import annotations

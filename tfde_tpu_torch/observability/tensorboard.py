@@ -1,6 +1,7 @@
 """TensorBoard event-file writer, dependency-free — a copy of
-`tfde_tpu/observability/tensorboard.py` (`crc32c` :49, `SummaryWriter`
-:141) for local paths, so that the port never imports the JAX package.
+`tfde_tpu/observability/tensorboard.py` (`crc32c` :49, `_masked_crc`
+:55, `_tfrecord` :114, `SummaryWriter` :141) for local paths, so that
+the port never imports the JAX package.
 
 It writes standard `events.out.tfevents.*` files that any TensorBoard
 reads, without TensorFlow: the Event/Summary protobuf wire format and the
@@ -43,13 +44,31 @@ def _build_table() -> None:
 _build_table()
 
 
-def crc32c(data: bytes) -> int:
-    """CRC-32C of `data`, by table (the JAX package's native slice-by-8
-    version comes with the native loader's slice)."""
+def crc32c_table(data: bytes) -> int:
+    """CRC-32C of `data` by the byte-at-a-time table walk: the plain
+    version of `crc32c`."""
     c = 0xFFFFFFFF
     for b in data:
         c = _CRC_TABLE[(c ^ b) & 0xFF] ^ (c >> 8)
     return c ^ 0xFFFFFFFF
+
+
+_native_crc = None  # resolved at first use; False: probed, unavailable
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C of `data`: the native library's slice-by-8 walk
+    (`native.crc32c`) where it is available, else `crc32c_table`. The
+    native walk is what keeps a CRC-checked TFRecord reader from being
+    bound by this check (`data.streaming`)."""
+    global _native_crc
+    if _native_crc is None:
+        from tfde_tpu_torch import native
+
+        _native_crc = native.crc32c if native.available() else False
+    if _native_crc:
+        return _native_crc(data)
+    return crc32c_table(data)
 
 
 def _masked_crc(data: bytes) -> int:

@@ -161,6 +161,72 @@ def train_cnn(model_name: str, state_dict: dict, batches: Sequence[tuple],
             "opt_state_bytes": opt_state_bytes(state.tx)}
 
 
+def resnet_model(spec: dict, device="cpu") -> torch.nn.Module:
+    """A `models.resnet.ResNet` from a plain (picklable) spec: its
+    ``stage_sizes``, ``block`` ('BottleneckBlock' or 'BasicBlock'),
+    ``num_filters``, ``dtype`` ('float32', 'bfloat16' or 'float64': an
+    fp64 model also keeps fp64 weights, the reference run) and
+    ``cifar_stem``."""
+    from tfde_tpu_torch.models import resnet
+
+    dtype = getattr(torch, spec["dtype"])
+    model = resnet.ResNet(stage_sizes=spec["stage_sizes"],
+                          block_cls=getattr(resnet, spec["block"]),
+                          num_filters=spec["num_filters"], dtype=dtype,
+                          cifar_stem=spec["cifar_stem"], device=device)
+    return model.double() if dtype == torch.float64 else model
+
+
+def train_resnet(spec: dict, state_dict: dict, batches: Sequence[tuple],
+                 schedule: tuple, device="cpu") -> dict:
+    """`resnet_model(spec)` on `device` from `state_dict` (numpy arrays),
+    one `make_train_step` step a global batch under
+    MultiWorkerMirroredStrategy over the process group (one rank without
+    one), with the cifar10_resnet recipe's optimizer: sgd(momentum 0.9,
+    nesterov) on ``warmup_cosine_decay_schedule(0, *schedule)`` (peak,
+    warmup steps, decay steps). Returns the per-step metrics, the first
+    step's gradients and the final state_dict, as numpy."""
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.training.optimizers import (
+        sgd, warmup_cosine_decay_schedule)
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    model = resnet_model(spec, device)
+    dtype = next(model.parameters()).dtype
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v), dtype=dtype)
+                           for k, v in state_dict.items()})
+    tx = sgd(model, warmup_cosine_decay_schedule(0.0, *schedule),
+             momentum=0.9, nesterov=True)
+    grads = {}
+
+    def snapshot(optimizer, args, kwargs):
+        if not grads:
+            grads.update({n: p.grad.detach().cpu().numpy().copy()
+                          for n, p in model.named_parameters()})
+
+    tx.register_step_pre_hook(snapshot)
+    state = init_state(model, tx)
+    step = make_train_step(MultiWorkerMirroredStrategy(), state)
+    history = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return {"history": history, "grads": grads,
+            "state_dict": {k: v.detach().cpu().numpy().copy()
+                           for k, v in model.state_dict().items()}}
+
+
+def resnet_train_worker(rank: int, world: int, store_path: str,
+                        *args) -> dict:
+    """`train_resnet(*args)` on rank `rank` of a `world`-rank gloo
+    group."""
+    _init_file_group(rank, world, store_path)
+    try:
+        return train_resnet(*args)
+    finally:
+        dist.destroy_process_group()
+
+
 def dp_train_worker(rank: int, world: int, store_path: str, *args) -> dict:
     """`train_cnn(*args)` on rank `rank` of a `world`-rank gloo group."""
     _init_file_group(rank, world, store_path)
