@@ -125,7 +125,37 @@ without printing a result:
    `python -m tfde_tpu_torch.cifar10_resnet --max-steps 20` in a child
    process, which must exit 0 at step 20, fed by the native loader. It
    runs none of the flash kernels. Every file lies under build/ and is
-   removed at the end.
+   removed at the end;
+12. bert — BERT-base MLM (BASELINE config 5): the three bf16 kernels
+   against their plain versions at BERT's attention shape ([64, 128, 12,
+   64], non-causal, unmasked), forward and backward, and their times
+   beside the plain versions', SDPA's and the bounds; bert_tiny_test
+   (fp32, dropout 0) for three custom MLM steps as DDP on a one-rank
+   NCCL group against the CPU (ENC_TOL); BertBase at the published widths
+   (vocab 30522, 12 x 768, 12 heads, MLP 3072, bf16 compute, fp32 master
+   weights, dropout 0.1, random weights from seed 0) through
+   `bert_mlm.main` on a one-rank NCCL group for BERT_STEPS steps of 64 x
+   128 tokens + BERT_PROFILED profiled (ms a step, tokens/s, the idle
+   share, memory, the losses at steps 1 and 100, which must fall), the
+   counters zeroed just before and read just after: each kernel 12 times
+   a step; then `python -m tfde_tpu_torch.bert_mlm --max-steps 20` in a
+   child process;
+13. vit — ImageNet ViT-B/16 under FSDP (BASELINE config 4): the three
+   kernels at ViT's shape ([256, 197, 12, 64]: two Q tiles, the second of
+   69 rows); vit_tiny_test for three AdamW steps under FSDPStrategy
+   (FSDP2 on a one-rank NCCL group) against the CPU; ViT_B16 (224 px,
+   1000 classes, dropout 0.1, bf16 compute, fp32 master weights, seed 0)
+   at batch VIT_BATCH from the native loader through `Estimator.train`
+   under FSDPStrategy for VIT_STEPS steps + VIT_PROFILED profiled (ms a
+   step, images/s, the idle share, memory, the feed's blocking share, the
+   FSDP collectives a step, this rank's parameter and optimizer bytes;
+   the mean loss of the last 10 steps below the first 10's), each kernel
+   12 times a step; on a machine with two cards or more, one process a
+   card under FSDP on NCCL (`testing.fsdp_ranks_worker`: parity with the
+   CPU, the same gathered parameters on every rank, each rank's parameter
+   elements and optimizer bytes); then `python -m
+   tfde_tpu_torch.imagenet_vit --max-steps 10` in a child process. Every
+   file lies under build/ and is removed at the end.
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -1923,6 +1953,17 @@ def _rn_streaming(dev, root, train):
         raise AssertionError("the streamed rows differ from those written")
 
 
+def _zero_counts(fa) -> None:
+    fa.flash_forward.launches = 0
+    fa.flash_backward.dkv_launches = 0
+    fa.flash_backward.dq_launches = 0
+
+
+def _counts(fa) -> tuple:
+    return (fa.flash_forward.launches, fa.flash_backward.dkv_launches,
+            fa.flash_backward.dq_launches)
+
+
 def _rn_parity(dev):
     """A tiny ResNet (stage_sizes [1, 1], 16 filters, CIFAR stem) with each
     block, fp32 with TF32 off, on the same weights on the card and the CPU:
@@ -2087,17 +2128,14 @@ def _rn_recipe(fa, dev):
             return cifar10_resnet.make_train_dataset(RN_BATCH,
                                                      use_native=True)
 
-        fa.flash_forward.launches = 0
-        fa.flash_backward.dkv_launches = 0
-        fa.flash_backward.dq_launches = 0
+        _zero_counts(fa)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         steps = est.train(input_fn, RN_STEPS, AutoShardPolicy.OFF,
                           _eval_hook=hook).step
         wall = time.perf_counter() - t0
-        flash = (fa.flash_forward.launches, fa.flash_backward.dkv_launches,
-                 fa.flash_backward.dq_launches)
+        flash = _counts(fa)
         losses = [float(x) for x in kept]
         window_s = clock[RN_TIMED[1]] - clock[RN_TIMED[0]]
         ms = window_s * 1e3 / (RN_TIMED[1] - RN_TIMED[0])
@@ -2158,19 +2196,28 @@ def _rn_recipe(fa, dev):
                              f"{flash}")
 
 
+def _entry_child(argv, root, what, steps):
+    """`python -m <argv>` in a child process (`_ex_child`), which must log
+    that it is done at `steps`."""
+    log, secs = _ex_child(argv, root, what)
+    done = [line for line in log.splitlines() if "done at step" in line]
+    fed = [line for line in log.splitlines() if "input: " in line]
+    print(f"{what} entry point: python -m {' '.join(argv)} exit 0 in "
+          f"{secs:.1f} s; {fed + done}")
+    if not (done and f"done at step {steps} (" in done[-1]):
+        raise AssertionError(f"{what}: {log[-3000:]}")
+    return log
+
+
 def _rn_entry_point(root):
     """`python -m tfde_tpu_torch.cifar10_resnet --max-steps RN_ENTRY_STEPS`
-    in a child process, as a user runs it: exit 0 at that step, fed by the
+    in a child process, as a user runs it (`_entry_child`), fed by the
     native loader."""
-    argv = ["tfde_tpu_torch.cifar10_resnet", "--max-steps",
-            str(RN_ENTRY_STEPS)]
-    log, secs = _ex_child(argv, root, "cifar10_resnet")
+    log = _entry_child(["tfde_tpu_torch.cifar10_resnet", "--max-steps",
+                        str(RN_ENTRY_STEPS)], root, "cifar10_resnet",
+                       RN_ENTRY_STEPS)
     fed = [line for line in log.splitlines() if "input: " in line]
-    done = [line for line in log.splitlines() if "done at step" in line]
-    print(f"resnet entry point: python -m {' '.join(argv)} (TF32 off) exit "
-          f"0 in {secs:.1f} s; {fed}; {done}")
-    if not (fed and "the native loader" in fed[-1] and done
-            and f"done at step {RN_ENTRY_STEPS} (" in done[-1]):
+    if not (fed and "the native loader" in fed[-1]):
         raise AssertionError(f"cifar10_resnet: {log[-3000:]}")
 
 
@@ -2206,8 +2253,494 @@ def phase_resnet(fa, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: the encoders' attention shapes (B, S, H, D), bf16, non-causal, unmasked:
+#: BERT-base at 64 x 128 tokens, ViT-B/16 at 256 images of 197 tokens
+BERT_SHAPE, VIT_SHAPE = (64, 128, 12, 64), (256, 197, 12, 64)
+#: bert: steps of the recipe through bert_mlm.main, the window timed
+#: (steps BERT_TIMED[0] + 1 .. BERT_TIMED[1]), steps profiled after it, the
+#: entry point's steps in a child
+BERT_STEPS, BERT_TIMED, BERT_PROFILED, BERT_ENTRY_STEPS = (
+    100, (10, 100), 10, 20)
+#: vit: batch a card (the JAX default), steps, the timed window, steps
+#: profiled after it, synthetic images made for the phase, the entry
+#: point's steps and images in a child
+VIT_BATCH, VIT_STEPS, VIT_TIMED, VIT_PROFILED = 256, 50, (10, 50), 10
+VIT_EXAMPLES, VIT_ENTRY_STEPS, VIT_ENTRY_EXAMPLES = 1024, 10, 512
+#: encoder parity, card (fp32, TF32 off) against the CPU on the same
+#: weights and batches, three AdamW steps: the losses (relative) and the
+#: final parameters as one vector (relative Frobenius): Adam turns the
+#: key bias's rounding-noise gradient into a step of ~lr whose sign is
+#: the noise's, so that tensor alone is not comparable relatively
+ENC_TOL = {"loss": 1e-5, "params": 1e-4}
+
+
+def _encoder_kernels(fa, dev, label, shape):
+    """The three bf16 kernels against their plain versions at an encoder's
+    attention shape (non-causal, unmasked): the forward's out and lse, the
+    backward pair's dq, dk and dv (`_check_backward`); then each kernel's
+    time beside the plain version's, SDPA's (timing only) and its bound.
+    Returns {kernel: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}}."""
+    import torch.nn.functional as F
+
+    b, s, h, d = shape
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    out, lse = fa.flash_forward(q, k, v, False)
+    torch.cuda.synchronize(dev)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, False)
+    out_rel = _rel(out.float(), ref_out.float())
+    lse_err = float((lse - ref_lse).abs().max())
+    max_abs = float((out.float() - ref_out.float()).abs().max())
+    tol_out, tol_lse = TOL[dtype]
+    ok = (bool(torch.isfinite(out).all()) and out_rel <= tol_out
+          and lse_err <= tol_lse)
+    print(f"kernel flash_fwd {label}: B={b} S={s} H={h} D={d} bf16 "
+          f"non-causal: out rel {out_rel:.3e} (tol {tol_out:g}), lse max abs "
+          f"{lse_err:.3e} (tol {tol_lse:g}), out max abs {max_abs:.3e} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_fwd disagrees with its plain version "
+                             f"at the {label} shape")
+    do, out, lse, dq_err, dkv_err = _check_backward(
+        fa, label, q, k, v, False, None, None, None, gen)
+    del ref_out, ref_lse
+    delta = fa._delta(out, do)
+    res = {"flash_fwd": {"max_abs_err": max_abs},
+           "flash_bwd_dkv": {"max_abs_err": dkv_err},
+           "flash_bwd_dq": {"max_abs_err": dq_err}}
+    res["flash_fwd"]["ms"] = _time_ms(lambda: fa.flash_forward(q, k, v),
+                                      dev)
+    res["flash_fwd"]["plain_ms"] = _time_ms(
+        lambda: fa.flash_forward_reference(q, k, v), dev, iters=3)
+    res["flash_bwd_dkv"]["ms"] = _time_ms(
+        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, False), dev)
+    res["flash_bwd_dq"]["ms"] = _time_ms(
+        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, False), dev)
+    plain_bwd = _time_ms(lambda: fa.flash_backward_reference(
+        q, k, v, out, lse, do, False), dev, iters=3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    res["flash_fwd"]["library_ms"] = _time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt), dev)
+    ref = F.scaled_dot_product_attention(qt, kt, vt)
+    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
+        ref, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), dev)
+    for name, kernel in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
+                         ("flash_bwd_dq", "dq")):
+        r = res[name]
+        r["bound_ms"], r["bound_by"] = _bound(b, s, h, h, d, dtype, False,
+                                              None, kernel)
+        if kernel != "fwd":
+            r["plain_ms"], r["library_ms"] = plain_bwd, sdpa_bwd
+        print(f"kernel {name} {label} timing: kernel_ms {r['ms']:.4f}, "
+              f"plain_ms {r['plain_ms']:.4f}"
+              f"{'' if kernel == 'fwd' else ' (whole plain backward)'}, "
+              f"library_ms {r['library_ms']:.4f} (SDPA "
+              f"{'forward' if kernel == 'fwd' else 'backward, whole'}), "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    return res
+
+
+def _encoder_compare(what, card, cpu):
+    """Hold a card run of `testing.train_bert`/`train_vit` to the CPU run:
+    every step's loss and the final parameters as one vector (ENC_TOL)."""
+    loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(card["history"], cpu["history"], strict=True))
+    want = cpu["state_dict"]
+    got = card["state_dict"]
+    vec = _rel(torch.cat([torch.as_tensor(got[k]).flatten() for k in want]),
+               torch.cat([torch.as_tensor(v).flatten()
+                          for v in want.values()]))
+    rounded = [[round(h["loss"], 6) for h in run["history"]]
+               for run in (card, cpu)]
+    print(f"{what}: losses card {rounded[0]} vs CPU {rounded[1]} (worst "
+          f"rel {loss:.3e}, tol {ENC_TOL['loss']:g}); final parameters as "
+          f"one vector rel {vec:.3e} (tol {ENC_TOL['params']:g})")
+    if not (loss <= ENC_TOL["loss"] and vec <= ENC_TOL["params"]):
+        raise AssertionError(f"{what}: the card disagrees with the CPU")
+
+
+def _bert_parity(dev):
+    """bert_tiny_test (fp32, dropout 0, TF32 off) takes three
+    make_custom_train_step steps of bert_mlm.mlm_loss_fn on the same
+    weights and masked batches: on the card under
+    MultiWorkerMirroredStrategy (DDP on a one-rank NCCL group) and on the
+    CPU with no strategy."""
+    import torch.distributed as dist
+
+    from tfde_tpu_torch import testing
+    from tfde_tpu_torch.data.datasets import synthetic_tokens
+    from tfde_tpu_torch.data.mlm import MlmConfig, mask_tokens
+    from tfde_tpu_torch.models.bert import bert_tiny_test
+
+    rng = np.random.default_rng(0)
+    sd = {k: v.numpy().copy() for k, v in
+          bert_tiny_test(device="cpu", seed=1).state_dict().items()}
+    tokens = synthetic_tokens(64, 32, vocab=96)
+    cfg = MlmConfig(vocab_size=96, mask_id=96)
+    batches = [mask_tokens(tokens[rng.integers(0, 64, 16)], cfg, rng)
+               for _ in range(3)]
+    cpu = testing.train_bert(sd, batches, (1e-3, 1, 3), distributed=False)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        card = testing.train_bert(sd, batches, (1e-3, 1, 3), device=dev)
+    finally:
+        dist.destroy_process_group()
+    _encoder_compare("bert parity: bert_tiny_test, three custom MLM steps "
+                     "(masked AdamW) as DDP on a one-rank NCCL group vs the "
+                     "CPU", card, cpu)
+
+
+def _bert_recipe(fa, dev):
+    """BertBase at the published widths through `bert_mlm.main` (the
+    custom step under MultiWorkerMirroredStrategy, DDP on a one-rank NCCL
+    group), BERT_STEPS + BERT_PROFILED steps of 64 x 128 tokens: ms a step
+    over the BERT_TIMED window, tokens/s, memory, the losses, the flash
+    launches a step (counters zeroed just before, read just after), and a
+    torch.profiler window over the last BERT_PROFILED steps."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfde_tpu_torch import bert_mlm
+    from tfde_tpu_torch.testing import profile_summary
+
+    n = BERT_STEPS + BERT_PROFILED
+    kept, clock = [], {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    real = bert_mlm.make_custom_train_step
+
+    def mark(key):
+        torch.cuda.synchronize(dev)
+        clock[key] = time.perf_counter()
+
+    def recording(*args, **kwargs):
+        step_fn = real(*args, **kwargs)
+
+        def step(state, batch, generator=None):
+            if state.step in BERT_TIMED:
+                mark(state.step)
+            if state.step == BERT_STEPS:
+                prof.start()
+            state, metrics = step_fn(state, batch, generator)
+            kept.append(metrics["loss"])
+            if state.step == n:
+                mark(n)
+                prof.stop()
+            return state, metrics
+
+        return step
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    bert_mlm.make_custom_train_step = recording
+    try:
+        _zero_counts(fa)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, _ = bert_mlm.main(["--max-steps", str(n), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = _counts(fa)
+        params = sum(p.numel() for p in state.model.parameters())
+    finally:
+        bert_mlm.make_custom_train_step = real
+        dist.destroy_process_group()
+    losses = [float(x) for x in kept]
+    ms = ((clock[BERT_TIMED[1]] - clock[BERT_TIMED[0]]) * 1e3
+          / (BERT_TIMED[1] - BERT_TIMED[0]))
+    mem = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    summary = profile_summary(prof, BERT_PROFILED,
+                              (clock[n] - clock[BERT_STEPS]) * 1e3
+                              / BERT_PROFILED)
+    tokens = 64 * 128
+    print(f"bert recipe: BertBase ({params:,} parameters, post-LN, bf16 "
+          f"compute, fp32 master weights, dropout 0.1), seed 0, "
+          f"bert_mlm.main --max-steps {n} (batch 64 x 128 tokens, masked "
+          f"AdamW wd 0.01, lr 1e-4, warmup 100 + cosine) under "
+          f"MultiWorkerMirroredStrategy as DDP on a one-rank NCCL group: "
+          f"{state.step} steps in {wall:.1f} s; loss at step 1 "
+          f"{losses[0]:.4f}, step 10 {losses[9]:.4f}, step {BERT_STEPS} "
+          f"{losses[BERT_STEPS - 1]:.4f}")
+    print(f"bert recipe: {ms:.3f} ms per step (mean of steps "
+          f"{BERT_TIMED[0] + 1}-{BERT_TIMED[1]}, host clock after a "
+          f"synchronise), {tokens / ms * 1e3:.0f} tokens/s, max memory "
+          f"allocated {mem:.2f} GiB; flash launches fwd/dkv/dq {launches} "
+          f"over {n} steps = {sum(launches) / n:g} a step; on {_card()}")
+    _print_profile(summary, BERT_PROFILED, ms, "bert")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != n:
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    if not losses[BERT_STEPS - 1] < losses[0]:
+        raise AssertionError(f"the BERT loss did not fall: {losses}")
+    if launches != (12 * n,) * 3:
+        raise AssertionError(f"BERT's attention did not launch each flash "
+                             f"kernel 12 times a step: {launches}")
+    return {"ms": ms, "launches": launches, "steps": n}
+
+
+def phase_bert(fa, dev):
+    """BERT-base MLM on the card (docstring, phase 12). Every file lies
+    under build/ and is removed at the end."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"bert_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        kernels = _encoder_kernels(fa, dev, "bert", BERT_SHAPE)
+        _bert_parity(dev)
+        recipe = _bert_recipe(fa, dev)
+        _entry_child(["tfde_tpu_torch.bert_mlm", "--max-steps",
+                      str(BERT_ENTRY_STEPS)], root, "bert_mlm",
+                     BERT_ENTRY_STEPS)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return kernels, recipe
+
+
+def _vit_batches():
+    rng = np.random.default_rng(0)
+    images = rng.random((48, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, (48, 1)).astype(np.int64)
+    return [(images[i * 16:(i + 1) * 16], labels[i * 16:(i + 1) * 16])
+            for i in range(3)]
+
+
+def _vit_parity(dev):
+    """vit_tiny_test (fp32, TF32 off) takes three make_train_step steps
+    (masked AdamW, wd 0.05) on the same weights and batches: on the card
+    under FSDPStrategy (FSDP2 on a one-rank NCCL group) and on the CPU
+    (no group: the model unsharded)."""
+    import torch.distributed as dist
+
+    from tfde_tpu_torch import testing
+    from tfde_tpu_torch.models.vit import vit_tiny_test
+
+    sd = {k: v.numpy().copy() for k, v in
+          vit_tiny_test(device="cpu", seed=1).state_dict().items()}
+    args = ({}, sd, _vit_batches(), (1e-3, 1, 3), 0.05)
+    cpu = testing.train_vit(*args)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        card = testing.train_vit(*args, device=dev)
+    finally:
+        dist.destroy_process_group()
+    _encoder_compare("vit parity: vit_tiny_test, three AdamW steps under "
+                     "FSDPStrategy (FSDP2 on a one-rank NCCL group) vs the "
+                     "CPU", card, cpu)
+    return sd, args, cpu
+
+
+def _vit_recipe(fa, dev):
+    """ViT_B16 (224 px, 1000 classes, dropout 0.1, bf16 compute, fp32
+    master weights, seed 0) from imagenet_vit.make_train_dataset(VIT_BATCH,
+    use_native=True) through Estimator.train under FSDPStrategy (FSDP2 on
+    a one-rank NCCL group), the entry point's optimizer and schedule at
+    max_steps VIT_STEPS, then VIT_PROFILED more steps profiled: ms a step
+    and images/s over the VIT_TIMED window, memory, the feed's blocking
+    share, the losses, the flash launches a step (counters zeroed just
+    before, read just after), the FSDP collectives a step and this rank's
+    parameter and optimizer bytes."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfde_tpu_torch import imagenet_vit
+    from tfde_tpu_torch.data.pipeline import AutoShardPolicy
+    from tfde_tpu_torch.models.vit import ViT_B16
+    from tfde_tpu_torch.parallel.strategies import FSDPStrategy
+    from tfde_tpu_torch.testing import profile_summary
+    from tfde_tpu_torch.training import Estimator
+    from tfde_tpu_torch.training.optimizers import (
+        adamw, warmup_cosine_decay_schedule)
+    from tfde_tpu_torch.training.step import make_train_step
+    from tfde_tpu_torch.training.train_state import opt_state_bytes
+
+    n = VIT_STEPS + VIT_PROFILED
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        model = ViT_B16(num_classes=1000, dropout_rate=0.1, device=dev,
+                        seed=0)
+        params = sum(p.numel() for p in model.parameters())
+        warmup = min(100, max(VIT_STEPS - 1, 1))  # the entry point's
+        tx = adamw(model, warmup_cosine_decay_schedule(0.0, 1e-3, warmup,
+                                                       VIT_STEPS),
+                   weight_decay=0.05)
+        strategy = FSDPStrategy()
+        est = Estimator(model, tx, strategy)
+        step_fn = make_train_step(strategy, est._ensure_state())
+        kept = []
+
+        def recording(state, batch, generator):
+            state, metrics = step_fn(state, batch, generator)
+            kept.append(metrics["loss"])
+            return state, metrics
+
+        est._train_step = recording
+        clock, wait = {}, {}
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+        def hook(state, step):
+            if step in VIT_TIMED or step in (VIT_STEPS, n):
+                torch.cuda.synchronize(dev)
+                clock[step] = time.perf_counter()
+                wait[step] = est.feed.wait_seconds
+            if step == VIT_STEPS:
+                prof.start()
+            elif step == n:
+                prof.stop()
+
+        _zero_counts(fa)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        steps = est.train(
+            lambda: imagenet_vit.make_train_dataset(
+                VIT_BATCH, 224, VIT_EXAMPLES, 1000, use_native=True), n,
+            AutoShardPolicy.OFF, _eval_hook=hook).step
+        wall = time.perf_counter() - t0
+        launches = _counts(fa)
+        sharded = all(isinstance(p, DTensor) for p in model.parameters())
+        param_bytes = sum((p.to_local() if isinstance(p, DTensor) else p)
+                          .numel() * p.element_size()
+                          for p in model.parameters())
+        opt_bytes = opt_state_bytes(tx)
+        est.close()
+    finally:
+        dist.destroy_process_group()
+    losses = [float(x) for x in kept]
+    window_s = clock[VIT_TIMED[1]] - clock[VIT_TIMED[0]]
+    ms = window_s * 1e3 / (VIT_TIMED[1] - VIT_TIMED[0])
+    blocked = wait[VIT_TIMED[1]] - wait[VIT_TIMED[0]]
+    mem = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    summary = profile_summary(prof, VIT_PROFILED,
+                              (clock[n] - clock[VIT_STEPS]) * 1e3
+                              / VIT_PROFILED)
+    collectives = {k: calls for k, _, calls in summary["host"]
+                   if any(w in k.lower() for w in
+                          ("all_gather", "allgather", "reduce_scatter",
+                           "all_reduce", "allreduce"))}
+    print(f"vit recipe: ViT_B16 ({params:,} parameters, 224 px, 1000 "
+          f"classes, dropout 0.1, bf16 compute, fp32 master weights), seed "
+          f"0, imagenet_vit.make_train_dataset({VIT_BATCH}, 224, "
+          f"{VIT_EXAMPLES} synthetic images, use_native=True) -> "
+          f"device_prefetch -> Estimator.train under {strategy.describe()} "
+          f"(FSDP2 on a one-rank NCCL group; every parameter a DTensor: "
+          f"{sharded}), masked AdamW wd 0.05, lr 1e-3, warmup {warmup} + "
+          f"cosine to {VIT_STEPS}: {steps} steps in {wall:.1f} s; losses by "
+          f"step { {i: round(losses[i - 1], 4) for i in (1, 10, 25, VIT_STEPS)
+                   if i <= len(losses)} }")
+    print(f"vit recipe: {ms:.3f} ms per step (mean of steps "
+          f"{VIT_TIMED[0] + 1}-{VIT_TIMED[1]}, host clock after a "
+          f"synchronise), {VIT_BATCH / ms * 1e3:.0f} images/s, max memory "
+          f"allocated {mem:.2f} GiB, the feed's blocking share "
+          f"{blocked / window_s:.4f}; flash launches fwd/dkv/dq {launches} "
+          f"over {n} steps = {sum(launches) / n:g} a step; this rank holds "
+          f"{param_bytes:,} parameter bytes and {opt_bytes:,} optimizer "
+          f"bytes; FSDP collectives a step (profiled host ops) "
+          f"{json.dumps(collectives)}; on {_card()}")
+    _print_profile(summary, VIT_PROFILED, ms, "vit")
+    head = sum(losses[:10]) / 10
+    tail = sum(losses[VIT_STEPS - 10:VIT_STEPS]) / 10
+    print(f"vit recipe: mean loss of steps 1-10 {head:.4f}, of steps "
+          f"{VIT_STEPS - 9}-{VIT_STEPS} {tail:.4f}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != n:
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    if not tail < head:
+        raise AssertionError(f"the ViT loss did not fall: {head} -> {tail}")
+    if not sharded or launches != (12 * n,) * 3:
+        raise AssertionError(f"ViT did not run sharded ({sharded}) or its "
+                             f"attention did not launch each flash kernel "
+                             f"12 times a step: {launches}")
+    return {"ms": ms, "launches": launches, "steps": n}
+
+
+def _vit_cards(parity):
+    """Across every card of the machine, one process a card under
+    FSDPStrategy on NCCL (`testing.fsdp_ranks_worker`): the parity run
+    against the CPU, the same parameters on every rank after the gather,
+    and each rank's parameter elements and optimizer bytes."""
+    from tfde_tpu_torch.testing import fsdp_ranks_worker, run_ranks
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"vit cards: {n} card on this machine; FSDP across cards "
+              f"needs two or more (not run)")
+        return
+    _, args, cpu = parity
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", f"vit_store_{os.getpid()}")
+    try:
+        out = run_ranks(fsdp_ranks_worker, [(n, store, args)] * n,
+                        timeout=600)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    for r, o in enumerate(out):
+        if (o["backend"], o["device"]) != ("nccl", f"cuda:{r}"):
+            raise AssertionError(f"rank {r} ran on {o['backend']}, "
+                                 f"{o['device']}")
+    same = all(np.array_equal(v, o["state_dict"][k]) for o in out[1:]
+               for k, v in out[0]["state_dict"].items())
+    total = sum(int(np.prod(v.shape)) for v in cpu["state_dict"].values())
+    print(f"vit cards: FSDP over {n} cards: the same gathered parameters on "
+          f"every rank: {same}; parameter elements a rank "
+          f"{[sum(o['local_numel'].values()) for o in out]} of {total}; "
+          f"optimizer bytes a rank {[o['opt_state_bytes'] for o in out]} "
+          f"against {cpu['opt_state_bytes']} at one rank")
+    _encoder_compare(f"vit cards: FSDP over {n} cards vs the CPU", out[0],
+                     cpu)
+    if not same:
+        raise AssertionError("the ranks' gathered parameters differ")
+
+
+def phase_vit(fa, dev):
+    """ImageNet ViT-B/16 under FSDP on the card (docstring, phase 13).
+    Every file lies under build/ and is removed at the end."""
+    import shutil
+
+    from tfde_tpu_torch.data import datasets
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"vit_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    load = datasets.imagenet
+    try:
+        kernels = _encoder_kernels(fa, dev, "vit", VIT_SHAPE)
+        parity = _vit_parity(dev)
+        t0 = time.perf_counter()
+        arrays = load(n_train=VIT_EXAMPLES, n_test=1, side=224,
+                      num_classes=1000)
+        source = ("a local imagenet.npz" if datasets._find("imagenet.npz")
+                  else "the synthetic stand-in")
+        print(f"vit: ImageNet-shaped data ({VIT_EXAMPLES} training rows of "
+              f"224 x 224 x 3, {source}) in {time.perf_counter() - t0:.1f} "
+              f"s, made once for the phase")
+        datasets.imagenet = lambda **kw: arrays
+        recipe = _vit_recipe(fa, dev)
+        datasets.imagenet = load
+        _vit_cards(parity)
+        _entry_child(["tfde_tpu_torch.imagenet_vit", "--max-steps",
+                      str(VIT_ENTRY_STEPS), "--train-examples",
+                      str(VIT_ENTRY_EXAMPLES)], root, "imagenet_vit",
+                     VIT_ENTRY_STEPS)
+    finally:
+        datasets.imagenet = load
+        shutil.rmtree(root, ignore_errors=True)
+    return kernels, recipe
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
-          "lifecycle", "export", "resnet")
+          "lifecycle", "export", "resnet",
+          "bert", "vit")
 
 
 def main(argv=None) -> int:
@@ -2251,6 +2784,10 @@ def main(argv=None) -> int:
         phase_export(dev, dp_ms)
     if "resnet" in phases:
         phase_resnet(fa, dev)
+    if "bert" in phases:
+        phase_bert(fa, dev)
+    if "vit" in phases:
+        phase_vit(fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

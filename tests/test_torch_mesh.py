@@ -104,9 +104,14 @@ def test_unported_strategy_options_raise(kwargs, error):
                                 opt_sharding="replicated")
 
 
-@pytest.mark.parametrize("name", [
-    "FSDPStrategy", "TensorParallelStrategy", "SequenceParallelStrategy",
-    "ExpertParallelStrategy", "PipelineParallelStrategy"])
+#: the strategies not ported, and FSDPStrategy (ported on FSDP2) with the
+#: int8 gradient transport it does not take yet
+UNPORTED = {"FSDPStrategy": {"grad_transport": "int8"},
+            "TensorParallelStrategy": {}, "SequenceParallelStrategy": {},
+            "ExpertParallelStrategy": {}, "PipelineParallelStrategy": {}}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_strategies_raise(name):
     with pytest.raises(NotImplementedError, match="scale-out slice"):
-        getattr(strategies, name)()
+        getattr(strategies, name)(**UNPORTED[name])

@@ -15,12 +15,15 @@ written by `torch.save` and read by `torch.load(weights_only=True)`:
 - Commit: a step is written into ``<directory>/<step>.tmp-<pid>`` and
   renamed to ``<directory>/<step>`` by `os.replace`, so a directory a
   crash left half-written is never read (only names of digits are steps).
-- Ranks: the parameters are replicated, so rank 0 of `group` writes.
-  The optimizer state is saved in the replicated layout: under ZeRO-1
-  (`ParameterServerStrategy`) every rank joins the all-gather of the
-  slices before rank 0's host copy, and on restore each rank keeps its
-  slice, so a checkpoint moves between the mirrored strategies and
-  ZeRO-1 either way. Every rank restores onto its own device
+- Ranks: the checkpoint is in the replicated layout, and rank 0 of
+  `group` writes it. Under ZeRO-1 (`ParameterServerStrategy`) every rank
+  joins the all-gather of the optimizer's slices, and under FSDP
+  (`FSDPStrategy`) the gather of every sharded parameter and optimizer
+  state (`TrainState.model_state_dict`, `optimizer_state_dict`), before
+  rank 0's host copy: the gathers are collectives, so every rank calls
+  `save`. On restore each rank keeps its slices or shards, so a
+  checkpoint moves between the mirrored strategies, ZeRO-1 and FSDP
+  either way. Every rank restores onto its own device
   (`map_location`). The ranks must share the directory, as the JAX
   package's ranks share theirs.
 - Saves are asynchronous, the JAX default: `save` copies the state to host
@@ -160,10 +163,11 @@ class CheckpointManager:
             if step in self._steps:
                 return False
             self._steps = sorted(self._steps + [step])
-        optimizer = state.optimizer_state_dict()  # ZeRO-1: gathers slices
+        # collectives under ZeRO-1 and FSDP: every rank gathers
+        model = state.model_state_dict()
+        optimizer = state.optimizer_state_dict()
         if self._rank() == 0:
-            payload = {"step": step,
-                       "model": _to_host(state.model.state_dict()),
+            payload = {"step": step, "model": _to_host(model),
                        "optimizer": _to_host(optimizer)}
             self._join()  # one write at a time
             self._thread = threading.Thread(
@@ -263,7 +267,7 @@ class CheckpointManager:
                 f"commonly the model or the optimizer configuration changed "
                 f"since it was written. Resume with the original model and "
                 f"optimizer, or clear the checkpoint directory to restart")
-        state.model.load_state_dict(payload["model"])
+        state.load_model_state_dict(payload["model"])
         state.load_optimizer_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         with self._lock:

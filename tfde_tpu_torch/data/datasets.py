@@ -1,7 +1,8 @@
 """Datasets — the generators of `tfde_tpu/data/datasets.py` that the
 ported paths need, copied so that the port never imports the JAX
-package: the synthetic token corpus, MNIST and CIFAR-10 (`cifar10` :131,
-`_load_npz` :116). Each image set is a local ``.npz`` where `_find` finds
+package: the synthetic token corpus, MNIST, CIFAR-10 (`cifar10` :131,
+`_load_npz` :116) and ImageNet (`imagenet` :147). Each image set is a
+local ``.npz`` where `_find` finds
 one, else the deterministic synthetic stand-in, bit for bit the JAX
 package's arrays for the same sizes. Nothing is downloaded.
 """
@@ -123,6 +124,29 @@ def cifar10(n_train: int = 50000, n_test: int = 10000) -> Arrays:
     tr = np.repeat(train[0][..., None], 3, axis=-1), train[1]
     te = np.repeat(test[0][..., None], 3, axis=-1), test[1]
     return tr, te
+
+
+def imagenet(n_train: int = 10000, n_test: int = 1000, side: int = 224,
+             num_classes: int = 1000) -> Arrays:
+    """ImageNet-shaped data for ViT-B/16: [N, side, side, 3] float images
+    in [0, 1], int64 labels [N, 1]. A local ``imagenet.npz`` where `_find`
+    finds one of the requested side and classes; else the synthetic
+    stand-in: class templates from seed 3 at `side` px, the channel
+    repeated three times by the generator."""
+    path = _find("imagenet.npz")
+    if path is not None:
+        tr, te = _load_npz(path, n_train, n_test)
+        if tr[0].shape[1] == side and tr[1].max() < num_classes:
+            return tr, te
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "%s is %dpx with labels up to %d but %dpx/%d classes were "
+            "requested; using the synthetic generator instead",
+            path, tr[0].shape[1], int(tr[1].max()), side, num_classes,
+        )
+    return _synthetic_images(n_train, n_test, side, num_classes, seed=3,
+                             channels=3)
 
 
 def synthetic_tokens(n: int, seq_len: int, vocab: int = 30522,

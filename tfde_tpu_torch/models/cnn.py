@@ -138,12 +138,13 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 @torch.no_grad()
-def _init_flax_(model: nn.Module, generator: torch.Generator) -> None:
+def _init_flax_(model: nn.Module, generator: torch.Generator,
+                kernels: tuple = (nn.Conv2d, nn.Linear)) -> None:
     """lecun_normal kernels (std sqrt(1 / fan_in), truncated at two
     standard deviations, rescaled as flax's variance scaling does), zero
-    biases."""
+    biases, for every module of a type in `kernels`."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, kernels):
             fan_in = mod.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / .87962566103423978
             nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,

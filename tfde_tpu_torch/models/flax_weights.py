@@ -14,6 +14,9 @@ numpy arrays — this module never imports flax or jax) goes through
 - any `bias` [...]                  -> flattened
 - BatchNorm `batch_stats` `mean` / `var` -> buffers `running_mean` /
   `running_var`
+- a raw `self.param` (`RAW_PARAMS`: ViT's `cls_token` [1, 1, E] and
+  `pos_embed` [1, S, E], BERT's `mlm_bias` [V]) -> a parameter of the
+  same name and shape
 
 A Dense kernel after a flatten keeps its rows: the port's CNNs flatten
 in NHWC order, as flax does (`models/cnn.py`). A BatchNorm `scale` lands
@@ -29,6 +32,10 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+
+#: the flax parameters made by `self.param` (no layer around them), kept
+#: under their own names and shapes
+RAW_PARAMS = ("cls_token", "pos_embed", "mlm_bias")
 
 
 def _convert(path: tuple, leaf) -> tuple:
@@ -52,6 +59,8 @@ def _convert(path: tuple, leaf) -> tuple:
         arr = arr.reshape(-1)
     elif name in ("mean", "var"):
         name = f"running_{name}"
+    elif name in RAW_PARAMS:
+        pass
     else:
         raise ValueError(f"unknown flax param {'/'.join(path)}")
     return ".".join([*mods, name]), torch.tensor(np.ascontiguousarray(arr))

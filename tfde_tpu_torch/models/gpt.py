@@ -89,7 +89,7 @@ class GPT(nn.Module):
         self.wpe = nn.Embedding(max_position, hidden_size, device=device)
         self.decoder = Encoder(depth, hidden_size, num_heads, self.head_dim,
                                mlp_dim, dtype, attn_impl=attn_impl,
-                               ln_eps=ln_eps, device=device)
+                               ln_eps=ln_eps, causal=True, device=device)
         self.init_weights_(torch.Generator(device=device).manual_seed(seed))
 
     @property

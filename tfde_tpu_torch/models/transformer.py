@@ -2,11 +2,21 @@
 
 Ported: `MultiHeadAttention` (MHA, learned positions, with the dense
 decode cache: the scalar-index prefill branch and the per-row-index
-branch), `Mlp` (tanh gelu), `TransformerBlock` (norm_style='pre') and
-`Encoder`. The dtype policy is the JAX one: parameters in fp32, matmuls
-in the compute dtype (bf16 by default), LayerNorm in fp32. Flax layouts
-map onto torch ones in `models/flax_weights.py`: the DenseGeneral q/k/v
-kernels [E, H, D] become Linear weights [H*D, E], `out` [H, D, E] becomes
+branch), `Mlp` (tanh gelu), `TransformerBlock` and `Encoder`, with the
+options the GPT, BERT and ViT configurations use: `causal` (False by
+default, as in JAX; GPT passes True), an optional attention `mask`
+(True = attend, broadcastable to [B, H, S, S]), `norm_style` 'pre'
+(x + MHA(LN(x)); x + MLP(LN(x)), then a final LayerNorm) or 'post'
+(LN(x + MHA(x)); LN(x + MLP(x)), the original BERT arrangement, no final
+LayerNorm), and `dropout_rate`: dropout on the attention output after
+`out` and on the MLP output after `fc2`, in training only, drawn from
+the `generator` the forward is given. Every other JAX field raises
+NotImplementedError when set away from its default (`_UNPORTED`).
+
+The dtype policy is the JAX one: parameters in fp32, matmuls in the
+compute dtype (bf16 by default), LayerNorm in fp32. Flax layouts map onto
+torch ones in `models/flax_weights.py`: the DenseGeneral q/k/v kernels
+[E, H, D] become Linear weights [H*D, E], `out` [H, D, E] becomes
 [E, H*D], Dense [in, out] becomes Linear [out, in].
 
 The KV cache is an explicit object (inference/decode.KVCache) passed down
@@ -18,11 +28,74 @@ batcher's decode ticks).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tfde_tpu_torch.models.cnn import _init_flax_, dropout
 from tfde_tpu_torch.ops import attention as attn_lib
+
+#: JAX `TransformerBlock`/`Encoder` fields outside the port, with the
+#: default the port implements
+_UNPORTED = {
+    "remat": False,
+    "fused_qkv": False,
+    "rope": False,
+    "rope_theta": 10_000.0,
+    "rope_scaling": None,
+    "rope_dim": None,
+    "num_kv_heads": None,
+    "quant": None,
+    "window": None,
+    "window_pattern": "all",
+    "rolling_cache": False,
+    "paged_blocks": None,
+    "kv_block": 16,
+    "kv_quant": None,
+    "attn_scale": None,
+    "attn_logit_cap": None,
+    "norm": "layer",
+    "mlp_act": "gelu",
+    "use_bias": True,
+    "qkv_bias": False,
+    "qk_norm": False,
+    "num_experts": 0,
+    "experts_per_token": 2,
+    "moe_capacity_factor": 1.25,
+    "moe_normalize_topk": True,
+    "moe_shared_expert_dim": None,
+    "router_z_loss_weight": 0.0,
+    "moe_every": 2,
+}
+
+#: the block arrangements the port implements (JAX also has 'parallel',
+#: 'parallel2' and 'sandwich')
+NORM_STYLES = ("pre", "post")
+
+
+def check_unported(owner: str, fields: dict) -> None:
+    """Raise for a JAX field of `owner` the port does not implement:
+    TypeError for a name JAX does not have either, NotImplementedError for
+    a value other than the default the port implements."""
+    for name, value in fields.items():
+        if name not in _UNPORTED:
+            raise TypeError(f"{owner} got an unexpected field {name!r}")
+        if value != _UNPORTED[name]:
+            raise NotImplementedError(
+                f"{owner} field {name}={value!r} is not ported yet (the "
+                f"port implements {name}={_UNPORTED[name]!r})")
+
+
+def _check_norm_style(norm_style: str) -> None:
+    if norm_style not in NORM_STYLES:
+        if norm_style in ("parallel", "parallel2", "sandwich"):
+            raise NotImplementedError(
+                f"norm_style={norm_style!r} is not ported yet (the port "
+                f"implements {NORM_STYLES})")
+        raise ValueError(f"norm_style must be 'pre', 'post', 'parallel', "
+                         f"'parallel2' or 'sandwich', got {norm_style!r}")
 
 
 class Dense(nn.Module):
@@ -48,32 +121,54 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm computed in fp32 whatever the input dtype; returns fp32
-    (flax nn.LayerNorm(dtype=float32))."""
+    (flax nn.LayerNorm(dtype=float32)). An fp64 model (a reference run)
+    stays in fp64."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        return F.layer_norm(x, self.normalized_shape, self.weight,
                             self.bias, self.eps)
 
 
+@torch.no_grad()
+def init_flax_(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initialisers on `model`'s layers: lecun_normal
+    kernels for `Dense` and convolutions (`cnn._init_flax_`), normal(0,
+    1 / sqrt(E)) embedding tables (flax `default_embed_init`), zero
+    biases, unit LayerNorm scales."""
+    _init_flax_(model, generator, (Dense, nn.Linear, nn.Conv2d))
+    for mod in model.modules():
+        if isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
+                               generator=generator)
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+
+
 class MultiHeadAttention(nn.Module):
-    """Causal self-attention with the dispatchable kernel
-    (ops/attention.attention) and the dense decode cache."""
+    """Self-attention with the dispatchable kernel (ops/attention.attention)
+    and, when causal, the dense decode cache; dropout on its output."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype, attn_impl: str = "auto",
-                 causal: bool = True, device=None):
+                 causal: bool = False, dropout_rate: float = 0.0,
+                 device=None):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.attn_impl = attn_impl
         self.causal = causal
+        self.dropout_rate = dropout_rate
         width = num_heads * head_dim
         self.query = Dense(embed, width, dtype, device=device)
         self.key = Dense(embed, width, dtype, device=device)
         self.value = Dense(embed, width, dtype, device=device)
         self.out = Dense(width, embed, dtype, device=device)
 
-    def forward(self, x: torch.Tensor, cache=None, layer: int = 0
+    def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
+                mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         b, s, _ = x.shape
         shape = (b, s, self.num_heads, self.head_dim)
@@ -81,13 +176,18 @@ class MultiHeadAttention(nn.Module):
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
         if cache is None:
-            y = attn_lib.attention(q, k, v, causal=self.causal,
+            y = attn_lib.attention(q, k, v, mask=mask, causal=self.causal,
                                    impl=self.attn_impl)
         else:
             if not self.causal:
                 raise ValueError("decode requires causal attention")
+            if mask is not None:
+                raise NotImplementedError(
+                    "decode builds its own cache-position mask; explicit "
+                    "masks are not supported")
             y = self._decode_attention(q, k, v, cache, layer)
-        return self.out(y.reshape(b, s, -1))
+        y = self.out(y.reshape(b, s, -1))
+        return dropout(y, self.dropout_rate, train, generator)
 
     def _decode_attention(self, q, k, v, cache, layer: int) -> torch.Tensor:
         """Write this call's K/V into the cache at `cache.index`, attend q
@@ -132,58 +232,93 @@ class MultiHeadAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> gelu (tanh approximation, flax nn.gelu's default) -> fc2."""
+    """fc1 -> gelu (tanh approximation, flax nn.gelu's default) -> fc2,
+    then dropout."""
 
     def __init__(self, embed: int, mlp_dim: int, dtype: torch.dtype,
-                 device=None):
+                 dropout_rate: float = 0.0, device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.fc1 = Dense(embed, mlp_dim, dtype, device=device)
         self.fc2 = Dense(mlp_dim, embed, dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        h = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return dropout(h, self.dropout_rate, train, generator)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + MHA(LN(x)); x + MLP(LN(x)). The LayerNorms run in
-    fp32 and their outputs are cast to the compute dtype."""
+    """Pre-LN (default): x + MHA(LN(x)); x + MLP(LN(x)), the LayerNorms'
+    fp32 outputs cast to the compute dtype. `norm_style='post'`:
+    LN(x + MHA(x)); LN(x + MLP(x)), each LayerNorm's output cast to the
+    compute dtype (the original BERT arrangement)."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int,
                  mlp_dim: int, dtype: torch.dtype, attn_impl: str = "auto",
-                 ln_eps: float = 1e-6, device=None):
+                 ln_eps: float = 1e-6, causal: bool = False,
+                 norm_style: str = "pre", dropout_rate: float = 0.0,
+                 device=None, **fields):
         super().__init__()
+        check_unported("TransformerBlock", fields)
+        _check_norm_style(norm_style)
         self.dtype = dtype
+        self.norm_style = norm_style
         self.ln_attn = LayerNorm(embed, eps=ln_eps, device=device)
         self.attn = MultiHeadAttention(embed, num_heads, head_dim, dtype,
-                                       attn_impl=attn_impl, device=device)
+                                       attn_impl=attn_impl, causal=causal,
+                                       dropout_rate=dropout_rate,
+                                       device=device)
         self.ln_mlp = LayerNorm(embed, eps=ln_eps, device=device)
-        self.mlp = Mlp(embed, mlp_dim, dtype, device=device)
+        self.mlp = Mlp(embed, mlp_dim, dtype, dropout_rate=dropout_rate,
+                       device=device)
 
-    def forward(self, x: torch.Tensor, cache=None, layer: int = 0
+    def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
+                mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        x = x + self.attn(self.ln_attn(x).to(self.dtype), cache, layer)
-        return x + self.mlp(self.ln_mlp(x).to(self.dtype))
+        def attn(y):
+            return self.attn(y, cache, layer, mask, train, generator)
+
+        if self.norm_style == "post":
+            x = self.ln_attn(x + attn(x)).to(self.dtype)
+            return self.ln_mlp(x + self.mlp(x, train, generator)).to(
+                self.dtype)
+        x = x + attn(self.ln_attn(x).to(self.dtype))
+        return x + self.mlp(self.ln_mlp(x).to(self.dtype), train, generator)
 
 
 class Encoder(nn.Module):
-    """`depth` pre-LN blocks (`block_0` ...) and the final fp32 LayerNorm."""
+    """`depth` blocks (`block_0` ...) and, for pre-LN blocks, the final
+    fp32 LayerNorm `ln_final` (post-LN blocks already end normalised, and
+    the JAX post-LN Encoder has none)."""
 
     def __init__(self, depth: int, embed: int, num_heads: int,
                  head_dim: int, mlp_dim: int, dtype: torch.dtype,
                  attn_impl: str = "auto", ln_eps: float = 1e-6,
-                 device=None):
+                 causal: bool = False, norm_style: str = "pre",
+                 dropout_rate: float = 0.0, device=None, **fields):
         super().__init__()
+        check_unported("Encoder", fields)
+        _check_norm_style(norm_style)
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed, num_heads, head_dim, mlp_dim, dtype,
-                attn_impl=attn_impl, ln_eps=ln_eps, device=device))
-        self.ln_final = LayerNorm(embed, eps=ln_eps, device=device)
+                attn_impl=attn_impl, ln_eps=ln_eps, causal=causal,
+                norm_style=norm_style, dropout_rate=dropout_rate,
+                device=device))
+        self.ln_final = (LayerNorm(embed, eps=ln_eps, device=device)
+                         if norm_style == "pre" else None)
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.depth)]
 
-    def forward(self, x: torch.Tensor, cache=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache=None,
+                mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         for i, block in enumerate(self.blocks()):
-            x = block(x, cache, i)
-        return self.ln_final(x)
+            x = block(x, cache, i, mask, train, generator)
+        return x if self.ln_final is None else self.ln_final(x)

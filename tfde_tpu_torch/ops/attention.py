@@ -11,12 +11,18 @@ Two implementations behind one dispatcher:
   CUDA tensor, their plain versions on a CPU tensor; differentiable, its
   gradient being the CUDA backward pair.
 
-``auto`` picks flash for unmasked causal attention on a CUDA tensor, and
-the reference einsum otherwise; the kernel's wrapper owns every shape and
-dtype check and raises on what it does not take, so a CUDA tensor never
-falls back to the plain version. The TPU's thresholds (flash only from S >= 2048) do not carry over: they were
-measured on a v5e, and on the H100 the kernel is the path that keeps the
-[S, S] score matrix out of device memory at every length.
+``auto`` picks flash for unmasked attention on a CUDA tensor: every
+causal call (the kernel's wrapper owns every shape and dtype check and
+raises on what it does not take, so a causal CUDA call never falls back
+to the plain version), and every non-causal self-attention call of a
+shape the kernels take (Sq == Sk, head dim 64 or 128, the query heads a
+multiple of the KV heads, fp32 or bf16 — the encoders' BERT and ViT
+calls); any other non-causal shape, and every masked call, takes the
+reference einsum, as the JAX auto-dispatch checks shapes before it picks
+the kernel. The TPU's thresholds (flash only from S >= 2048) do not carry
+over: they were measured on a v5e, and on the H100 the kernel is the path
+that keeps the [S, S] score matrix out of device memory at every
+length.
 
 Shapes follow the JAX package: q/k/v are [batch, length, heads, head_dim].
 """
@@ -103,8 +109,17 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
-def _flash_eligible(q, mask, causal) -> bool:
-    return q.device.type == "cuda" and causal and mask is None
+def _flash_eligible(q, k, mask, causal) -> bool:
+    """Whether `auto` takes flash: unmasked, on a CUDA tensor, and causal
+    or of a self-attention shape the kernels take."""
+    if q.device.type != "cuda" or mask is not None:
+        return False
+    if causal:
+        return True
+    return (q.shape[:2] == k.shape[:2] and q.shape[3] == k.shape[3]
+            and q.shape[3] in fa.KERNEL_HEAD_DIMS
+            and q.shape[2] % k.shape[2] == 0
+            and q.dtype in (torch.float32, torch.bfloat16))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,13 +130,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatching attention: [B,S,H,D] -> [B,S,H,D].
 
     impl: 'auto' | 'reference' | 'flash'. 'auto' takes flash for unmasked
-    causal attention on a CUDA tensor, else the reference einsum; flash
-    raises on shapes the kernels do not take (cross-attention, a head dim
-    other than 64 or 128). Both are differentiable: flash through the
+    attention on a CUDA tensor, causal or of a shape the kernels take
+    (`_flash_eligible`), else the reference einsum; flash raises on shapes
+    the kernels do not take (cross-attention, a head dim other than 64 or
+    128). Both are differentiable: flash through the
     kernels' autograd Function (forward kernel, then the backward pair).
     'ring' (sequence parallelism) is not ported yet."""
     if impl == "auto":
-        impl = "flash" if _flash_eligible(q, mask, causal) else "reference"
+        impl = "flash" if _flash_eligible(q, k, mask, causal) else "reference"
     if impl == "reference":
         return reference_attention(q, k, v, mask=mask, causal=causal,
                                    window=window, scale=scale,

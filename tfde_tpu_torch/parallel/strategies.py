@@ -11,14 +11,17 @@ the backward pass. Every rank sees the whole global batch and takes its
 own rows, rank r rows [r n/R, (r+1) n/R): the JAX batch split over the
 ``data`` axis in process order, and the reference's
 `AutoShardPolicy.OFF` (every worker iterates the same stream).
-`shard_update` then lays out the optimizer's state: whole on every rank
-for the mirrored strategies, sliced over the ``data`` group for
-`ParameterServerStrategy` (`training.train_state.ShardedUpdate`).
+`shard_update` lays out the optimizer's state before the model is
+wrapped: whole on every rank for the mirrored strategies, sliced over the
+``data`` group for `ParameterServerStrategy`
+(`training.train_state.ShardedUpdate`). `FSDPStrategy` shards the
+parameters themselves with FSDP2 (`torch.distributed.fsdp.fully_shard`)
+and the optimizer's state with them.
 
 Not ported yet, and raising NotImplementedError: the int8 gradient
 transport (``grad_transport='int8'``), ZeRO's packed weight-update
 sharding (``opt_sharding='shard'``, the JAX `parallel/zero.py` layout),
-and the other strategies (FSDP, tensor, sequence, expert, pipeline).
+and the other strategies (tensor, sequence, expert, pipeline).
 They come with the scale-out slice (ROADMAP, queue 1, "Then"). The port
 does not read ``$TFDE_GRAD_TRANSPORT`` or ``$TFDE_OPT_SHARDING`` either:
 its only transport is fp32.
@@ -189,8 +192,84 @@ class ParameterServerStrategy(Strategy):
         state.shard_optimizer(self.data_group, self.min_shard_elems)
 
 
-class FSDPStrategy(_Unported):
-    """Fully-sharded data parallelism; not ported."""
+class FSDPStrategy(Strategy):
+    """Fully-sharded data parallelism on FSDP2 (JAX :511-539, BASELINE.json
+    configs[3]): parameters, gradients and optimizer state sharded over
+    the ``fsdp`` axis of a ``{"data": data, "fsdp": -1}`` mesh, and
+    replicated over ``data`` (HSDP) when `data` > 1. The global batch
+    splits over data x fsdp, rank r of the flattened mesh taking rows
+    [r n/R, (r+1) n/R), as the JAX batch sharding over both axes does.
+
+    `replicate` applies `fully_shard` to each `TransformerBlock` and then
+    to the root: the forward all-gathers a block's parameters before it
+    runs, the backward reduce-scatters its gradients (averaged over the
+    ranks, in fp32: the parameters stay fp32 and the model's own `Dense`
+    computes in bf16, so no `MixedPrecisionPolicy`). FSDP2 shards every
+    parameter along dim 0; `min_shard_elems` (the JAX threshold below
+    which a tensor stays whole) is accepted and changes nothing in the
+    math. Parameters become `DTensor`s: `shard_update` moves the
+    optimizer onto them, and `TrainState` reads and loads checkpoints in
+    the replicated layout (`full_tensor`), so a checkpoint moves between
+    FSDP and the mirrored strategies either way.
+    """
+
+    def __init__(self, mesh: Optional[Mesh] = None, data: int = 1,
+                 min_shard_elems: int = 2**10, grad_transport=None,
+                 opt_sharding=None):
+        self._data = data
+        self.min_shard_elems = min_shard_elems
+        super().__init__(mesh, grad_transport=grad_transport,
+                         opt_sharding=opt_sharding)
+
+    def _default_mesh(self) -> Mesh:
+        return mesh_lib.make_mesh({"data": self._data, "fsdp": -1})
+
+    @property
+    def batch_divisor(self) -> int:
+        """The batch splits over data x fsdp: every rank of the mesh."""
+        return self.mesh.size()
+
+    def data_rank(self) -> int:
+        """This process's index in the flattened data x fsdp mesh."""
+        if isinstance(self.mesh, mesh_lib.LocalMesh):
+            return 0
+        sizes = self._axis_sizes()
+        return (self.mesh.get_local_rank("data") * sizes["fsdp"]
+                + self.mesh.get_local_rank("fsdp"))
+
+    @property
+    def data_group(self) -> Optional[dist.ProcessGroup]:
+        """The group over which the batch is split: every rank (the mesh
+        spans the default group, as `runtime.mesh.make_mesh` lays it)."""
+        if isinstance(self.mesh, mesh_lib.LocalMesh):
+            return None
+        return dist.group.WORLD
+
+    def replicate(self, model: nn.Module) -> nn.Module:
+        """`model` with `fully_shard` applied to each TransformerBlock and
+        to the root (once; a model sharded already is returned as it is);
+        `model` itself on a mesh without a group."""
+        from torch.distributed.fsdp import FSDPModule, fully_shard
+
+        from tfde_tpu_torch.models.transformer import TransformerBlock
+
+        if isinstance(self.mesh, mesh_lib.LocalMesh) or isinstance(
+                model, FSDPModule):
+            return model
+        mesh = (self.mesh if self._axis_sizes()["data"] > 1
+                else self.mesh["fsdp"])
+        for mod in model.modules():
+            if isinstance(mod, TransformerBlock):
+                fully_shard(mod, mesh=mesh)
+        fully_shard(model, mesh=mesh)
+        return model
+
+    def shard_update(self, state) -> None:
+        """Shard the model (`replicate`) and move the optimizer onto its
+        sharded parameters, slicing any state it already holds."""
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        self.replicate(state.model)
+        state.rebind_params(names)
 
 
 class TensorParallelStrategy(_Unported):

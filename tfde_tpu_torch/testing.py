@@ -19,9 +19,11 @@ interrupt by SIGTERM.
 
 from __future__ import annotations
 
+import logging
 import multiprocessing as mp
 import os
 import queue
+import time
 import traceback
 from typing import Callable, Optional, Sequence
 
@@ -29,8 +31,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+log = logging.getLogger(__name__)
 
-def _child(fn: Callable, rank: int, args: tuple, results) -> None:
+#: this spawn's token (`run_ranks`), which makes every store path a
+#: spawn's own
+_SPAWN_TOKEN = ""
+
+
+def _child(fn: Callable, rank: int, args: tuple, results, token: str
+           ) -> None:
+    global _SPAWN_TOKEN
+    _SPAWN_TOKEN = token
     torch.set_num_threads(1)
     try:
         results.put((rank, True, fn(rank, *args)))
@@ -47,8 +58,9 @@ def run_ranks(fn: Callable, args_per_rank: Sequence[tuple],
     `timeout` seconds; every child is ended before it returns."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_child, args=(fn, r, tuple(a), results),
-                         daemon=True)
+    token = f"{os.getpid()}-{time.monotonic_ns()}"
+    procs = [ctx.Process(target=_child,
+                         args=(fn, r, tuple(a), results, token), daemon=True)
              for r, a in enumerate(args_per_rank)]
     for p in procs:
         p.start()
@@ -74,8 +86,28 @@ def run_ranks(fn: Callable, args_per_rank: Sequence[tuple],
 
 def _init_file_group(rank: int, world: int, store_path: str,
                      backend: str = "gloo") -> None:
-    dist.init_process_group(backend, init_method=f"file://{store_path}",
-                            rank=rank, world_size=world)
+    """The `world`-rank group of a spawn, rendezvousing through a
+    `FileStore` at `store_path` plus this spawn's token (a path no other
+    spawn uses). gloo listens and connects on the loopback interface only
+    (the ranks share a host). Should gloo's full-mesh connect fail
+    ("Connection closed by peer": another process on the host can reach
+    a listener's ephemeral port), the creation alone is retried once, on
+    a fresh store and fresh listeners, and the retry logged; nothing else
+    is retried."""
+    if backend == "gloo":
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    path = f"{store_path}.{_SPAWN_TOKEN}"
+    try:
+        dist.init_process_group(backend, init_method=f"file://{path}",
+                                rank=rank, world_size=world)
+    except RuntimeError as e:
+        if backend != "gloo" or not ("Connection closed by peer" in str(e)
+                                     or "connectFullMesh" in str(e)):
+            raise
+        log.warning("rank %d: creating the gloo group failed (%s); "
+                    "retrying the creation once on a fresh store", rank, e)
+        dist.init_process_group(backend, init_method=f"file://{path}.retry",
+                                rank=rank, world_size=world)
 
 
 def mesh_worker(rank: int, world: int, store_path: str) -> dict:
@@ -312,11 +344,237 @@ def ps_checkpoint_worker(rank: int, world: int, store_path: str,
         dist.destroy_process_group()
 
 
+def jobs_worker(rank: int, world: int, store_path: str,
+                jobs: Sequence[tuple]) -> list:
+    """Each (name, args, kwargs) of `jobs` in order, ``name`` a function of
+    this module, on rank `rank` of one `world`-rank gloo group: one spawn
+    for every multi-rank run of a test file."""
+    _init_file_group(rank, world, store_path)
+    try:
+        return [globals()[name](*args, **kwargs) for name, args, kwargs
+                in jobs]
+    finally:
+        dist.destroy_process_group()
+
+
+def _numpy_state(state) -> dict:
+    """The model's state_dict in the replicated layout as numpy arrays (a
+    collective under FSDP)."""
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in state.model_state_dict().items()}
+
+
+def _strategy(name: str, data: int = 1):
+    from tfde_tpu_torch.parallel import strategies
+
+    if name == "FSDPStrategy":
+        return strategies.FSDPStrategy(data=data)
+    return getattr(strategies, name)()
+
+
+def vit_model(spec: dict, device="cpu") -> torch.nn.Module:
+    """`models.vit.vit_tiny_test` from a plain spec: ``pool`` ('cls' or
+    'gap'), ``dropout_rate``, ``image_size`` and ``dtype`` ('float32', or
+    'float64': an fp64 model with fp64 weights, the reference run)."""
+    from tfde_tpu_torch.models import vit
+
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    model = vit.ViT(num_classes=10, patch_size=4, embed_dim=32, depth=2,
+                    num_heads=4, mlp_dim=64, dtype=dtype,
+                    pool=spec.get("pool", "cls"),
+                    dropout_rate=spec.get("dropout_rate", 0.0),
+                    image_size=spec.get("image_size", 32), device=device)
+    return model.double() if dtype == torch.float64 else model
+
+
+def train_vit(spec: dict, state_dict: dict, batches: Sequence[tuple],
+              schedule: tuple, weight_decay: float,
+              strategy: str = "FSDPStrategy", data: int = 1,
+              device="cpu") -> dict:
+    """`vit_model(spec)` from `state_dict` (numpy arrays), one
+    `make_train_step` step a global batch under `strategy` (FSDP with
+    `data`, or a mirrored one) with the imagenet_vit recipe's optimizer:
+    masked AdamW at `weight_decay` on ``warmup_cosine_decay_schedule(0,
+    *schedule)``. Returns the per-step metrics, the final state_dict and
+    optimizer state in the replicated layout, and this rank's element
+    count of each parameter and optimizer-state bytes."""
+    from torch.distributed.tensor import DTensor
+
+    from tfde_tpu_torch.training.optimizers import (
+        adamw, warmup_cosine_decay_schedule)
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+    from tfde_tpu_torch.training.train_state import opt_state_bytes
+
+    model = vit_model(spec, device)
+    dtype = next(model.parameters()).dtype
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v), dtype=dtype)
+                           for k, v in state_dict.items()})
+    tx = adamw(model, warmup_cosine_decay_schedule(0.0, *schedule),
+               weight_decay=weight_decay)
+    state = init_state(model, tx)
+    step = make_train_step(_strategy(strategy, data), state)
+    history = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    local = {n: (p.to_local() if isinstance(p, DTensor) else p).numel()
+             for n, p in model.named_parameters()}
+    return {"history": history, "state_dict": _numpy_state(state),
+            "opt_state": _numpy_opt_state(state.optimizer_state_dict()),
+            "local_numel": local, "opt_state_bytes": opt_state_bytes(tx)}
+
+
+def fsdp_collectives(batch: tuple) -> dict:
+    """{host op: calls} of the all-gathers and reduce-scatters of one
+    `make_train_step` step of `vit_model({})` under FSDPStrategy, under
+    torch.profiler (after one unprofiled step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfde_tpu_torch.training.optimizers import adamw
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    model = vit_model({})
+    state = init_state(model, adamw(model, 1e-3))
+    step = make_train_step(_strategy("FSDPStrategy"), state)
+    step(state, batch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, batch)
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in ("c10d::_allgather_base_",
+                         "c10d::_reduce_scatter_base_")}
+
+
+def vit_checkpoint_swap(directory: str, state_dict: dict,
+                        batches: Sequence[tuple], first: str,
+                        second: str) -> dict:
+    """`vit_model({})` from `state_dict` takes the `batches` under strategy
+    `first` (masked AdamW, wd 0.05) and a `CheckpointManager` over the
+    group saves it into `directory` (rank 0 writes); then a fresh model
+    under `second` restores it, twice: before its train step is built
+    (as the Estimator does) and after (as `reload_from_checkpoint` does).
+    Returns the saved state and each restore's (its model and optimizer
+    state in the replicated layout as numpy arrays, and the step), and
+    the restored runs' metrics of one more step."""
+    from tfde_tpu_torch.checkpoint.manager import CheckpointManager
+    from tfde_tpu_torch.training.optimizers import adamw
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    def fresh():
+        model = vit_model({})
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in state_dict.items()})
+        return init_state(model, adamw(model, 1e-3, weight_decay=0.05))
+
+    def result(state):
+        return {"state_dict": _numpy_state(state), "step": state.step,
+                "opt_state": _numpy_opt_state(state.optimizer_state_dict())}
+
+    state = fresh()
+    step = make_train_step(_strategy(first), state)
+    for b in batches:
+        step(state, b)
+    mngr = CheckpointManager(directory, group=dist.group.WORLD)
+    mngr.save(state)
+    mngr.wait()
+    out = {"saved": result(state)}
+    for order in ("restore_first", "step_first"):
+        state = fresh()
+        if order == "step_first":
+            step = make_train_step(_strategy(second), state)
+        CheckpointManager(directory).restore_latest(state)
+        if order == "restore_first":
+            step = make_train_step(_strategy(second), state)
+        out[order] = result(state)
+        out[order]["next"] = {k: float(v) for k, v in
+                              step(state, batches[0])[1].items()}
+    return out
+
+
+def vit_estimator_run(model_dir: str, state_dict: dict, train: tuple,
+                      test: tuple, batch: int, max_steps: int,
+                      save_every: int, strategy: str = "FSDPStrategy"
+                      ) -> dict:
+    """`vit_model({"dropout_rate": 0.1})` from `state_dict` trained by
+    `Estimator.train` under `strategy` to `max_steps` (masked AdamW, wd
+    0.05), a checkpoint every `save_every` into `model_dir`, resuming
+    from its newest one: `Dataset.from_tensor_slices(train).shuffle(n,
+    seed=0).repeat().batch(batch)` under `AutoShardPolicy.OFF`, skipping
+    the batches of the steps the checkpoint holds (as `recipe` does);
+    then `evaluate` over `test` in batches of `batch`. Returns the final
+    state in the replicated layout as numpy arrays, the step it resumed
+    from, the last loss and the eval metrics."""
+    import itertools
+
+    from tfde_tpu_torch.checkpoint.manager import CheckpointManager
+    from tfde_tpu_torch.data.pipeline import AutoShardPolicy, Dataset
+    from tfde_tpu_torch.training.lifecycle import Estimator, RunConfig
+    from tfde_tpu_torch.training.optimizers import adamw
+
+    model = vit_model({"dropout_rate": 0.1})
+    model.load_state_dict({k: torch.as_tensor(v)
+                           for k, v in state_dict.items()})
+    start = CheckpointManager(os.path.join(model_dir, "checkpoints")
+                              ).latest_step or 0
+    est = Estimator(model, adamw(model, 1e-3, weight_decay=0.05),
+                    _strategy(strategy),
+                    RunConfig(model_dir=model_dir,
+                              save_checkpoints_steps=save_every))
+    ds = (Dataset.from_tensor_slices(train).shuffle(len(train[0]), seed=0)
+          .repeat().batch(batch, drop_remainder=True))
+    state = est.train(lambda: itertools.islice(iter(ds), start, None),
+                      max_steps, shard_policy=AutoShardPolicy.OFF)
+    out = {"state_dict": _numpy_state(state), "step": state.step,
+           "resumed_from": start, "loss": float(est.metrics["loss"]),
+           "opt_state": _numpy_opt_state(state.optimizer_state_dict()),
+           "eval": est.evaluate(
+               lambda: Dataset.from_tensor_slices(test).batch(batch))}
+    est.close()
+    return out
+
+
+def train_bert(state_dict: dict, batches: Sequence[tuple], schedule: tuple,
+               grad_accum: int = 1, distributed: bool = True,
+               device="cpu") -> dict:
+    """`models.bert.bert_tiny_test` from `state_dict` (numpy arrays), one
+    `make_custom_train_step(bert_mlm.mlm_loss_fn, grad_accum)` step a
+    global batch (input_ids, labels), with the bert_mlm recipe's
+    optimizer (masked AdamW, wd 0.01, ``warmup_cosine_decay_schedule(0,
+    *schedule)``): under MultiWorkerMirroredStrategy over the process
+    group (each rank its rows of the global numpy batch) when
+    `distributed`, else on one device with no strategy. Returns the
+    per-step metrics and the final state_dict as numpy."""
+    from tfde_tpu_torch.bert_mlm import mlm_loss_fn
+    from tfde_tpu_torch.models.bert import bert_tiny_test
+    from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
+    from tfde_tpu_torch.training.optimizers import (
+        adamw, warmup_cosine_decay_schedule)
+    from tfde_tpu_torch.training.step import init_state, make_custom_train_step
+
+    model = bert_tiny_test(device=device)
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                           for k, v in state_dict.items()})
+    tx = adamw(model, warmup_cosine_decay_schedule(0.0, *schedule),
+               weight_decay=0.01)
+    state = init_state(model, tx)
+    step = make_custom_train_step(
+        mlm_loss_fn, grad_accum, strategy=MultiWorkerMirroredStrategy()
+        if distributed else None, state=state)
+    history = []
+    for ids, labels in batches:
+        batch = ((np.asarray(ids), np.asarray(labels)) if distributed else
+                 (torch.as_tensor(ids, device=device),
+                  torch.as_tensor(labels, device=device)))
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return {"history": history,
+            "state_dict": {k: v.detach().cpu().numpy().copy()
+                           for k, v in model.state_dict().items()}}
+
+
 def profile_steps(run: Callable, batches: Sequence, device) -> dict:
     """torch.profiler (host and CUDA) over ``float(run(b))`` for each batch
     b: the wall ms a step, each CUDA kernel's device ms a step and each
     host operator's self ms and calls a step, as plain values."""
-    import time
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -363,7 +621,6 @@ def dp_ranks_worker(rank: int, world: int, store_path: str, device_type: str,
     losses and the mean ms per step from step `timed_from` + 1 to the
     last, between synchronised, barriered clock reads; then `profiled`
     more steps, which rank 0 runs under `profile_steps`."""
-    import time
 
     from tfde_tpu_torch.data import datasets
     from tfde_tpu_torch.mnist_multiworker import global_batches
@@ -417,6 +674,23 @@ def dp_ranks_worker(rank: int, world: int, store_path: str, device_type: str,
         return {"parity": parity_run, "losses": [float(x) for x in losses],
                 "ms": ms, "profile": prof, "backend": dist.get_backend(),
                 "device": str(device)}
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_ranks_worker(rank: int, world: int, store_path: str,
+                      args: tuple) -> dict:
+    """Rank `rank` of a `world`-rank NCCL group on ``cuda:<rank>`` (fp32,
+    TF32 off): `train_vit(*args)` under FSDPStrategy, with the backend
+    and the device it ran on."""
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _init_file_group(rank, world, store_path, "nccl")
+    try:
+        out = train_vit(*args, strategy="FSDPStrategy", device=device)
+        return {**out, "backend": dist.get_backend(), "device": str(device)}
     finally:
         dist.destroy_process_group()
 

@@ -28,7 +28,8 @@ What differs from the JAX package:
   uninterrupted one draws;
 - `loss_fn` and `eval_fn` take the port's custom-step signature
   ``(model, batch, generator)`` and run at one data-parallel rank only
-  (the port's custom step is single-device);
+  (the port's custom eval step is single-device; `bert_mlm` runs the
+  custom train step under a strategy itself);
 - the concurrent evaluator (``eval_mode="from_checkpoint"``) evaluates a
   copy of the model, restored from the newest checkpoint, on a CUDA stream
   of its own, with no process group.
@@ -196,7 +197,8 @@ class Estimator:
                 and self.strategy.batch_divisor > 1):
             raise NotImplementedError(
                 f"loss_fn/eval_fn run on one device only: the port's custom "
-                f"step is single-device, and {self.strategy.describe()} has "
+                f"eval step is single-device, and "
+                f"{self.strategy.describe()} has "
                 f"{self.strategy.batch_divisor} data-parallel ranks")
         self._device = next(model.parameters()).device
         self._state: Optional[TrainState] = None

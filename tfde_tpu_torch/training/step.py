@@ -4,8 +4,9 @@
 
 The JAX step is one compiled program over a mesh; here each runs eagerly
 on the model's device. `make_train_step` is the classification step
-under a data-parallel strategy (`parallel.strategies`, DDP);
-`make_custom_train_step` takes a user loss on one device (the GPT path).
+under a data-parallel strategy (`parallel.strategies`: DDP, ZeRO-1 or
+FSDP2); `make_custom_train_step` takes a user loss, on one device (the
+GPT path) or under a strategy (the BERT path).
 
 Loss convention, the JAX package's: the mean over the global batch. Each
 rank computes the mean over its equal share of the batch, and DDP's
@@ -21,12 +22,14 @@ device, and the step uses it as it is.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from tfde_tpu_torch.data.device import Placed
 from tfde_tpu_torch.ops import losses, metrics as metrics_lib
@@ -47,12 +50,31 @@ def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm), in
     fp32. The squares are summed by `torch.sum`: on the CPU,
     `torch.linalg.vector_norm` of a few hundred thousand fp32 elements
-    is off by ~6e-6 relative, `torch.sum` by ~1e-7."""
-    return torch.sqrt(torch.stack(
-        [torch.square(t.float()).sum() for t in tensors]).sum())
+    is off by ~6e-6 relative, `torch.sum` by ~1e-7. FSDP's `DTensor`
+    gradients add their local shards' squares, summed over the sharded
+    mesh dims in one all-reduce (every rank calls it)."""
+    tensors = list(tensors)
+    whole = [t for t in tensors if not isinstance(t, DTensor)]
+    sharded = [t for t in tensors if isinstance(t, DTensor)]
+    squares = [torch.square(t.float()).sum() for t in whole]
+    if sharded:
+        mesh, placements = sharded[0].device_mesh, sharded[0].placements
+        if any(t.device_mesh != mesh or t.placements != placements
+               for t in sharded):
+            raise NotImplementedError(
+                "global_norm over DTensors of different layouts")
+        part = torch.stack([torch.square(t.to_local().float()).sum()
+                            for t in sharded]).sum()
+        for dim, placement in enumerate(placements):
+            if placement.is_shard():
+                dist.all_reduce(part, group=mesh.get_group(dim))
+        squares.append(part)
+    return torch.sqrt(torch.stack(squares).sum())
 
 
-def make_custom_train_step(loss_fn: Callable, grad_accum: int = 1):
+def make_custom_train_step(loss_fn: Callable, grad_accum: int = 1,
+                           strategy: Optional[Strategy] = None,
+                           state: Optional[TrainState] = None):
     """step(state, batch, generator) -> (state, metrics) for a user loss.
 
     `loss_fn(model, batch, generator) -> (loss, metrics)`; every batch
@@ -67,22 +89,51 @@ def make_custom_train_step(loss_fn: Callable, grad_accum: int = 1):
     and ``grad_norm``, the global norm of the averaged gradients before
     the update (unless the loss returns its own). Metric values are
     detached tensors on the model's device: reading them is the caller's
-    sync."""
+    sync.
+
+    Without a `strategy` the step runs the model on one device, on the
+    batch as it is given. With one (and the `state` it lays out, as
+    `make_train_step` does: `strategy.shard_update`, then
+    `strategy.replicate`), the step runs the replicated module on this
+    rank's rows: a host batch is the GLOBAL batch, a `Placed` batch this
+    rank's rows already. The JAX step computes the loss over the global
+    batch, so its normaliser is global: each rank's weights
+    (``grad_weight``, 1 a microbatch without one) are summed over the
+    data group, and rank r's loss is scaled by world x w_r / sum(w) (at
+    `grad_accum` 1 before the backward; with accumulation the gradients
+    are divided by the global sum after it), so that the data group's
+    gradient average is the gradient of the global weighted mean even
+    when the ranks hold different target counts. The metrics are the
+    global weighted means, the same on every rank.
+    """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    module, group = None, None
+    if strategy is not None:
+        if state is None:
+            raise ValueError("a strategy needs the state it lays out")
+        strategy.shard_update(state)
+        module = strategy.replicate(state.model)
+        group = strategy.data_group
+    world = 1 if group is None else dist.get_world_size(group)
+    no_sync = getattr(module, "no_sync", None)
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator]
              = None):
-        model = state.model
-        params = [p for p in model.parameters() if p.requires_grad]
-        state.tx.zero_grad(set_to_none=True)
+        model = state.model if module is None else module
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        device = params[0].device
         leaves = batch if isinstance(batch, tuple) else (batch,)
+        if strategy is not None:
+            leaves = _to_device(strategy, leaves, device)
+        state.tx.zero_grad(set_to_none=True)
         n = leaves[0].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by grad_accum="
                              f"{grad_accum}")
         m = n // grad_accum
-        loss_sum, metric_sums, wsum = 0.0, {}, 0.0
+        one = torch.ones((), dtype=torch.float32, device=device)
+        sums = None
         for i in range(grad_accum):
             micro = tuple(x[i * m:(i + 1) * m] for x in leaves)
             loss, metrics = loss_fn(
@@ -90,31 +141,38 @@ def make_custom_train_step(loss_fn: Callable, grad_accum: int = 1):
                 generator)
             metrics = dict(metrics)
             w = metrics.pop("grad_weight", None)
-            # one microbatch is its own gradient: no weight to divide out
-            w = (1.0 if grad_accum == 1 or w is None
-                 else torch.as_tensor(w, dtype=torch.float32).detach())
-            (loss * w).backward()
-            loss_sum = loss_sum + loss.detach() * w
-            for k, v in metrics.items():
-                metric_sums[k] = metric_sums.get(k, 0.0) + v.detach() * w
-            wsum = wsum + w
+            if grad_accum == 1 and world == 1:
+                w = one  # one microbatch is its own gradient
+            elif w is None:
+                w = one
+            else:
+                w = torch.as_tensor(w, dtype=torch.float32,
+                                    device=device).detach()
+            if grad_accum == 1 and world > 1:
+                total = _sum_over(group, w.clone())
+                scale = w * world / torch.where(total > 0, total, one)
+            else:
+                scale = w * world
+            sync = (contextlib.nullcontext() if no_sync is None
+                    or i == grad_accum - 1 else no_sync())
+            with sync:
+                (loss * scale).backward()
+            row = torch.stack([loss.detach() * w, w] + [
+                torch.as_tensor(v, dtype=torch.float32, device=device)
+                .detach() * w for v in metrics.values()])
+            sums = row if sums is None else sums + row
+        sums = _sum_over(group, sums)
+        inv = 1.0 / torch.where(sums[1] > 0, sums[1], one)
         for p in params:
             if p.grad is None:  # unused this step: a zero gradient, as JAX
                 p.grad = torch.zeros_like(p)
-        if grad_accum > 1:
-            # every microbatch weightless -> a clean zero update (the
-            # accum=1 behaviour), not 0 * inf
-            wsum = torch.as_tensor(wsum, dtype=torch.float32,
-                                   device=params[0].device)
-            inv = 1.0 / torch.where(wsum > 0, wsum, torch.ones_like(wsum))
-            for p in params:
+            elif grad_accum > 1:
                 p.grad.mul_(inv)
-            loss_sum = loss_sum * inv
-            metric_sums = {k: v * inv for k, v in metric_sums.items()}
-        metric_sums.setdefault("grad_norm",
-                               global_norm([p.grad for p in params]))
+        out = {"loss": sums[0] * inv}
+        out.update({k: v * inv for k, v in zip(metrics, sums[2:])})
+        out.setdefault("grad_norm", global_norm([p.grad for p in params]))
         state.apply_gradients()
-        return state, {"loss": loss_sum, **metric_sums}
+        return state, out
 
     return step
 
@@ -169,8 +227,8 @@ def make_train_step(strategy: Strategy, state: TrainState,
             f"classification step (make_custom_train_step takes it on one "
             f"device)")
     check_ported(comms, opt_sharding)
-    module = strategy.replicate(state.model)
     strategy.shard_update(state)
+    module = strategy.replicate(state.model)
     group = strategy.data_group
     params = [p for p in state.model.parameters() if p.requires_grad]
     device = params[0].device
@@ -237,13 +295,13 @@ def make_custom_eval_step(strategy: Strategy, state: TrainState,
     times the weight, and the weight, as fp32 tensors: the caller adds
     them over the pass and divides once. A batch is a `Placed` batch or a
     host batch, copied to the model's device. Raises NotImplementedError
-    above one data-parallel rank: the port's custom step is single-device.
+    above one data-parallel rank: the custom eval step is single-device.
     """
     if strategy.batch_divisor > 1:
         raise NotImplementedError(
             "a custom eval_fn runs on one device only: the port's custom "
-            "steps are single-device (the data-parallel custom step comes "
-            "with the scale-out slice)")
+            "eval step is single-device (its data-parallel twin comes with "
+            "the scale-out slice)")
     device = next(state.model.parameters()).device
 
     @torch.no_grad()

@@ -14,6 +14,13 @@ state only for its slice of each sharded parameter. The JAX package gets
 the same layout from a PartitionSpec on the optimizer state, and XLA's
 reduce-scatter and all-gather; here the update does the slicing and the
 all-gather itself.
+
+Under `FSDPStrategy` the parameters are FSDP2 `DTensor`s and the
+optimizer's state follows them (`rebind_params`). The state dicts a
+checkpoint holds are in the replicated layout whatever the strategy:
+`model_state_dict` and `optimizer_state_dict` gather each `DTensor`
+whole (a collective: every rank calls them), and the loaders slice a
+whole tensor onto a live `DTensor`'s shards.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict, List, Optional, Union
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from tfde_tpu_torch.parallel.sharding import shard_dims
 from tfde_tpu_torch.training.optimizers import Schedule, as_schedule
@@ -30,12 +38,35 @@ from tfde_tpu_torch.training.optimizers import Schedule, as_schedule
 
 def opt_state_bytes(tx: torch.optim.Optimizer) -> int:
     """Bytes of this rank's per-parameter optimizer state (momentum,
-    moments): every tensor of at least one dimension in `tx.state`. The
-    scalar step counters are left out (torch's Adam keeps one a parameter,
-    optax one in all)."""
-    return sum(v.numel() * v.element_size() for entries in tx.state.values()
-               for v in entries.values()
-               if isinstance(v, torch.Tensor) and v.dim())
+    moments): every tensor of at least one dimension in `tx.state`, a
+    `DTensor` by its local shards. The scalar step counters are left out
+    (torch's Adam keeps one a parameter, optax one in all)."""
+    local = [v.to_local() if isinstance(v, DTensor) else v
+             for entries in tx.state.values() for v in entries.values()
+             if isinstance(v, torch.Tensor) and v.dim()]
+    return sum(v.numel() * v.element_size() for v in local)
+
+
+def _full(t):
+    """A `DTensor` gathered whole (a collective); anything else as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _shard_like(t: torch.Tensor, like: DTensor) -> DTensor:
+    """Whole tensor `t` as a `DTensor` laid out as `like`: each rank keeps
+    its own shards, sliced locally (every rank holds the same `t`)."""
+    return distribute_tensor(t.to(like.device), like.device_mesh,
+                             like.placements, src_data_rank=None)
+
+
+def _placed(entries: dict, param: torch.Tensor) -> dict:
+    """Optimizer state entries of `param`: whole tensors of its shape laid
+    out as `param` when it is a `DTensor`; anything else as it is."""
+    if not isinstance(param, DTensor):
+        return entries
+    return {k: (_shard_like(v, param) if isinstance(v, torch.Tensor)
+                and not isinstance(v, DTensor) and v.shape == param.shape
+                else v) for k, v in entries.items()}
 
 
 class ShardedUpdate:
@@ -160,6 +191,36 @@ class TrainState:
             self.sharded = ShardedUpdate(self.model, self.tx, group,
                                          min_elems)
 
+    def rebind_params(self, old_names: Dict[int, str]) -> None:
+        """Point the optimizer at the model's current parameters after a
+        wrapper replaced them (FSDP2's `fully_shard` registers `DTensor`
+        parameters in the place of the originals): `old_names` maps the
+        id of each parameter the optimizer holds to its name in the model.
+        State the optimizer already holds (a restored checkpoint) moves to
+        the new parameter, sliced onto its shards."""
+        live = dict(self.model.named_parameters())
+        for group in self.tx.param_groups:
+            for j, p in enumerate(group["params"]):
+                q = live[old_names[id(p)]]
+                if q is p:
+                    continue
+                if p in self.tx.state:
+                    self.tx.state[q] = _placed(self.tx.state.pop(p), q)
+                group["params"][j] = q
+
+    def model_state_dict(self) -> Dict:
+        """The model's state_dict in the replicated layout: FSDP's
+        `DTensor`s gathered whole (a collective: every rank calls it)."""
+        return {k: _full(v) for k, v in self.model.state_dict().items()}
+
+    def load_model_state_dict(self, sd: Dict) -> None:
+        """Load a replicated-layout state_dict, each `DTensor` parameter
+        keeping its shards."""
+        live = self.model.state_dict()
+        self.model.load_state_dict(
+            {k: (_shard_like(v, live[k]) if isinstance(live.get(k), DTensor)
+                 else v) for k, v in sd.items()})
+
     def optimizer_params(self) -> List[torch.Tensor]:
         """The optimized parameters, whole, in the optimizer's order."""
         if self.sharded is not None:
@@ -168,18 +229,25 @@ class TrainState:
 
     def optimizer_state_dict(self) -> Dict:
         """The optimizer's state dict in the replicated layout (a
-        collective under ZeRO-1: every rank calls it)."""
+        collective under ZeRO-1 and FSDP: every rank calls it)."""
         if self.sharded is not None:
             return self.sharded.full_state_dict(self.tx)
-        return self.tx.state_dict()
+        sd = self.tx.state_dict()
+        return {"state": {i: {k: _full(v) for k, v in e.items()}
+                          for i, e in sd["state"].items()},
+                "param_groups": sd["param_groups"]}
 
     def load_optimizer_state_dict(self, sd: Dict) -> None:
         """Load a replicated-layout optimizer state dict (each rank keeps
-        its slices under ZeRO-1)."""
+        its slices under ZeRO-1, its shards under FSDP)."""
         if self.sharded is not None:
             self.sharded.load_full_state_dict(self.tx, sd)
-        else:
-            self.tx.load_state_dict(sd)
+            return
+        params = self.optimizer_params()
+        self.tx.load_state_dict({
+            "state": {i: _placed(e, params[i])
+                      for i, e in sd["state"].items()},
+            "param_groups": sd["param_groups"]})
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer update from the gradients held in the parameters'
