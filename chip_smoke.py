@@ -155,7 +155,28 @@ without printing a result:
    CPU, the same gathered parameters on every rank, each rank's parameter
    elements and optimizer bytes); then `python -m
    tfde_tpu_torch.imagenet_vit --max-steps 10` in a child process. Every
-   file lies under build/ and is removed at the end.
+   file lies under build/ and is removed at the end;
+14. gpt_lm — GPT pretraining with rotary positions, grouped-query
+   attention, the sliding window, remat and packing: a small fp32 GPT
+   (head dim 64, rope, 2 KV heads of 4, window 24, remat 'full') on the
+   card against the CPU on the same weights (prefill logits, the
+   batcher's greedy tokens against CPU `generate`, one next_token_loss +
+   AdamW step: loss, every gradient, the updated parameters; the flash
+   forward twice a layer); GPT-2 small at full width (bf16 over fp32
+   master weights, random weights from seed 0) through `gpt_lm.main
+   --rope --kv-heads 4 --sliding-window 256 --remat` for 20 steps of 8 x
+   1024 tokens (warmup 5), the counters zeroed just before and read just
+   after: 24 forward, 12 dK/dV and 12 dQ launches a step, every loss
+   finite and the last below the first, ms a step, tokens/s, memory,
+   then 3 more steps profiled; the same model without the window through
+   `gpt_lm.main --packed --rope --kv-heads 4 --remat` for 10 steps (no
+   flash launch: the segment mask takes the reference einsum; ms a step,
+   the fill share, memory); the three bf16 kernels at the slice's GQA +
+   window shape ([8, 1024, 12 -> 4 KV heads, 64], causal, window 256)
+   against their plain versions, timed beside their band-aware bounds
+   and SDPA (`enable_gqa`, the band as a boolean mask; timing only); then
+   `bert_mlm.main --remat` for 10 steps on a one-rank NCCL group: 24
+   forward launches a step.
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -2274,65 +2295,79 @@ VIT_EXAMPLES, VIT_ENTRY_STEPS, VIT_ENTRY_EXAMPLES = 1024, 10, 512
 ENC_TOL = {"loss": 1e-5, "params": 1e-4}
 
 
-def _encoder_kernels(fa, dev, label, shape):
-    """The three bf16 kernels against their plain versions at an encoder's
-    attention shape (non-causal, unmasked): the forward's out and lse, the
-    backward pair's dq, dk and dv (`_check_backward`); then each kernel's
-    time beside the plain version's, SDPA's (timing only) and its bound.
-    Returns {kernel: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
-    bound_by}}."""
+def _kernels_at(fa, dev, label, shape, kv=None, causal=False, window=None):
+    """The three bf16 kernels against their plain versions at a model's
+    attention shape ([B, S, H, D] queries, `kv` KV heads, unmasked but
+    for the causal band): the forward's out and lse, the backward pair's
+    dq, dk and dv (`_check_backward`); then each kernel's time beside the
+    plain version's, SDPA's (timing only; the band as a boolean mask, GQA
+    through `enable_gqa`) and its bound. Returns {kernel: {max_abs_err,
+    ms, plain_ms, library_ms, bound_ms, bound_by}}."""
     import torch.nn.functional as F
 
     b, s, h, d = shape
+    kv = kv or h
     dtype = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-               for _ in range(3))
-    out, lse = fa.flash_forward(q, k, v, False)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    opts = (causal, window)
+    out, lse = fa.flash_forward(q, k, v, *opts)
     torch.cuda.synchronize(dev)
-    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, False)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, *opts)
     out_rel = _rel(out.float(), ref_out.float())
     lse_err = float((lse - ref_lse).abs().max())
     max_abs = float((out.float() - ref_out.float()).abs().max())
     tol_out, tol_lse = TOL[dtype]
     ok = (bool(torch.isfinite(out).all()) and out_rel <= tol_out
           and lse_err <= tol_lse)
-    print(f"kernel flash_fwd {label}: B={b} S={s} H={h} D={d} bf16 "
-          f"non-causal: out rel {out_rel:.3e} (tol {tol_out:g}), lse max abs "
-          f"{lse_err:.3e} (tol {tol_lse:g}), out max abs {max_abs:.3e} -> "
-          f"{'ok' if ok else 'FAIL'}")
+    what = (f"B={b} S={s} H={h} KV={kv} D={d} bf16 "
+            f"{'causal' if causal else 'non-causal'} window={window}")
+    print(f"kernel flash_fwd {label}: {what}: out rel {out_rel:.3e} (tol "
+          f"{tol_out:g}), lse max abs {lse_err:.3e} (tol {tol_lse:g}), out "
+          f"max abs {max_abs:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash_fwd disagrees with its plain version "
                              f"at the {label} shape")
     do, out, lse, dq_err, dkv_err = _check_backward(
-        fa, label, q, k, v, False, None, None, None, gen)
+        fa, label, q, k, v, causal, window, None, None, gen)
     del ref_out, ref_lse
     delta = fa._delta(out, do)
     res = {"flash_fwd": {"max_abs_err": max_abs},
            "flash_bwd_dkv": {"max_abs_err": dkv_err},
            "flash_bwd_dq": {"max_abs_err": dq_err}}
-    res["flash_fwd"]["ms"] = _time_ms(lambda: fa.flash_forward(q, k, v),
-                                      dev)
+    res["flash_fwd"]["ms"] = _time_ms(lambda: fa.flash_forward(q, k, v,
+                                                               *opts), dev)
     res["flash_fwd"]["plain_ms"] = _time_ms(
-        lambda: fa.flash_forward_reference(q, k, v), dev, iters=3)
+        lambda: fa.flash_forward_reference(q, k, v, *opts), dev, iters=3)
     res["flash_bwd_dkv"]["ms"] = _time_ms(
-        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, False), dev)
+        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, *opts), dev)
     res["flash_bwd_dq"]["ms"] = _time_ms(
-        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, False), dev)
+        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, *opts), dev)
     plain_bwd = _time_ms(lambda: fa.flash_backward_reference(
-        q, k, v, out, lse, do, False), dev, iters=3)
+        q, k, v, out, lse, do, *opts), dev, iters=3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
+    sdpa = {}
+    if window is not None:
+        rows = torch.arange(s, device=dev)[:, None]
+        ago = rows - torch.arange(s, device=dev)[None, :]
+        sdpa["attn_mask"] = (ago >= 0) & (ago < window)
+    elif causal:
+        sdpa["is_causal"] = True
+    if kv != h:
+        sdpa["enable_gqa"] = True
     res["flash_fwd"]["library_ms"] = _time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt), dev)
-    ref = F.scaled_dot_product_attention(qt, kt, vt)
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa), dev)
+    ref = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
     sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
         ref, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), dev)
     for name, kernel in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
                          ("flash_bwd_dq", "dq")):
         r = res[name]
-        r["bound_ms"], r["bound_by"] = _bound(b, s, h, h, d, dtype, False,
-                                              None, kernel)
+        r["bound_ms"], r["bound_by"] = _bound(b, s, h, kv, d, dtype, causal,
+                                              window, kernel)
         if kernel != "fwd":
             r["plain_ms"], r["library_ms"] = plain_bwd, sdpa_bwd
         print(f"kernel {name} {label} timing: kernel_ms {r['ms']:.4f}, "
@@ -2491,7 +2526,7 @@ def phase_bert(fa, dev):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     try:
-        kernels = _encoder_kernels(fa, dev, "bert", BERT_SHAPE)
+        kernels = _kernels_at(fa, dev, "bert", BERT_SHAPE)
         _bert_parity(dev)
         recipe = _bert_recipe(fa, dev)
         _entry_child(["tfde_tpu_torch.bert_mlm", "--max-steps",
@@ -2714,7 +2749,7 @@ def phase_vit(fa, dev):
     os.makedirs(root)
     load = datasets.imagenet
     try:
-        kernels = _encoder_kernels(fa, dev, "vit", VIT_SHAPE)
+        kernels = _kernels_at(fa, dev, "vit", VIT_SHAPE)
         parity = _vit_parity(dev)
         t0 = time.perf_counter()
         arrays = load(n_train=VIT_EXAMPLES, n_test=1, side=224,
@@ -2738,9 +2773,238 @@ def phase_vit(fa, dev):
     return kernels, recipe
 
 
+#: the gpt_lm phase: the slice's attention shape (GPT-2 small's 12 query
+#: heads over 4 KV heads, the 256-token window), the steps of the train
+#: run (then GL_PROFILED more under torch.profiler), of the packed run and
+#: of the bert_mlm --remat run, and the flags the entry point runs with
+GL_SHAPE, GL_KV, GL_WINDOW = (8, 1024, 12, 64), 4, 256
+GL_STEPS, GL_PROFILED, GL_PACKED_STEPS, GL_BERT_STEPS = 20, 3, 10, 10
+GL_ARGS = ["--seq-len", "1024", "--batch-size", "8", "--warmup-steps", "5",
+           "--train-examples", "256", "--device", "cuda"]
+
+
+def _gl_parity(fa, dev):
+    """A small fp32 GPT with head dim 64, rope, 2 KV heads of 4, window
+    24 and remat, the same weights on the card and on the CPU: prefill
+    logits (the flash kernel on the card; the model served with remat off,
+    `decode.remat_off`), the batcher's greedy tokens against CPU
+    `generate`, then one next_token_loss + AdamW step (loss, every
+    gradient, the updated parameters), the card's flash forward launched
+    twice a layer (the remat recompute)."""
+    from tfde_tpu_torch.inference.decode import generate, init_cache, remat_off
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.models.gpt import GPT, next_token_loss
+    from tfde_tpu_torch.training.optimizers import adamw
+    from tfde_tpu_torch.training.step import init_state
+
+    cfg = dict(vocab_size=97, hidden_size=256, depth=2, num_heads=4,
+               mlp_dim=512, max_position=64, dtype=torch.float32,
+               position="rope", num_kv_heads=2, sliding_window=24,
+               remat="full", seed=3)
+    models = {"cuda": GPT(device=dev, **cfg), "cpu": GPT(device="cpu", **cfg)}
+    models["cpu"].load_state_dict(
+        {k: t.cpu() for k, t in models["cuda"].state_dict().items()})
+    gpu, cpu = models["cuda"], models["cpu"]
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 97, (3, 40))
+    _zero_counts(fa)
+    with torch.no_grad(), remat_off(gpu), remat_off(cpu):
+        got = gpu(torch.as_tensor(ids, device=dev),
+                  cache=init_cache(gpu, 3, 48))
+        want = cpu(torch.as_tensor(ids), cache=init_cache(cpu, 3, 48))
+    rel = _rel(got.cpu(), want)
+    launched = _counts(fa)
+    print(f"gpt_lm parity: fp32 GPT(D=64, rope, 2 of 4 KV heads, window "
+          f"24) prefill logits of 3 x 40 tokens, CUDA flash vs CPU plain: "
+          f"rel {rel:.3e} (tol 1e-5), launches fwd/dkv/dq {launched}")
+    if launched != (cfg["depth"], 0, 0) or not rel <= 1e-5:
+        raise AssertionError("the rope/GQA/window prefill disagrees with "
+                             "the CPU or did not run the flash kernel")
+    srv = ContinuousBatcher(gpu, batch_size=2, max_len=48, scan_depth=4,
+                            device=dev)
+    prompts = [rng.integers(0, 97, p) for p in (5, 30, 3, 27)]
+    rids = [srv.submit(p, 10) for p in prompts]
+    done = dict(srv.run())
+    same = 0
+    for rid, p in zip(rids, prompts):
+        toks, lens = generate(cpu, p[None, :], 10, device="cpu")
+        same += int(np.array_equal(done[rid],
+                                   toks[0, p.size:int(lens[0])].numpy()))
+    print(f"gpt_lm parity: CUDA batcher greedy tokens == CPU generate for "
+          f"{same}/{len(prompts)} requests (prompts of 5-30 tokens, window "
+          f"24)")
+    if same != len(prompts):
+        raise AssertionError("CUDA batcher tokens differ from CPU generate")
+    ids = rng.integers(0, 97, (4, 40))
+    torch.cuda.synchronize(dev)
+    _zero_counts(fa)
+    got = {}
+    for where, model in models.items():
+        state = init_state(model, adamw(model, 1e-3, weight_decay=0.1))
+        loss, _ = next_token_loss(model, torch.as_tensor(
+            ids, device=model.device))
+        loss.backward()
+        grads = {n: p.grad.cpu().clone() for n, p in
+                 model.named_parameters()}
+        state.apply_gradients()
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        got[where] = (float(loss.detach()), grads, params)
+    launched = _counts(fa)
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = got["cuda"], got["cpu"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_rel = _grads_rel(g_gpu, g_cpu)
+    param_rel = _rel(torch.cat([p_gpu[n].flatten() for n in p_cpu]),
+                     torch.cat([p.flatten() for p in p_cpu.values()]))
+    print(f"gpt_lm parity: one next_token_loss + AdamW step with remat "
+          f"'full', CUDA kernels vs CPU plain: loss {l_gpu:.6f} vs "
+          f"{l_cpu:.6f} (rel {loss_rel:.3e}, tol 1e-5), worst gradient rel "
+          f"{grad_rel:.3e} (tol 1e-4), updated params rel {param_rel:.3e} "
+          f"(tol 1e-4); launches fwd/dkv/dq {launched}")
+    depth = cfg["depth"]
+    if launched != (2 * depth, depth, depth):
+        raise AssertionError("the remat train step did not run the flash "
+                             "forward twice and the backward pair once a "
+                             "layer")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and param_rel <= 1e-4):
+        raise AssertionError("the remat train step disagrees with the CPU")
+
+
+def _gl_entry(fa, dev, argv, label):
+    """`gpt_lm.main(argv)` with the launch counters zeroed just before and
+    read just after, each step's loss and host time after a synchronise,
+    and the share of real tokens in the packed batches, each printed.
+    Returns the final state, ms a step (mean of the steps after the
+    second), the launches and the train step function."""
+    from tfde_tpu_torch import gpt_lm
+
+    losses, clock, fill, steps = [], [], [], []
+    real = gpt_lm.make_custom_train_step
+
+    def recording(*args, **kwargs):
+        step_fn = real(*args, **kwargs)
+        steps.append(step_fn)
+
+        def step(state, batch, generator=None):
+            state, metrics = step_fn(state, batch, generator)
+            losses.append(metrics["loss"])
+            if len(batch) == 2:
+                fill.append(float((batch[1] > 0).float().mean()))
+            torch.cuda.synchronize(dev)
+            clock.append(time.perf_counter())
+            return state, metrics
+
+        return step
+
+    gpt_lm.make_custom_train_step = recording
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts(fa)
+        clock.append(time.perf_counter())
+        state, _ = gpt_lm.main(argv)
+        launches = _counts(fa)
+    finally:
+        gpt_lm.make_custom_train_step = real
+    losses = [float(x) for x in losses]
+    step_s = [b - a for a, b in zip(clock, clock[1:])]
+    ms = sum(step_s[2:]) / len(step_s[2:]) * 1e3
+    mem = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    share = sum(fill) / len(fill) if fill else None
+    n = len(losses)
+    print(f"{label}: gpt_lm.main {' '.join(argv)}: {n} steps; losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"{label}: {ms:.3f} ms per step (mean of steps 3-{n}, host clock "
+          f"after a synchronise), first step {step_s[0] * 1e3:.1f} ms, "
+          f"{GL_SHAPE[0] * GL_SHAPE[1] / ms * 1e3:.0f} tokens/s"
+          + ("" if share is None else
+             f" ({GL_SHAPE[0] * GL_SHAPE[1] * share / ms * 1e3:.0f} real "
+             f"tokens/s at a fill "
+             f"share of {share:.4f})")
+          + f", max memory allocated {mem:.2f} GiB; flash launches "
+          f"fwd/dkv/dq {launches}; on {_card()}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss is not finite and falling: "
+                             f"{losses}")
+    return state, ms, launches, steps[0]
+
+
+def _gl_bert_remat(fa, dev):
+    """`bert_mlm.main --remat` for GL_BERT_STEPS steps on a one-rank NCCL
+    group: the flash forward runs twice a layer a step, the backward pair
+    once."""
+    import torch.distributed as dist
+
+    from tfde_tpu_torch import bert_mlm
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = bert_mlm.main(["--max-steps", str(GL_BERT_STEPS),
+                                        "--device", "cuda", "--remat"])
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        launches = _counts(fa)
+    finally:
+        dist.destroy_process_group()
+    n = GL_BERT_STEPS
+    mem = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"gpt_lm bert --remat: bert_mlm.main --max-steps {n} --remat "
+          f"(BertBase, 64 x 128 tokens): {state.step} steps in {wall:.1f} s "
+          f"(model build included), last loss {loss:.4f}, max memory "
+          f"allocated {mem:.2f} GiB; flash launches fwd/dkv/dq {launches} = "
+          f"{[x / n for x in launches]} a step")
+    if launches != (24 * n, 12 * n, 12 * n) or not math.isfinite(loss):
+        raise AssertionError(f"bert_mlm --remat did not launch the flash "
+                             f"forward 24 times and the backward pair 12 "
+                             f"times a step: {launches}")
+
+
+def phase_gpt_lm(fa, dev):
+    """GPT pretraining with rope, GQA, the sliding window, remat and
+    packing through `python -m tfde_tpu_torch.gpt_lm` (docstring, phase
+    14)."""
+    from tfde_tpu_torch.data.datasets import synthetic_tokens
+
+    t0 = time.perf_counter()
+    _gl_parity(fa, dev)
+    argv = ["--rope", "--kv-heads", str(GL_KV), "--sliding-window",
+            str(GL_WINDOW), "--remat", "--max-steps", str(GL_STEPS),
+            *GL_ARGS]
+    state, ms, launches, step_fn = _gl_entry(fa, dev, argv, "gpt_lm train")
+    want = (24 * GL_STEPS, 12 * GL_STEPS, 12 * GL_STEPS)
+    if launches != want:
+        raise AssertionError(f"gpt_lm train: launches {launches}, not "
+                             f"{want} (remat runs the flash forward twice "
+                             f"a layer)")
+    tokens = synthetic_tokens(256, 1024, vocab=state.model.vocab_size,
+                              seed=2)
+    nrng = np.random.default_rng(1)
+    batches = [torch.as_tensor(tokens[nrng.integers(0, 256, 8)], device=dev)
+               for _ in range(GL_PROFILED)]
+    _profile_train(lambda x: step_fn(state, (x,))[1]["loss"], batches, dev,
+                   ms, label="gpt_lm train")
+    del state, step_fn, batches
+    argv = ["--packed", "--rope", "--kv-heads", str(GL_KV), "--remat",
+            "--max-steps", str(GL_PACKED_STEPS), *GL_ARGS]
+    launches = _gl_entry(fa, dev, argv, "gpt_lm packed")[2]
+    if launches != (0, 0, 0):
+        raise AssertionError(f"gpt_lm packed: the segment mask must take "
+                             f"the reference einsum, not the flash kernels: "
+                             f"{launches}")
+    kernels = _kernels_at(fa, dev, "gpt_lm", GL_SHAPE, kv=GL_KV, causal=True,
+                          window=GL_WINDOW)
+    _gl_bert_remat(fa, dev)
+    print(f"gpt_lm phase: {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
           "lifecycle", "export", "resnet",
-          "bert", "vit")
+          "bert", "vit", "gpt_lm")
 
 
 def main(argv=None) -> int:
@@ -2788,6 +3052,8 @@ def main(argv=None) -> int:
         phase_bert(fa, dev)
     if "vit" in phases:
         phase_vit(fa, dev)
+    if "gpt_lm" in phases:
+        phase_gpt_lm(fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

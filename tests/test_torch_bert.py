@@ -154,8 +154,8 @@ def test_bert_base_parameter_count():
 
 
 def test_unported_fields_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        bert.bert_tiny_test(device="cpu", remat=True)
+    with pytest.raises(NotImplementedError, match="use_bias"):
+        bert.bert_tiny_test(device="cpu", use_bias=False)
     with pytest.raises(NotImplementedError, match="fused_qkv"):
         bert.bert_tiny_test(device="cpu", fused_qkv=True)
 
@@ -279,9 +279,9 @@ def test_entry_point_trains_and_resumes_on_the_cpu(tmp_path):
     state, metrics = bert_mlm.main(argv + ["--max-steps", "2"])
     assert state.step == 2 and np.isfinite(float(metrics["loss"]))
     assert set(metrics) == {"loss", "mlm_accuracy", "grad_norm"}
-    state, metrics = bert_mlm.main(argv + ["--max-steps", "3"])
+    state, metrics = bert_mlm.main(argv + ["--max-steps", "3", "--remat"])
     assert state.step == 3
     with pytest.raises(RuntimeError, match="CUDA"):
         bert_mlm.main(["--tiny", "--max-steps", "1"])
     with pytest.raises(SystemExit):
-        bert_mlm.main(["--tiny", "--device", "cpu", "--remat"])
+        bert_mlm.main(["--tiny", "--device", "cpu", "--fake-devices", "8"])

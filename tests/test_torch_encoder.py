@@ -115,8 +115,8 @@ def test_dropout_is_off_outside_training_and_drawn_from_the_generator():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("remat", True), ("fused_qkv", True), ("window", 4),
-    ("num_kv_heads", 2), ("num_experts", 4), ("norm", "rms")])
+    ("mlp_act", "swiglu"), ("fused_qkv", True), ("qk_norm", True),
+    ("rolling_cache", True), ("num_experts", 4), ("norm", "rms")])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         Encoder(1, 32, 4, 8, 64, torch.float32, device="cpu",

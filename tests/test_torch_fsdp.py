@@ -20,7 +20,10 @@ Every two-rank run of this file shares one spawn (`testing.jobs_worker`):
   bits, which are also the mirrored Estimator's; `evaluate` gives the
   mirrored Estimator's metrics;
 - the all-gathers and reduce-scatters of one step, counted by
-  torch.profiler.
+  torch.profiler;
+- under `remat`, whose recompute runs inside FSDP2's pre-backward
+  gathering, the same steps give the same bits as without it, with the
+  collectives a step counted again.
 """
 
 import functools
@@ -119,6 +122,10 @@ def runs(tmp_path_factory):
             str(root / "e"), *est, EST_STEPS, EST_SAVE),
             {"strategy": "MultiWorkerMirroredStrategy"}),
         "collectives": ("fsdp_collectives", (_batches()[0],), {}),
+        "fsdp_remat": ("train_vit", ({"remat": "full"}, initial,
+                                     _batches(), SCHEDULE, WD), {}),
+        "collectives_remat": ("fsdp_collectives",
+                              (_batches()[0], {"remat": "full"}), {}),
     }
     out = testing.run_ranks(testing.jobs_worker,
                             [(2, str(root / "store"), list(jobs.values()))]
@@ -238,6 +245,19 @@ def test_fsdp_collectives_a_step(runs):
     for counts in runs["collectives"]:
         assert counts == {"c10d::_allgather_base_": 2 * depth + 1,
                           "c10d::_reduce_scatter_base_": depth + 1}
+
+
+def test_fsdp_under_remat_gives_the_same_bits(runs):
+    for plain, remat in zip(runs["fsdp"], runs["fsdp_remat"]):
+        assert remat["history"] == plain["history"]
+        assert _same_bits(remat["state_dict"], plain["state_dict"])
+
+
+def test_fsdp_collectives_a_step_under_remat(runs):
+    """The recompute runs while FSDP2 holds each block gathered for its
+    backward: no collective is added to a step."""
+    for counts, plain in zip(runs["collectives_remat"], runs["collectives"]):
+        assert counts == plain
 
 
 def test_fsdp_at_one_process_is_the_unsharded_model():

@@ -107,8 +107,8 @@ def test_prefill_and_per_row_decode_match_jax(pair, impl):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("position", "rope"), ("num_kv_heads", 2), ("fused_qkv", True),
-    ("quant", "int8"), ("sliding_window", 8), ("paged_blocks", 16),
+    ("mlp_act", "swiglu"), ("qk_norm", True), ("fused_qkv", True),
+    ("quant", "int8"), ("rolling_cache", True), ("paged_blocks", 16),
     ("kv_quant", "int8"), ("num_experts", 4), ("norm", "rms"),
     ("attn_logit_cap", 30.0),
 ])

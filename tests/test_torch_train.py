@@ -338,7 +338,7 @@ def test_gpt_lm_runs_on_cuda_unless_asked_for_the_cpu():
         gpt_lm.main(["--tiny", "--max-steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--pipeline", "2"], ["--packed"],
+@pytest.mark.parametrize("flag", [["--pipeline", "2"], ["--moe", "4"],
                                   ["--generate", "4"]])
 def test_gpt_lm_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:

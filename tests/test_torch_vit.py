@@ -96,8 +96,8 @@ def test_vit_b16_parameter_count():
 
 
 def test_unported_fields_and_bad_sizes_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        vit.vit_tiny_test(device="cpu", remat=True)
+    with pytest.raises(NotImplementedError, match="use_bias"):
+        vit.vit_tiny_test(device="cpu", use_bias=False)
     with pytest.raises(ValueError, match="patch_size"):
         vit.vit_tiny_test(device="cpu", image_size=30)
     with pytest.raises(ValueError, match="pool"):
@@ -133,9 +133,11 @@ def test_entry_point_stream_is_the_jax_examples(use_native):
 def test_entry_point_trains_the_tiny_model_on_the_cpu():
     state = imagenet_vit.main([
         "--tiny", "--device", "cpu", "--image-size", "32", "--max-steps",
-        "2", "--batch-size", "16", "--train-examples", "64"])
+        "2", "--batch-size", "16", "--train-examples", "64", "--remat",
+        "dots"])
     assert state.step == 2
     with pytest.raises(RuntimeError, match="CUDA"):
         imagenet_vit.main(["--tiny", "--max-steps", "1"])
     with pytest.raises(SystemExit):
-        imagenet_vit.main(["--tiny", "--device", "cpu", "--remat"])
+        imagenet_vit.main(["--tiny", "--device", "cpu", "--fake-devices",
+                           "8"])

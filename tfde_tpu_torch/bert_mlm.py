@@ -25,8 +25,9 @@ does the differentiation, the global normalisation and the update:
     TFDE_NUM_PROCESSES=2 TFDE_PROCESS_ID=<r> TFDE_COORDINATOR=host0:2222 \\
         python -m tfde_tpu_torch.bert_mlm                           # each host
 
-The JAX example's ``--remat`` and ``--fake-devices`` are not ported; an
-unknown flag is an error.
+``--remat [full|dots]`` checkpoints each encoder block (the flash forward
+runs again in the backward). The JAX example's ``--fake-devices`` is not
+ported; an unknown flag is an error.
 """
 
 from __future__ import annotations
@@ -97,6 +98,11 @@ def main(argv=None):
     parser.add_argument("--tiny", action="store_true",
                         help="the CI-sized model; its head dim 8 takes the "
                              "reference attention on either device")
+    parser.add_argument("--remat", nargs="?", const="full", default=False,
+                        choices=["full", "dots"],
+                        help="checkpoint each block: bare --remat recomputes "
+                             "everything; '--remat dots' saves the GEMMs' "
+                             "outputs and recomputes the rest")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the random weights")
@@ -105,8 +111,8 @@ def main(argv=None):
     info = bootstrap(device=args.device)
     device = resolve_device(args.device)
     global_batch = args.batch_size * max(info.num_processes, 1)
-    model = (bert_tiny_test if args.tiny else BertBase)(device=device,
-                                                        seed=args.seed)
+    model = (bert_tiny_test if args.tiny else BertBase)(
+        device=device, seed=args.seed, remat=args.remat)
     vocab = model.vocab_size
     # the last id is [MASK], so the synthetic streams never produce it
     cfg = MlmConfig(vocab_size=vocab - 1, mask_id=vocab - 1)

@@ -5,17 +5,25 @@ Trains GPT-2 small (or the tiny CI config) from random weights made from
 `--seed`, with fp32 master weights and bf16 compute, masked AdamW (weight
 decay 0.1) under a linear-warmup cosine schedule, and the next-token
 loss, on the synthetic Markov corpus (`data.datasets.synthetic_tokens`).
-Every attention call runs the CUDA flash forward and its gradient the
-CUDA backward pair. Runs on CUDA by default:
+Every unmasked attention call runs the CUDA flash forward and its
+gradient the CUDA backward pair. Model options: `--rope` (rotary
+positions, no wpe table), `--kv-heads N` (grouped-query attention),
+`--sliding-window N`, `--remat [full|dots]` (each block checkpointed:
+the flash forward runs again in the backward). `--packed` trims the
+corpus's rows to document lengths drawn by `default_rng(7)` and packs
+them (`data.packing`): the segment mask sends attention to the reference
+einsum, and the loss is `packed_next_token_loss`; it does not compose
+with `--sliding-window`. Runs on CUDA by default:
 
     python -m tfde_tpu_torch.gpt_lm --seq-len 1024 --batch-size 8 --max-steps 20
+    python -m tfde_tpu_torch.gpt_lm --rope --kv-heads 4 --sliding-window 256 \\
+        --remat --seq-len 1024 --batch-size 8 --max-steps 20
     python -m tfde_tpu_torch.gpt_lm --tiny --device cpu --max-steps 3 \\
-        --batch-size 4 --seq-len 16 --train-examples 64
+        --batch-size 4 --seq-len 16 --train-examples 64 --packed --rope
 
-The JAX example's strategies and model options (--seq-parallel,
---pipeline, --moe, --packed, --kv-heads, --rope, --sliding-window,
---remat, --generate, ...) are not ported yet; an unknown flag is an
-error.
+The JAX example's strategies and other options (--seq-parallel,
+--pipeline, --tensor, --moe, --generate, --beams, --export-generate,
+--fake-devices, ...) are not ported yet; an unknown flag is an error.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from tfde_tpu_torch.data import datasets
+from tfde_tpu_torch.data.packing import pack_documents, packed_next_token_loss
 from tfde_tpu_torch.models.gpt import GPT2Small, gpt_tiny_test, next_token_loss
 from tfde_tpu_torch.training.optimizers import (
     adamw, warmup_cosine_decay_schedule)
@@ -51,33 +60,68 @@ def main(argv=None):
                         help="the tiny CI config instead of GPT-2 small; its "
                              "head dim 8 runs with --device cpu only (the "
                              "CUDA flash kernels take head dims 64 and 128)")
+    parser.add_argument("--packed", action="store_true",
+                        help="pack variable-length synthetic documents into "
+                             "fixed rows with block-diagonal attention and "
+                             "a boundary-masked loss")
+    parser.add_argument("--kv-heads", type=int, default=0,
+                        help="grouped-query attention: KV heads per layer "
+                             "(0 = classic MHA)")
+    parser.add_argument("--rope", action="store_true",
+                        help="rotary position embeddings instead of the "
+                             "learned GPT-2 table")
+    parser.add_argument("--sliding-window", type=int, default=0,
+                        help="each position attends the last N only")
+    parser.add_argument("--remat", nargs="?", const="full", default=False,
+                        choices=["full", "dots"])
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the random weights")
     args = parser.parse_args(argv)
 
+    if args.packed and args.sliding_window > 0:
+        raise ValueError("--packed doesn't compose with --sliding-window")
     device = resolve_device(args.device)
-    model = (gpt_tiny_test if args.tiny else GPT2Small)(device=device,
-                                                        seed=args.seed)
-    if args.seq_len > model.max_position:
+    model_kw = {"remat": args.remat}
+    if args.rope:
+        model_kw["position"] = "rope"
+    if args.kv_heads > 0:
+        model_kw["num_kv_heads"] = args.kv_heads
+    if args.sliding_window > 0:
+        model_kw["sliding_window"] = args.sliding_window
+    model = (gpt_tiny_test if args.tiny else GPT2Small)(
+        device=device, seed=args.seed, **model_kw)
+    if not args.rope and args.seq_len > model.max_position:
         raise ValueError(f"--seq-len {args.seq_len} exceeds the model's "
                          f"{model.max_position} positions")
     tokens = datasets.synthetic_tokens(args.train_examples, args.seq_len,
                                        vocab=model.vocab_size)
+    seg = None
+    if args.packed:
+        # each row an independent Markov sequence trimmed to a document
+        # length, as the JAX example draws them
+        lengths = np.random.default_rng(7).integers(
+            args.seq_len // 4, args.seq_len, args.train_examples)
+        docs = [tokens[i, :int(n)] for i, n in enumerate(lengths)]
+        tokens, seg = pack_documents(docs, args.seq_len)
+        log.info("packed %d docs into %d rows (fill %.0f%%)", len(docs),
+                 len(tokens), 100 * (seg > 0).mean())
     schedule = warmup_cosine_decay_schedule(
         0.0, args.learning_rate,
         warmup_steps=min(args.warmup_steps, max(args.max_steps - 1, 1)),
         decay_steps=args.max_steps)
     state = init_state(model, adamw(model, schedule, weight_decay=0.1))
-    step_fn = make_custom_train_step(next_token_loss,
-                                     grad_accum=args.grad_accum)
+    step_fn = make_custom_train_step(
+        packed_next_token_loss if args.packed else next_token_loss,
+        grad_accum=args.grad_accum)
     generator = torch.Generator(device=device).manual_seed(1)
+    arrays = (tokens,) if seg is None else (tokens, seg)
     nrng = np.random.default_rng(0)
     t0, since = time.perf_counter(), 0
     metrics = {}
     for step in range(args.max_steps):
         idx = nrng.integers(0, len(tokens), args.batch_size)
-        batch = (torch.as_tensor(tokens[idx], device=device),)
+        batch = tuple(torch.as_tensor(a[idx], device=device) for a in arrays)
         state, metrics = step_fn(state, batch, generator)
         if (step + 1) % 100 == 0 or step + 1 == args.max_steps:
             vals = {k: float(v) for k, v in metrics.items()}  # syncs

@@ -29,8 +29,9 @@ FSDP2), and the global batch splits over data x fsdp.
     TFDE_NUM_PROCESSES=2 TFDE_PROCESS_ID=<r> TFDE_COORDINATOR=host0:2222 \\
         python -m tfde_tpu_torch.imagenet_vit                       # each host
 
-The JAX example's ``--remat`` and ``--fake-devices`` are not ported; an
-unknown flag is an error.
+``--remat [full|dots]`` checkpoints each encoder block (the flash forward
+runs again in the backward). The JAX example's ``--fake-devices`` is not
+ported; an unknown flag is an error.
 """
 
 from __future__ import annotations
@@ -102,6 +103,11 @@ def main(argv=None):
     parser.add_argument("--tiny", action="store_true",
                         help="the CI-sized model; its head dim 8 takes the "
                              "reference attention on either device")
+    parser.add_argument("--remat", nargs="?", const="full", default=False,
+                        choices=["full", "dots"],
+                        help="checkpoint each block: bare --remat recomputes "
+                             "everything; '--remat dots' saves the GEMMs' "
+                             "outputs and recomputes the rest")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the random weights")
@@ -118,11 +124,11 @@ def main(argv=None):
     if args.tiny:
         model = vit_tiny_test(num_classes=num_classes,
                               image_size=args.image_size, device=device,
-                              seed=args.seed)
+                              seed=args.seed, remat=args.remat)
     else:
         model = ViT_B16(num_classes=num_classes, dropout_rate=0.1,
                         image_size=args.image_size, device=device,
-                        seed=args.seed)
+                        seed=args.seed, remat=args.remat)
     tx = adamw(model, schedule, weight_decay=args.weight_decay)
     strategy = FSDPStrategy(data=args.data)
     use_native = native.available()

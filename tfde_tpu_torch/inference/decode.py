@@ -11,15 +11,19 @@
 - `generate`: the solo oracle — one prefill at index 0, then one decode
   step per token with EOS masking; PyTorch runs eagerly, so the JAX scan
   is a Python loop.
+- `remat_off`: serves a remat-trained model (the JAX `_decode_clone`'s
+  remat=False); decode itself refuses remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from tfde_tpu_torch.models.transformer import Encoder
 from tfde_tpu_torch.utils.devices import resolve_device
 
 _NEG = torch.finfo(torch.float32).min
@@ -60,12 +64,14 @@ class KVCache:
 
 def validate_budget(model, prompt_len: int, max_new_tokens: int) -> int:
     """prompt_len + max_new_tokens, checked against the learned position
-    table's length."""
+    table's length (a rotary model has no table: its budget is bounded
+    by memory only)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     total = prompt_len + max_new_tokens
     max_pos = getattr(model, "max_position", None)
-    if max_pos is not None and total > max_pos:
+    if (max_pos is not None and total > max_pos
+            and getattr(model, "position", "learned") != "rope"):
         raise ValueError(
             f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) = "
             f"{total} exceeds the model's max_position {max_pos}")
@@ -74,14 +80,31 @@ def validate_budget(model, prompt_len: int, max_new_tokens: int) -> int:
 
 def init_cache(model, batch_size: int, max_len: int) -> KVCache:
     """Zero-filled cache for a [batch_size, max_len] generation budget on
-    the model's device, index 0."""
-    shape = (batch_size, max_len, model.num_heads, model.head_dim)
+    the model's device, index 0: [batch_size, max_len, KV heads, D] a
+    layer."""
+    shape = (batch_size, max_len, model.kv_heads, model.head_dim)
 
     def slab():
         return torch.zeros(shape, dtype=model.dtype, device=model.device)
 
     return KVCache([slab() for _ in range(model.depth)],
                    [slab() for _ in range(model.depth)], 0)
+
+
+@contextlib.contextmanager
+def remat_off(model):
+    """Every `Encoder` of `model` with remat off for the duration, then as
+    it was: remat only shapes the backward, which decode does not have,
+    so a model trained with it serves as the same function."""
+    encoders = [m for m in model.modules() if isinstance(m, Encoder)]
+    saved = [e.remat for e in encoders]
+    for e in encoders:
+        e.remat = None
+    try:
+        yield model
+    finally:
+        for e, remat in zip(encoders, saved):
+            e.remat = remat
 
 
 def filter_logits(logits: torch.Tensor, temperature: float = 1.0,
@@ -163,44 +186,46 @@ def generate(model, prompt, max_new_tokens: int,
     if model.device != device:
         raise ValueError(f"model is on {model.device}, generate was asked "
                          f"for {device}")
-    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
-                             device=device)
-    b, p = prompt.shape
-    total = validate_budget(model, p, max_new_tokens)
-    cache = init_cache(model, b, total)
-    sample = dict(generator=generator, temperature=temperature, top_k=top_k,
-                  top_p=top_p, min_p=min_p,
-                  repetition_penalty=repetition_penalty)
-    rows = torch.arange(b, device=device)
-    seen = None
-    if repetition_penalty != 1.0:
-        seen = torch.zeros((b, model.vocab_size), dtype=torch.bool,
-                           device=device)
-        seen[rows[:, None], prompt] = True
-    logits = model(prompt, cache=cache)[:, -1]
-    tok = sample_logits(logits, seen=seen, **sample)
-    if seen is not None:
-        seen[rows, tok] = True
-    done = (tok == eos_id) if eos_id is not None else torch.zeros(
-        b, dtype=torch.bool, device=device)
-    new = [tok]
-    for _ in range(max_new_tokens - 1):
-        logits = model(tok[:, None], cache=cache)[:, -1]
-        nxt = sample_logits(logits, seen=seen, **sample)
-        if eos_id is not None:
-            nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-            done = done | (nxt == eos_id)
+    with remat_off(model):
+        prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                                 device=device)
+        b, p = prompt.shape
+        total = validate_budget(model, p, max_new_tokens)
+        cache = init_cache(model, b, total)
+        sample = dict(generator=generator, temperature=temperature,
+                      top_k=top_k, top_p=top_p, min_p=min_p,
+                      repetition_penalty=repetition_penalty)
+        rows = torch.arange(b, device=device)
+        seen = None
+        if repetition_penalty != 1.0:
+            seen = torch.zeros((b, model.vocab_size), dtype=torch.bool,
+                               device=device)
+            seen[rows[:, None], prompt] = True
+        logits = model(prompt, cache=cache)[:, -1]
+        tok = sample_logits(logits, seen=seen, **sample)
         if seen is not None:
-            seen[rows, nxt] = True
-        new.append(nxt)
-        tok = nxt
-    new_tokens = torch.stack(new, dim=1)
-    tokens = torch.cat([prompt, new_tokens], dim=1)
-    if eos_id is None:
-        lengths = torch.full((b,), total, dtype=torch.int64, device=device)
-    else:
-        # a position counts while no EOS appeared strictly before it
-        is_eos = (new_tokens == eos_id).long()
-        seen_before = torch.cumsum(is_eos, dim=1) - is_eos
-        lengths = p + (seen_before == 0).long().sum(dim=1)
-    return tokens, lengths
+            seen[rows, tok] = True
+        done = (tok == eos_id) if eos_id is not None else torch.zeros(
+            b, dtype=torch.bool, device=device)
+        new = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits = model(tok[:, None], cache=cache)[:, -1]
+            nxt = sample_logits(logits, seen=seen, **sample)
+            if eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+                done = done | (nxt == eos_id)
+            if seen is not None:
+                seen[rows, nxt] = True
+            new.append(nxt)
+            tok = nxt
+        new_tokens = torch.stack(new, dim=1)
+        tokens = torch.cat([prompt, new_tokens], dim=1)
+        if eos_id is None:
+            lengths = torch.full((b,), total, dtype=torch.int64,
+                                 device=device)
+        else:
+            # a position counts while no EOS appeared strictly before it
+            is_eos = (new_tokens == eos_id).long()
+            seen_before = torch.cumsum(is_eos, dim=1) - is_eos
+            lengths = p + (seen_before == 0).long().sum(dim=1)
+        return tokens, lengths

@@ -48,6 +48,7 @@ import torch
 from tfde_tpu_torch.inference.decode import (
     KVCache,
     init_cache,
+    remat_off,
     sample_logits,
     validate_budget,
 )
@@ -418,7 +419,12 @@ class ContinuousBatcher(_BatcherBase):
     def step(self) -> list:
         """Admit into free rows, run one decode round (up to `scan_depth`
         ticks); returns [(request_id, tokens 1-D np.int32), ...] that
-        finished now."""
+        finished now. A remat-trained model serves with remat off
+        (`decode.remat_off`)."""
+        with remat_off(self._model):
+            return self._step()
+
+    def _step(self) -> list:
         finished = self._admit()
         active = [r for r in range(self._b) if self._req[r] is not None]
         if not active:

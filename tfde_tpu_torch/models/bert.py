@@ -16,8 +16,9 @@ query`, `mlm_dense`, `mlm_ln`, `mlm_bias`; the classifier's `pooler`
 and `classifier`), so `models.flax_weights.from_flax_params` loads a JAX
 tree as it is. Weights are initialised from `seed` with flax's default
 initialisers; dropout draws from the `generator` the forward is given.
-The JAX fields `remat` and `fused_qkv` raise NotImplementedError when
-set (`transformer._UNPORTED`).
+`remat` checkpoints each encoder block (`transformer.Encoder`); the JAX
+field `fused_qkv` raises NotImplementedError when set
+(`transformer._UNPORTED`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from torch import nn
 
 from tfde_tpu_torch.models.cnn import dropout
 from tfde_tpu_torch.models.transformer import (
-    Dense, Encoder, LayerNorm, init_flax_)
+    Dense, Encoder, LayerNorm, check_unported, init_flax_)
 from tfde_tpu_torch.ops.attention import padding_mask
 from tfde_tpu_torch.utils.devices import resolve_device
 
@@ -81,6 +82,8 @@ class _Trunk(nn.Module):
                  attn_impl: str = "auto", pad_vocab: bool = False,
                  ln_eps: float = 1e-6, device=None, **fields):
         super().__init__()
+        remat = fields.pop("remat", False)
+        check_unported(type(self).__name__, fields)
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} must divide by "
                              f"num_heads {num_heads}")
@@ -97,7 +100,7 @@ class _Trunk(nn.Module):
                                hidden_size // num_heads, mlp_dim, dtype,
                                attn_impl=attn_impl, ln_eps=ln_eps,
                                norm_style="post", dropout_rate=dropout_rate,
-                               device=device, **fields)
+                               remat=remat, device=device)
 
     @property
     def padded_vocab(self) -> int:

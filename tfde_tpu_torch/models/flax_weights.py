@@ -9,7 +9,8 @@ numpy arrays — this module never imports flax or jax) goes through
 - LayerNorm `scale` / `bias`        -> `weight` / `bias`
 - Dense `kernel` [in, out]          -> Linear `weight` [out, in]
 - Conv `kernel` HWIO [kh, kw, in, out] -> Conv2d `weight` OIHW
-- DenseGeneral q/k/v `kernel` [E, H, D] -> `weight` [H*D, E]
+- DenseGeneral q/k/v `kernel` [E, H, D] -> `weight` [H*D, E] (k/v
+  [E, Kv, D] -> [Kv*D, E] under grouped-query attention)
 - DenseGeneral `out` `kernel` [H, D, E] -> `weight` [E, H*D]
 - any `bias` [...]                  -> flattened
 - BatchNorm `batch_stats` `mean` / `var` -> buffers `running_mean` /

@@ -1,13 +1,16 @@
 """GPT-style causal LM — counterpart of `tfde_tpu/models/gpt.py`.
 
 Ported: the GPT-2 arrangement — token embedding `wte`, learned position
-table `wpe` (positions continue per row from the cache index), pre-LN
-blocks, final LayerNorm, and the tied head `x @ wte.T` computed in the
-compute dtype with fp32 logits (flax `Embed.attend`) — and the training
-objective `next_token_loss`. Every other field
-of the JAX `GPT` raises NotImplementedError when set away from its
-default (`_UNPORTED`), so a configuration the port does not implement is
-never served as a different model.
+table `wpe` (positions continue per row from the cache index) or rotary
+positions (`position='rope'`: no table, q and k rotated inside each
+layer), pre-LN blocks, final LayerNorm, and the tied head `x @ wte.T`
+computed in the compute dtype with fp32 logits (flax `Embed.attend`) —
+with grouped-query attention (`num_kv_heads`), the sliding window
+(`sliding_window`, `sliding_window_pattern`), `remat` and sequence
+packing (`segment_ids`), and the training objective `next_token_loss`.
+Every other field of the JAX `GPT` raises NotImplementedError when set
+away from its default (`_UNPORTED`), so a configuration the port does not
+implement is never served as a different model.
 """
 
 from __future__ import annotations
@@ -26,14 +29,11 @@ from tfde_tpu_torch.utils.devices import resolve_device
 #: JAX `GPT` fields outside this slice, with the default the port implements
 _UNPORTED = {
     "dropout_rate": 0.0,
-    "remat": False,
     "fused_qkv": False,
     "num_experts": 0,
     "rolling_cache": False,
     "paged_blocks": None,
     "kv_quant": None,
-    "position": "learned",
-    "num_kv_heads": None,
     "norm": "layer",
     "mlp_act": "gelu",
     "use_bias": True,
@@ -45,7 +45,6 @@ _UNPORTED = {
     "head_dim": None,
     "tie_embeddings": True,
     "quant": None,
-    "sliding_window": None,
     "attn_scale": None,
     "attn_logit_cap": None,
     "final_logit_cap": None,
@@ -64,6 +63,11 @@ class GPT(nn.Module):
                  max_position: int = 1024,
                  dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "auto", ln_eps: float = 1e-6,
+                 position: str = "learned", rope_theta: float = 10_000.0,
+                 rope_scaling=None, rope_dim: Optional[int] = None,
+                 num_kv_heads: Optional[int] = None,
+                 sliding_window: Optional[int] = None,
+                 sliding_window_pattern: str = "all", remat=False,
                  device=None, seed: int = 0, **fields):
         super().__init__()
         for name, value in fields.items():
@@ -76,6 +80,9 @@ class GPT(nn.Module):
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} must divide by "
                              f"num_heads {num_heads}")
+        if position not in ("learned", "rope"):
+            raise ValueError(
+                f"position must be 'learned' or 'rope', got {position!r}")
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -85,11 +92,19 @@ class GPT(nn.Module):
         self.mlp_dim = mlp_dim
         self.max_position = max_position
         self.dtype = dtype
+        self.position = position
+        self.kv_heads = num_kv_heads or num_heads
+        self.sliding_window = sliding_window
         self.wte = nn.Embedding(vocab_size, hidden_size, device=device)
-        self.wpe = nn.Embedding(max_position, hidden_size, device=device)
-        self.decoder = Encoder(depth, hidden_size, num_heads, self.head_dim,
-                               mlp_dim, dtype, attn_impl=attn_impl,
-                               ln_eps=ln_eps, causal=True, device=device)
+        self.wpe = (nn.Embedding(max_position, hidden_size, device=device)
+                    if position == "learned" else None)
+        self.decoder = Encoder(
+            depth, hidden_size, num_heads, self.head_dim, mlp_dim, dtype,
+            attn_impl=attn_impl, ln_eps=ln_eps, causal=True,
+            window=sliding_window, window_pattern=sliding_window_pattern,
+            remat=remat, rope=position == "rope", rope_theta=rope_theta,
+            rope_scaling=rope_scaling, rope_dim=rope_dim,
+            num_kv_heads=num_kv_heads, device=device)
         self.init_weights_(torch.Generator(device=device).manual_seed(seed))
 
     @property
@@ -125,19 +140,41 @@ class GPT(nn.Module):
         for block in self.decoder.blocks():
             block.attn.attn_impl = impl
 
-    def hidden(self, input_ids: torch.Tensor, cache=None) -> torch.Tensor:
+    def hidden(self, input_ids: torch.Tensor, cache=None,
+               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, S] ids -> [B, S, E] final-LayerNorm states (fp32). With a
         cache, positions continue from `cache.index` (an int, or a [B]
-        tensor of per-row positions) and the index advances by S."""
+        tensor of per-row positions) and the index advances by S.
+
+        `segment_ids` [B, S] (sequence packing, data/packing.py): a token
+        attends only within its own segment, the [B, 1, S, S] mask
+        `seg_q == seg_k` composed with the causal triangle inside
+        attention (padding is segment 0 and attends only padding, so its
+        softmax rows stay finite); the masked attention takes the
+        reference einsum. Positions stay the row's: exact per document
+        under rope, offset but consistent for learned positions."""
+        mask = None
+        if segment_ids is not None:
+            if cache is not None:
+                raise NotImplementedError(
+                    "segment_ids (sequence packing) is a training-side "
+                    "capability; the decode cache has no segment plane")
+            if self.sliding_window is not None:
+                raise NotImplementedError(
+                    "segment_ids does not compose with sliding_window yet "
+                    "(the band would need per-segment offsets)")
+            seg = segment_ids.to(torch.int32)
+            mask = seg[:, None, :, None] == seg[:, None, None, :]
         s = input_ids.shape[1]
-        positions = torch.arange(s, device=input_ids.device)
-        if cache is not None:
-            idx = cache.index
-            positions = (idx + positions if isinstance(idx, int)
-                         else idx[:, None] + positions)
-        x = (self.wte(input_ids).to(self.dtype)
-             + self.wpe(positions).to(self.dtype))
-        x = self.decoder(x, cache)
+        x = self.wte(input_ids).to(self.dtype)
+        if self.wpe is not None:
+            positions = torch.arange(s, device=input_ids.device)
+            if cache is not None:
+                idx = cache.index
+                positions = (idx + positions if isinstance(idx, int)
+                             else idx[:, None] + positions)
+            x = x + self.wpe(positions).to(self.dtype)
+        x = self.decoder(x, cache, mask=mask)
         if cache is not None:
             cache.advance(s)
         return x
@@ -147,8 +184,9 @@ class GPT(nn.Module):
         return F.linear(h.to(self.dtype),
                         self.wte.weight.to(self.dtype)).float()
 
-    def forward(self, input_ids: torch.Tensor, cache=None) -> torch.Tensor:
-        return self.head(self.hidden(input_ids, cache))
+    def forward(self, input_ids: torch.Tensor, cache=None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.head(self.hidden(input_ids, cache, segment_ids))
 
 
 GPT2Small = functools.partial(

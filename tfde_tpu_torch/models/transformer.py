@@ -1,9 +1,10 @@
 """Transformer blocks — counterpart of `tfde_tpu/models/transformer.py`.
 
-Ported: `MultiHeadAttention` (MHA, learned positions, with the dense
-decode cache: the scalar-index prefill branch and the per-row-index
-branch), `Mlp` (tanh gelu), `TransformerBlock` and `Encoder`, with the
-options the GPT, BERT and ViT configurations use: `causal` (False by
+Ported: `MultiHeadAttention` (with the dense decode cache: the
+scalar-index prefill branch and the per-row-index branch; rotary
+positions, grouped-query attention and the sliding window), `Mlp` (tanh
+gelu), `TransformerBlock` and `Encoder` (`window_pattern`, `remat`), with
+the options the GPT, BERT and ViT configurations use: `causal` (False by
 default, as in JAX; GPT passes True), an optional attention `mask`
 (True = attend, broadcastable to [B, H, S, S]), `norm_style` 'pre'
 (x + MHA(LN(x)); x + MLP(LN(x)), then a final LayerNorm) or 'post'
@@ -28,28 +29,24 @@ batcher's decode ticks).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from tfde_tpu_torch.models.cnn import _init_flax_, dropout
 from tfde_tpu_torch.ops import attention as attn_lib
+from tfde_tpu_torch.ops.rotary import apply_rotary
 
 #: JAX `TransformerBlock`/`Encoder` fields outside the port, with the
 #: default the port implements
 _UNPORTED = {
-    "remat": False,
     "fused_qkv": False,
-    "rope": False,
-    "rope_theta": 10_000.0,
-    "rope_scaling": None,
-    "rope_dim": None,
-    "num_kv_heads": None,
     "quant": None,
-    "window": None,
-    "window_pattern": "all",
     "rolling_cache": False,
     "paged_blocks": None,
     "kv_block": 16,
@@ -69,6 +66,11 @@ _UNPORTED = {
     "router_z_loss_weight": 0.0,
     "moe_every": 2,
 }
+
+#: the `MultiHeadAttention` fields `TransformerBlock` and `Encoder` pass
+#: through (rope, grouped-query attention, the sliding window)
+ATTN_FIELDS = ("rope", "rope_theta", "rope_scaling", "rope_dim",
+               "num_kv_heads", "window")
 
 #: the block arrangements the port implements (JAX also has 'parallel',
 #: 'parallel2' and 'sandwich')
@@ -148,36 +150,62 @@ def init_flax_(model: nn.Module, generator: torch.Generator) -> None:
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with the dispatchable kernel (ops/attention.attention)
-    and, when causal, the dense decode cache; dropout on its output."""
+    and, when causal, the dense decode cache; dropout on its output.
+
+    `rope` rotates q and k (ops/rotary.apply_rotary, `rope_theta`,
+    `rope_scaling`, `rope_dim`) at their absolute positions before
+    attention and before the cache write. `num_kv_heads` (grouped-query
+    attention) makes `key`/`value` Kv * D wide; query head h reads KV head
+    h // (H / Kv), the layout of `grouped_attention` and of the kernels.
+    `window` (causal only) lets position i attend positions
+    (i - window, i]."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype, attn_impl: str = "auto",
                  causal: bool = False, dropout_rate: float = 0.0,
-                 device=None):
+                 rope: bool = False, rope_theta: float = 10_000.0,
+                 rope_scaling=None, rope_dim: Optional[int] = None,
+                 num_kv_heads: Optional[int] = None,
+                 window: Optional[int] = None, device=None):
         super().__init__()
+        kv_heads = num_kv_heads or num_heads
+        if kv_heads <= 0 or num_heads % kv_heads:
+            # (12 % -4 == 0 in Python: the sign check is needed)
+            raise ValueError(f"num_kv_heads={kv_heads} must be positive and "
+                             f"divide num_heads={num_heads}")
+        if window is not None and not causal:
+            raise ValueError(
+                f"window={window} requires causal attention (the sliding "
+                f"window is a band below the causal diagonal)")
         self.num_heads = num_heads
+        self.kv_heads = kv_heads
         self.head_dim = head_dim
         self.attn_impl = attn_impl
         self.causal = causal
         self.dropout_rate = dropout_rate
-        width = num_heads * head_dim
-        self.query = Dense(embed, width, dtype, device=device)
-        self.key = Dense(embed, width, dtype, device=device)
-        self.value = Dense(embed, width, dtype, device=device)
-        self.out = Dense(width, embed, dtype, device=device)
+        self.rope = rope
+        self.rope_theta = rope_theta
+        self.rope_scaling = (None if rope_scaling is None
+                             else tuple(rope_scaling))
+        self.rope_dim = rope_dim
+        self.window = window
+        self.query = Dense(embed, num_heads * head_dim, dtype, device=device)
+        self.key = Dense(embed, kv_heads * head_dim, dtype, device=device)
+        self.value = Dense(embed, kv_heads * head_dim, dtype, device=device)
+        self.out = Dense(num_heads * head_dim, embed, dtype, device=device)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         b, s, _ = x.shape
-        shape = (b, s, self.num_heads, self.head_dim)
-        q = self.query(x).view(shape)
-        k = self.key(x).view(shape)
-        v = self.value(x).view(shape)
+        q = self.query(x).view(b, s, self.num_heads, self.head_dim)
+        k = self.key(x).view(b, s, self.kv_heads, self.head_dim)
+        v = self.value(x).view(b, s, self.kv_heads, self.head_dim)
         if cache is None:
+            q, k = self._rotate(q, k, 0)
             y = attn_lib.attention(q, k, v, mask=mask, causal=self.causal,
-                                   impl=self.attn_impl)
+                                   impl=self.attn_impl, window=self.window)
         else:
             if not self.causal:
                 raise ValueError("decode requires causal attention")
@@ -189,16 +217,31 @@ class MultiHeadAttention(nn.Module):
         y = self.out(y.reshape(b, s, -1))
         return dropout(y, self.dropout_rate, train, generator)
 
+    def _rotate(self, q, k, start):
+        """q and k rotated at positions start + [0, S): `start` an int
+        (positions [S]) or a [B] tensor of per-row starts ([B, S]). A
+        cached key keeps the rotation of its write, so each call rotates
+        only its own tokens."""
+        if not self.rope:
+            return q, k
+        pos = torch.arange(q.shape[1], device=q.device)
+        pos = start + pos if isinstance(start, int) else start[:, None] + pos
+        return tuple(apply_rotary(t, pos, self.rope_theta,
+                                  rotary_dim=self.rope_dim,
+                                  scaling=self.rope_scaling) for t in (q, k))
+
     def _decode_attention(self, q, k, v, cache, layer: int) -> torch.Tensor:
-        """Write this call's K/V into the cache at `cache.index`, attend q
-        over the filled prefix under the validity mask `j <= index + i`.
+        """Rotate q/k at the cache positions, write this call's K/V into
+        the [B, max_len, Kv, D] cache at `cache.index`, attend q over the
+        filled prefix under the validity mask `j <= index + i` (and, with a
+        window, `index + i - j < window`).
 
         The write is in place (the JAX program's dynamic_update_slice
         without the copy of the whole cache); like
         dynamic_update_slice, a start past `max_len - S` is clamped.
 
         A shared index of 0 is a prefill into a fresh row cache: columns
-        past S are masked out, so the function is plain causal
+        past S are masked out, so the function is plain causal (windowed)
         self-attention over this call's own q/k/v — it goes through the
         dispatcher, and on a CUDA tensor to the flash kernel. Every other
         call (per-row decode ticks) is the masked einsum over the cache."""
@@ -209,8 +252,9 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(
                 f"input length {sq} exceeds the cache budget {max_len}; "
                 f"re-init the cache with a larger max_len")
-        k_w, v_w = k.to(keys.dtype), v.to(values.dtype)
         idx = cache.index
+        q, k = self._rotate(q, k, idx)
+        k_w, v_w = k.to(keys.dtype), v.to(values.dtype)
         cols = torch.arange(max_len, device=q.device)
         steps = torch.arange(sq, device=q.device)
         if isinstance(idx, int):
@@ -219,16 +263,21 @@ class MultiHeadAttention(nn.Module):
             values[:, start:start + sq] = v_w
             if idx == 0:
                 return attn_lib.attention(q, k_w, v_w, causal=True,
-                                          impl=self.attn_impl)
-            valid = (cols[None, :] <= (idx + steps)[:, None])[None, None]
+                                          impl=self.attn_impl,
+                                          window=self.window)
+            pos = (idx + steps)[None]  # [1, sq]
         else:
             start = idx.clamp(0, max_len - sq)
             rows = torch.arange(q.shape[0], device=q.device)[:, None]
             keys[rows, start[:, None] + steps] = k_w
             values[rows, start[:, None] + steps] = v_w
             pos = idx[:, None] + steps  # [B, sq]
-            valid = (cols[None, None, :] <= pos[:, :, None])[:, None]
-        return attn_lib.grouped_attention(q, keys, values, mask=valid)
+        ago = pos[:, :, None] - cols  # [B | 1, sq, max_len]
+        valid = ago >= 0
+        if self.window is not None:
+            valid = valid & (ago < self.window)
+        return attn_lib.grouped_attention(q, keys, values,
+                                          mask=valid[:, None])
 
 
 class Mlp(nn.Module):
@@ -253,7 +302,8 @@ class TransformerBlock(nn.Module):
     """Pre-LN (default): x + MHA(LN(x)); x + MLP(LN(x)), the LayerNorms'
     fp32 outputs cast to the compute dtype. `norm_style='post'`:
     LN(x + MHA(x)); LN(x + MLP(x)), each LayerNorm's output cast to the
-    compute dtype (the original BERT arrangement)."""
+    compute dtype (the original BERT arrangement). The attention fields
+    (`ATTN_FIELDS`) go to `MultiHeadAttention`."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int,
                  mlp_dim: int, dtype: torch.dtype, attn_impl: str = "auto",
@@ -261,6 +311,7 @@ class TransformerBlock(nn.Module):
                  norm_style: str = "pre", dropout_rate: float = 0.0,
                  device=None, **fields):
         super().__init__()
+        attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
         check_unported("TransformerBlock", fields)
         _check_norm_style(norm_style)
         self.dtype = dtype
@@ -269,7 +320,7 @@ class TransformerBlock(nn.Module):
         self.attn = MultiHeadAttention(embed, num_heads, head_dim, dtype,
                                        attn_impl=attn_impl, causal=causal,
                                        dropout_rate=dropout_rate,
-                                       device=device)
+                                       device=device, **attn_fields)
         self.ln_mlp = LayerNorm(embed, eps=ln_eps, device=device)
         self.mlp = Mlp(embed, mlp_dim, dtype, dropout_rate=dropout_rate,
                        device=device)
@@ -289,26 +340,67 @@ class TransformerBlock(nn.Module):
         return x + self.mlp(self.ln_mlp(x).to(self.dtype), train, generator)
 
 
+#: the GEMMs without batch dims (a `Dense` on [B, S, E] folds to one of
+#: these); under remat='dots' their outputs are saved and every other op
+#: is recomputed, attention included (jax.checkpoint_policies.
+#: dots_with_no_batch_dims_saveable: the Pallas kernel is no dot)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_mode(remat):
+    """None (no remat), 'full' (recompute the whole block in the backward)
+    or 'dots' (save the outputs of the GEMMs without batch dims, recompute
+    the rest) for the JAX `remat` values False | True/'full' | 'dots'."""
+    if not remat:
+        return None
+    if remat is True or remat == "full":
+        return "full"
+    if remat == "dots":
+        return "dots"
+    raise ValueError(
+        f"remat must be False, True, 'full', or 'dots'; got {remat!r}")
+
+
 class Encoder(nn.Module):
     """`depth` blocks (`block_0` ...) and, for pre-LN blocks, the final
     fp32 LayerNorm `ln_final` (post-LN blocks already end normalised, and
-    the JAX post-LN Encoder has none)."""
+    the JAX post-LN Encoder has none).
+
+    `window` reaches every block (`window_pattern='all'`) or the even ones
+    (`'alternate'`: the odd blocks attend in full, the Gemma-2
+    interleave). `remat` (`remat_mode`) checkpoints each block in training
+    with `torch.utils.checkpoint` (non-reentrant); decode refuses it."""
 
     def __init__(self, depth: int, embed: int, num_heads: int,
                  head_dim: int, mlp_dim: int, dtype: torch.dtype,
                  attn_impl: str = "auto", ln_eps: float = 1e-6,
                  causal: bool = False, norm_style: str = "pre",
-                 dropout_rate: float = 0.0, device=None, **fields):
+                 dropout_rate: float = 0.0, window: Optional[int] = None,
+                 window_pattern: str = "all", remat=False, device=None,
+                 **fields):
         super().__init__()
+        attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
         check_unported("Encoder", fields)
         _check_norm_style(norm_style)
+        if window_pattern not in ("all", "alternate"):
+            raise ValueError(f"window_pattern must be 'all' or 'alternate', "
+                             f"got {window_pattern!r}")
         self.depth = depth
+        self.dropout_rate = dropout_rate
+        self.remat = remat_mode(remat)
         for i in range(depth):
+            windowed = window_pattern == "all" or i % 2 == 0
             self.add_module(f"block_{i}", TransformerBlock(
                 embed, num_heads, head_dim, mlp_dim, dtype,
                 attn_impl=attn_impl, ln_eps=ln_eps, causal=causal,
                 norm_style=norm_style, dropout_rate=dropout_rate,
-                device=device))
+                window=window if windowed else None, device=device,
+                **attn_fields))
         self.ln_final = (LayerNorm(embed, eps=ln_eps, device=device)
                          if norm_style == "pre" else None)
 
@@ -319,6 +411,43 @@ class Encoder(nn.Module):
                 mask: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        if cache is not None and self.remat is not None:
+            raise ValueError(
+                "decode does not compose with remat: there is no backward "
+                "to recompute for (inference/decode.remat_off serves a "
+                "remat-trained model)")
         for i, block in enumerate(self.blocks()):
-            x = block(x, cache, i, mask, train, generator)
+            if self.remat is not None and torch.is_grad_enabled():
+                x = self._checkpointed(block, x, mask, train, generator)
+            else:
+                x = block(x, cache, i, mask, train, generator)
         return x if self.ln_final is None else self.ln_final(x)
+
+    def _checkpointed(self, block, x, mask, train, generator):
+        """`block` under `torch.utils.checkpoint`: its activations are
+        recomputed in the backward. Dropout draws from `generator`, whose
+        state checkpoint's `preserve_rng_state` (torch's default
+        generators only) does not restore: with dropout on, the block runs
+        on a private generator that starts from `generator`'s state in the
+        forward and again in the recompute, so both draw the same masks,
+        and `generator` then moves on to where the forward left it, as if
+        the block had drawn from it. The model draws from no default
+        generator, so checkpoint preserves none."""
+        kw = dict(use_reentrant=False, preserve_rng_state=False)
+        if self.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
+        if not (train and self.dropout_rate > 0 and generator is not None):
+            return checkpoint(block, x, None, 0, mask, train, generator, **kw)
+        start, end = generator.get_state(), []
+
+        def run(h):
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+            out = block(h, None, 0, mask, train, g)
+            end.append(g.get_state())
+            return out
+
+        x = checkpoint(run, x, **kw)
+        generator.set_state(end[0])
+        return x

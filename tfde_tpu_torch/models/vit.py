@@ -14,7 +14,8 @@ What differs from the JAX model: flax sizes `pos_embed` from the sample
 it is initialised on; here the constructor takes `image_size` (224 by
 default, as ViT-B/16 is published). Weights are initialised from `seed`
 with flax's default initialisers (`pos_embed` normal(0, 0.02), the cls
-token zero). The JAX fields `remat` and `fused_qkv` raise
+token zero). `remat` checkpoints each encoder block
+(`transformer.Encoder`); the JAX field `fused_qkv` raises
 NotImplementedError when set (`transformer._UNPORTED`).
 """
 
@@ -29,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tfde_tpu_torch.models.cnn import dropout
-from tfde_tpu_torch.models.transformer import Dense, Encoder, init_flax_
+from tfde_tpu_torch.models.transformer import (
+    Dense, Encoder, check_unported, init_flax_)
 from tfde_tpu_torch.utils.devices import resolve_device
 
 
@@ -42,8 +44,9 @@ class ViT(nn.Module):
                  mlp_dim: int = 3072, dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, pool: str = "cls",
                  attn_impl: str = "auto", image_size: int = 224,
-                 device=None, seed: int = 0, **fields):
+                 remat=False, device=None, seed: int = 0, **fields):
         super().__init__()
+        check_unported("ViT", fields)
         if pool not in ("cls", "gap"):
             raise ValueError(f"pool must be 'cls' or 'gap', got {pool!r}")
         if image_size % patch_size:
@@ -67,8 +70,8 @@ class ViT(nn.Module):
         self.encoder = Encoder(depth, embed_dim, num_heads,
                                embed_dim // num_heads, mlp_dim, dtype,
                                attn_impl=attn_impl,
-                               dropout_rate=dropout_rate, device=device,
-                               **fields)
+                               dropout_rate=dropout_rate, remat=remat,
+                               device=device)
         self.head = Dense(embed_dim, num_classes, self.head_dtype,
                           device=device)
         gen = torch.Generator(device=device).manual_seed(seed)

@@ -374,8 +374,9 @@ def _strategy(name: str, data: int = 1):
 
 def vit_model(spec: dict, device="cpu") -> torch.nn.Module:
     """`models.vit.vit_tiny_test` from a plain spec: ``pool`` ('cls' or
-    'gap'), ``dropout_rate``, ``image_size`` and ``dtype`` ('float32', or
-    'float64': an fp64 model with fp64 weights, the reference run)."""
+    'gap'), ``dropout_rate``, ``image_size``, ``remat`` and ``dtype``
+    ('float32', or 'float64': an fp64 model with fp64 weights, the
+    reference run)."""
     from tfde_tpu_torch.models import vit
 
     dtype = getattr(torch, spec.get("dtype", "float32"))
@@ -383,7 +384,8 @@ def vit_model(spec: dict, device="cpu") -> torch.nn.Module:
                     num_heads=4, mlp_dim=64, dtype=dtype,
                     pool=spec.get("pool", "cls"),
                     dropout_rate=spec.get("dropout_rate", 0.0),
-                    image_size=spec.get("image_size", 32), device=device)
+                    image_size=spec.get("image_size", 32),
+                    remat=spec.get("remat", False), device=device)
     return model.double() if dtype == torch.float64 else model
 
 
@@ -424,16 +426,16 @@ def train_vit(spec: dict, state_dict: dict, batches: Sequence[tuple],
             "local_numel": local, "opt_state_bytes": opt_state_bytes(tx)}
 
 
-def fsdp_collectives(batch: tuple) -> dict:
+def fsdp_collectives(batch: tuple, spec: Optional[dict] = None) -> dict:
     """{host op: calls} of the all-gathers and reduce-scatters of one
-    `make_train_step` step of `vit_model({})` under FSDPStrategy, under
-    torch.profiler (after one unprofiled step)."""
+    `make_train_step` step of `vit_model(spec or {})` under FSDPStrategy,
+    under torch.profiler (after one unprofiled step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tfde_tpu_torch.training.optimizers import adamw
     from tfde_tpu_torch.training.step import init_state, make_train_step
 
-    model = vit_model({})
+    model = vit_model(spec or {})
     state = init_state(model, adamw(model, 1e-3))
     step = make_train_step(_strategy("FSDPStrategy"), state)
     step(state, batch)
