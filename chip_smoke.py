@@ -176,7 +176,32 @@ without printing a result:
    against their plain versions, timed beside their band-aware bounds
    and SDPA (`enable_gqa`, the band as a boolean mask; timing only); then
    `bert_mlm.main --remat` for 10 steps on a one-rank NCCL group: 24
-   forward launches a step.
+   forward launches a step;
+15. hf_serve — converted checkpoints (`models/convert.py`, `serve_gpt
+   --hf-dir`): one small GPT per group of decoder fields
+   (`testing.FIELD_GROUPS`: Llama, Qwen3, Qwen2, Gemma-2, Phi at head dim
+   80, NeoX, BigCode with one KV head, OPT; random weights from seed 0)
+   through `save_converted` -> `load_converted`, its prefill logits on
+   the card (flash, once a layer) in fp32 and in bf16 against the same
+   artifact in fp32 on the CPU (`HF_TOL`), and the card's fp32 batcher's
+   greedy tokens against CPU `generate`; then Llama-3.2-1B and Qwen3-0.6B
+   at their published widths (`testing.FULL_WIDTH`, random weights from
+   seed 0, fp32 master weights) written with `save_converted` (seconds,
+   bytes), served by `serve_gpt.main(["--hf-dir", ...])` (16 requests),
+   loaded again (seconds) and served in bf16 behind a ContinuousBatcher
+   as in the serve phase (16 requests of 16-960 prompt tokens x 32; the
+   counters zeroed just before: one forward launch a layer a prefill
+   wave; tokens/s, mean TTFT, ms per output token, peak memory), one
+   wave's first-token logits flash vs reference (held in fp32,
+   `HF_WAVE_TOL`; in bf16 each path against the fp32 einsum, flash held
+   to `HF_BF16_RATIO` times the einsum's error), and the first four
+   requests' greedy tokens from the batcher against `generate` on the
+   card, held in fp32 (bf16's are counted: bf16 greedy decoding is not
+   batch-invariant); then the forward kernel at the two prefill shapes
+   ([1, 4096, 32 -> 8 KV heads, 64] and [1, 4096, 16 -> 8, 128], bf16,
+   causal) against its plain version, three timed calls beside the plain
+   version, SDPA (`enable_gqa`) and the bound. Every artifact lies under
+   build/ and is removed at the end.
 
 The last two lines are the kernels JSON line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -397,6 +422,12 @@ CASES = [
     # a window of one key (each row sees only itself) and a query group of
     # three, not a power of two
     ("window1_gqa3", 2, 300, 12, 4, 64, torch.bfloat16, True, 1, None, None),
+    # head dims the wrappers zero-pad to 128 (Phi-2's 80, Phi-3's 96 under
+    # GQA), and one KV head (multi-query: BigCode, Falcon-7B)
+    ("pad_d80", 2, 300, 32, 32, 80, torch.bfloat16, True, None, None, None),
+    ("pad_d96_gqa", 2, 257, 32, 8, 96, torch.bfloat16, True, None, None,
+     None),
+    ("mqa_kv1", 2, 300, 12, 1, 64, torch.bfloat16, True, None, None, None),
 ]
 
 #: the cases whose backward runs twice and must give the same bits (no
@@ -3002,9 +3033,301 @@ def phase_gpt_lm(fa, dev):
     return kernels
 
 
+#: hf_serve: the tolerances of the small-width parity — fp32 card logits
+#: (the fp32 kernel: the same sums in another order) and bf16 card logits
+#: (every GEMM output and the kernel's P rounded to bf16; 0.0067-0.0096
+#: measured for these configs in bf16 on the CPU) against fp32 CPU logits
+HF_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+#: hf_serve at full width: the first-token logits of one wave, flash
+#: against the reference einsum in fp32 (the same sums in another order),
+#: and in bf16 each path against the fp32 einsum on the same weights,
+#: flash held to this multiple of the bf16 einsum's own error. bf16 cannot be held to a
+#: fixed bound there: its rounding grows with depth (flash vs einsum
+#: 1.16e-2 at GPT-2 small's 12 layers, 2.88e-2 at Llama-3.2-1B's 16)
+HF_WAVE_TOL, HF_BF16_RATIO = 1e-4, 2.0
+#: the two prefill shapes of the full-width models, [B, S, H, D] and KV
+#: heads (Llama-3.2-1B, Qwen3-0.6B)
+HF_PREFILL = {"Llama-3.2-1B": ((1, 4096, 32, 64), 8),
+              "Qwen3-0.6B": ((1, 4096, 16, 128), 8)}
+
+
+def _hf_parity(fa, dev, root):
+    """One small GPT per field group (`testing.FIELD_GROUPS`, random
+    weights from seed 0) through `save_converted` -> `load_converted`: its
+    prefill logits on the card (flash, fp32 and bf16) against the same
+    artifact in fp32 on the CPU (plain attention), and the card's batcher
+    greedy tokens (fp32) against CPU `generate`."""
+    from tfde_tpu_torch.inference.decode import generate, init_cache
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.models.convert import load_converted, save_converted
+    from tfde_tpu_torch.models.gpt import GPT
+    from tfde_tpu_torch.testing import FIELD_GROUPS
+
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, 256, (3, 100))
+    prompts = [rng.integers(0, 256, p) for p in (5, 37, 3, 20)]
+    for group, (family, fields) in FIELD_GROUPS.items():
+        out = save_converted(GPT(**fields, device=dev, seed=0),
+                             os.path.join(root, group), family)
+        cpu = load_converted(out, dtype=torch.float32, device="cpu")
+        with torch.no_grad():
+            want = cpu(torch.as_tensor(ids), cache=init_cache(cpu, 3, 104))
+        rels, cards = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            card = cards[dtype] = load_converted(out, dtype=dtype, device=dev)
+            before = fa.flash_forward.launches
+            with torch.no_grad():
+                got = card(torch.as_tensor(ids, device=dev),
+                           cache=init_cache(card, 3, 104))
+            if fa.flash_forward.launches - before != card.depth:
+                raise AssertionError(f"hf_serve {group}: the prefill did not "
+                                     f"run the flash kernel once a layer")
+            rels[dtype] = _rel(got.cpu(), want)
+        srv = ContinuousBatcher(cards[torch.float32], batch_size=2,
+                                max_len=64, scan_depth=4, device=dev)
+        rids = [srv.submit(p, 12) for p in prompts]
+        done = dict(srv.run())
+        same = sum(int(np.array_equal(done[rid], generate(
+            cpu, p[None], 12, device="cpu")[0][0, p.size:].numpy()))
+            for rid, p in zip(rids, prompts))
+        ok = (all(r <= HF_TOL[d] for d, r in rels.items())
+              and same == len(prompts))
+        print(f"hf_serve parity {group} ({family}, head dim "
+              f"{cpu.head_dim}, {cpu.kv_heads} of {cpu.num_heads} KV "
+              f"heads): prefill logits vs CPU fp32, card fp32 rel "
+              f"{rels[torch.float32]:.3e} (tol {HF_TOL[torch.float32]:g}), "
+              f"card bf16 rel {rels[torch.bfloat16]:.3e} (tol "
+              f"{HF_TOL[torch.bfloat16]:g}); fp32 batcher == CPU generate "
+              f"for {same}/{len(prompts)} requests -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"hf_serve parity failed for {group}")
+
+
+def _hf_wave_logits(model, wave, dev) -> dict:
+    """{impl: first-token logits} of one prefill wave of `wave` (padded to
+    its power-of-two bucket, as the batcher pads it) with attn_impl flash
+    and reference."""
+    from tfde_tpu_torch.inference.decode import init_cache
+
+    bucket = 1 << max(3, math.ceil(math.log2(max(p.size for p in wave))))
+    batch = np.zeros((len(wave), bucket), np.int64)
+    for i, p in enumerate(wave):
+        batch[i, :p.size] = p
+    last = torch.as_tensor([p.size - 1 for p in wave], device=dev)
+    rows = torch.arange(len(wave), device=dev)
+    logits = {}
+    with torch.no_grad():
+        for impl in ("flash", "reference"):
+            model.set_attn_impl(impl)
+            h = model.hidden(torch.as_tensor(batch, device=dev),
+                             cache=init_cache(model, len(wave), bucket))
+            logits[impl] = model.head(h[rows, last])
+    model.set_attn_impl("auto")
+    return logits
+
+
+def _hf_full(fa, dev, root, name):
+    """A full-width model from its published config (random weights from
+    seed 0, fp32 master weights) written with `save_converted`, served by
+    `serve_gpt.main(["--hf-dir", ...])`, then loaded again and served in
+    bf16 through a ContinuousBatcher as in `phase_serve`; then the same
+    weights computed in fp32 for the held flash-vs-einsum logits and
+    greedy tokens."""
+    import gc
+    import shutil
+
+    from tfde_tpu_torch import serve_gpt
+    from tfde_tpu_torch.inference.decode import generate
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.models.convert import load_converted, save_converted
+    from tfde_tpu_torch.models.gpt import GPT
+    from tfde_tpu_torch.testing import FULL_WIDTH
+
+    family, fields = FULL_WIDTH[name]
+    out = os.path.join(root, name)
+    model = GPT(**fields, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    save_converted(model, out, family)
+    write_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes = os.path.getsize(os.path.join(out, "params.npz"))
+    t0 = time.perf_counter()
+    done = serve_gpt.main(["--hf-dir", out, "--requests", "16",
+                           "--batch-size", "8", "--max-len", "1024",
+                           "--max-new-tokens", "32"])
+    torch.cuda.synchronize(dev)
+    entry_s = time.perf_counter() - t0
+    if len(done) != 16 or any(len(t) != 32 for _, t in done):
+        raise AssertionError(f"hf_serve {name}: serve_gpt --hf-dir did not "
+                             f"answer 16 requests of 32 tokens")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = load_converted(out, device=dev).cast_compute_weights_()
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    print(f"hf_serve {name}: {n_params:,} parameters; artifact "
+          f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s, loaded onto the "
+          f"card (fp32, then cast to bf16) in {load_s:.2f} s; serve_gpt.main "
+          f"--hf-dir (load + 16 requests of 2-8 prompt tokens x 32) "
+          f"{entry_s:.2f} s")
+
+    srv = ContinuousBatcher(model, batch_size=8, max_len=1024, scan_depth=4,
+                            device=dev)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 961, 16)
+    prompts = [rng.integers(0, model.vocab_size, int(p)) for p in plens]
+    torch.cuda.synchronize(dev)
+    fa.flash_forward.launches = 0
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, 32) for p in prompts]
+    done = dict(srv.run())
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = fa.flash_forward.launches
+    stats = srv.stats()
+    ttft = srv.ttft_ms()
+    n_tok = sum(len(t) for t in done.values())
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    mean_ttft = sum(ttft.values()) / max(len(ttft), 1)
+    print(f"hf_serve {name}: bf16, batch 8, max_len 1024, scan depth 4: "
+          f"{len(done)}/16 requests, {n_tok} tokens in {dt:.3f} s "
+          f"({n_tok / dt:.1f} tok/s), mean TTFT {mean_ttft:.1f} ms, "
+          f"{dt * 1e3 / n_tok:.2f} ms per output token, peak "
+          f"{peak:.2f} GiB; prompt lengths {[int(p) for p in plens]}")
+    print(f"hf_serve {name}: stats {json.dumps(stats)}")
+    print(f"hf_serve {name}: flash_fwd launches {launches} over "
+          f"{stats['prefill_waves']} prefill waves x {model.depth} layers")
+    if sorted(done) != sorted(rids):
+        raise AssertionError(f"hf_serve {name}: not every request finished")
+    for rid, toks in done.items():
+        if (len(toks) != 32 or toks.min() < 0
+                or toks.max() >= model.vocab_size):
+            raise AssertionError(f"hf_serve {name}: request {rid} returned "
+                                 f"{toks!r}")
+    if not (launches > 0
+            and launches == model.depth * stats["prefill_waves"]):
+        raise AssertionError(f"hf_serve {name}: the batcher did not run the "
+                             f"flash kernel once a layer a prefill wave")
+
+    # one wave's first-token logits, flash vs the reference einsum, in the
+    # served bf16 here and in fp32 below
+    bf16 = _hf_wave_logits(model, prompts[:4], dev)
+    # bf16 greedy decoding is not batch-invariant (cuBLAS picks other
+    # reduction orders for the batcher's 8-row GEMMs than for generate's
+    # one row, and a one-ulp change flips a near-tie): counted here, held
+    # exactly in fp32 below
+    bf16_same = sum(int(np.array_equal(done[rid], generate(
+        model, p[None], 32, device=dev)[0][0, p.size:].cpu().numpy()))
+        for rid, p in zip(rids[:4], prompts[:4]))
+    # the same (bf16-valued) weights computed in fp32: no second load
+    model32 = GPT(**model.config, dtype=torch.float32, device=dev)
+    model32.load_state_dict(model.state_dict())
+    del model, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = model32
+    fp32 = _hf_wave_logits(model, prompts[:4], dev)
+    rel32 = _rel(fp32["flash"], fp32["reference"])
+    rel16 = _rel(bf16["flash"], bf16["reference"])
+    err = {impl: _rel(bf16[impl], fp32["reference"]) for impl in bf16}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (*bf16.values(), *fp32.values()))
+    print(f"hf_serve {name}: first-token logits of a 4-prompt wave, flash "
+          f"vs the reference einsum: fp32 rel {rel32:.3e} (tol "
+          f"{HF_WAVE_TOL:g}); bf16 rel {rel16:.3e}, "
+          f"each bf16 path against the fp32 einsum: flash "
+          f"{err['flash']:.3e}, einsum {err['reference']:.3e} (flash held "
+          f"to {HF_BF16_RATIO:g}x the einsum's); finite {finite}")
+    if not (finite and rel32 <= HF_WAVE_TOL
+            and err["flash"] <= HF_BF16_RATIO * err["reference"]):
+        raise AssertionError(f"hf_serve {name}: flash and reference prefill "
+                             f"logits disagree")
+    srv = ContinuousBatcher(model, batch_size=8, max_len=1024, scan_depth=4,
+                            device=dev)
+    rids32 = [srv.submit(p, 32) for p in prompts[:4]]
+    done32 = dict(srv.run())
+    same = sum(int(np.array_equal(done32[rid], generate(
+        model, p[None], 32, device=dev)[0][0, p.size:].cpu().numpy()))
+        for rid, p in zip(rids32, prompts[:4]))
+    print(f"hf_serve {name}: the first four requests' greedy tokens, batcher "
+          f"== generate on the card: fp32 {same}/4 (held), bf16 "
+          f"{bf16_same}/4 (counted)")
+    if same != 4:
+        raise AssertionError(f"hf_serve {name}: the batcher's greedy tokens "
+                             f"differ from generate's")
+    del model, srv
+    shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _hf_prefill_kernels(fa, dev):
+    """The forward kernel at the two full-width prefill shapes (bf16,
+    causal): against its plain version, then three timed calls beside the
+    plain version, SDPA (`enable_gqa`; timing only) and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name, ((b, s, h, d), kv) in HF_PREFILL.items():
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        out, lse = fa.flash_forward(q, k, v, True)
+        torch.cuda.synchronize(dev)
+        ref_out, ref_lse = fa.flash_forward_reference(q, k, v, True)
+        out_rel = _rel(out.float(), ref_out.float())
+        lse_err = float((lse - ref_lse).abs().max())
+        tol_out, tol_lse = TOL[torch.bfloat16]
+        del ref_out, ref_lse
+        if not (bool(torch.isfinite(out).all()) and out_rel <= tol_out
+                and lse_err <= tol_lse):
+            raise AssertionError(f"flash_fwd disagrees with its plain version "
+                                 f"at the {name} prefill shape")
+        ms = [_time_ms(lambda: fa.flash_forward(q, k, v, True), dev)
+              for _ in range(3)]
+        plain = _time_ms(lambda: fa.flash_forward_reference(q, k, v, True),
+                         dev, iters=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), dev)
+        bound, by = _bound(b, s, h, kv, d, torch.bfloat16, True, None)
+        print(f"kernel flash_fwd {name} prefill [{b}, {s}, {h} -> {kv} KV "
+              f"heads, {d}] bf16 causal: out rel {out_rel:.3e}, lse max abs "
+              f"{lse_err:.3e}; kernel_ms {', '.join(f'{t:.4f}' for t in ms)}, "
+              f"plain_ms {plain:.4f}, library_ms (SDPA, enable_gqa) "
+              f"{sdpa:.4f}, bound_ms {bound:.4f} ({by})")
+
+
+def phase_hf_serve(fa, dev):
+    """Converted checkpoints served on the card (docstring, phase 15).
+    Every artifact lies under build/ and is removed at the end."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"hf_serve_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _hf_parity(fa, dev, root)
+        for name in ("Llama-3.2-1B", "Qwen3-0.6B"):
+            _hf_full(fa, dev, root, name)
+        _hf_prefill_kernels(fa, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"hf_serve phase: {time.perf_counter() - t0:.1f} s")
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
           "lifecycle", "export", "resnet",
-          "bert", "vit", "gpt_lm")
+          "bert", "vit", "gpt_lm", "hf_serve")
 
 
 def main(argv=None) -> int:
@@ -3054,6 +3377,8 @@ def main(argv=None) -> int:
         phase_vit(fa, dev)
     if "gpt_lm" in phases:
         phase_gpt_lm(fa, dev)
+    if "hf_serve" in phases:
+        phase_hf_serve(fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

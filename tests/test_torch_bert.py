@@ -154,7 +154,8 @@ def test_bert_base_parameter_count():
 
 
 def test_unported_fields_raise():
-    with pytest.raises(NotImplementedError, match="use_bias"):
+    # a field of the JAX decoder that the JAX Bert does not have
+    with pytest.raises(TypeError, match="use_bias"):
         bert.bert_tiny_test(device="cpu", use_bias=False)
     with pytest.raises(NotImplementedError, match="fused_qkv"):
         bert.bert_tiny_test(device="cpu", fused_qkv=True)

@@ -115,14 +115,14 @@ def test_dropout_is_off_outside_training_and_drawn_from_the_generator():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mlp_act", "swiglu"), ("fused_qkv", True), ("qk_norm", True),
-    ("rolling_cache", True), ("num_experts", 4), ("norm", "rms")])
+    ("quant", "int8"), ("fused_qkv", True), ("paged_blocks", 16),
+    ("rolling_cache", True), ("num_experts", 4), ("kv_quant", "int8")])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         Encoder(1, 32, 4, 8, 64, torch.float32, device="cpu",
                 **{field: value})
-    with pytest.raises(NotImplementedError, match="sandwich"):
-        Encoder(1, 32, 4, 8, 64, torch.float32, norm_style="sandwich",
+    with pytest.raises(ValueError, match="norm_style"):
+        Encoder(1, 32, 4, 8, 64, torch.float32, norm_style="bogus",
                 device="cpu")
     with pytest.raises(TypeError, match="bogus"):
         TransformerBlock(32, 4, 8, 64, torch.float32, device="cpu", bogus=1)

@@ -154,11 +154,12 @@ class _ReportsCuda(torch.Tensor):
         return torch.device("cuda")
 
 
-@pytest.mark.parametrize("head_dim", [8, 32])
+@pytest.mark.parametrize("head_dim", [160, 256])
 def test_auto_on_cuda_takes_the_kernel_and_raises_on_its_head_dim(head_dim):
     """'auto' on a CUDA tensor goes to the kernel's wrapper whatever the
-    shape: a head dim the kernel does not take raises there, and never
-    falls back to the plain version."""
+    shape: a head dim the kernel does not take (above 128; a smaller one
+    is zero-padded to 64 or 128) raises there, and never falls back to
+    the plain version."""
     q, k, v = (torch.as_tensor(t).as_subclass(_ReportsCuda)
                for t in _qkv(8, 1, 16, 4, 4, head_dim))
     before = tfa.flash_forward.launches

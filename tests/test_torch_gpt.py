@@ -107,10 +107,10 @@ def test_prefill_and_per_row_decode_match_jax(pair, impl):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mlp_act", "swiglu"), ("qk_norm", True), ("fused_qkv", True),
+    ("moe_every", 4), ("kv_block", 32), ("fused_qkv", True),
     ("quant", "int8"), ("rolling_cache", True), ("paged_blocks", 16),
-    ("kv_quant", "int8"), ("num_experts", 4), ("norm", "rms"),
-    ("attn_logit_cap", 30.0),
+    ("kv_quant", "int8"), ("num_experts", 4), ("dropout_rate", 0.1),
+    ("router_z_loss_weight", 0.01),
 ])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):

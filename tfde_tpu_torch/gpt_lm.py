@@ -57,9 +57,9 @@ def main(argv=None):
     parser.add_argument("--grad-accum", type=int, default=1,
                         help="sequential microbatches per optimizer update")
     parser.add_argument("--tiny", action="store_true",
-                        help="the tiny CI config instead of GPT-2 small; its "
-                             "head dim 8 runs with --device cpu only (the "
-                             "CUDA flash kernels take head dims 64 and 128)")
+                        help="the tiny CI config instead of GPT-2 small; on "
+                             "CUDA the flash kernels run its head dim 8 "
+                             "zero-padded to 64")
     parser.add_argument("--packed", action="store_true",
                         help="pack variable-length synthetic documents into "
                              "fixed rows with block-diagonal attention and "

@@ -17,8 +17,9 @@ and `classifier`), so `models.flax_weights.from_flax_params` loads a JAX
 tree as it is. Weights are initialised from `seed` with flax's default
 initialisers; dropout draws from the `generator` the forward is given.
 `remat` checkpoints each encoder block (`transformer.Encoder`); the JAX
-field `fused_qkv` raises NotImplementedError when set
-(`transformer._UNPORTED`).
+field `fused_qkv` raises NotImplementedError when set, and a field the
+JAX `Bert` does not have (the decoder fields `norm`, `mlp_act`,
+`use_bias` ...) raises TypeError (`_UNPORTED`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ from tfde_tpu_torch.models.transformer import (
     Dense, Encoder, LayerNorm, check_unported, init_flax_)
 from tfde_tpu_torch.ops.attention import padding_mask
 from tfde_tpu_torch.utils.devices import resolve_device
+
+#: the JAX `Bert`/`BertClassifier` fields outside the port, with the
+#: default the port implements; any other name is not a field of theirs
+_UNPORTED = {"fused_qkv": False}
 
 
 class BertEmbeddings(nn.Module):
@@ -83,7 +88,7 @@ class _Trunk(nn.Module):
                  ln_eps: float = 1e-6, device=None, **fields):
         super().__init__()
         remat = fields.pop("remat", False)
-        check_unported(type(self).__name__, fields)
+        check_unported(type(self).__name__, fields, _UNPORTED)
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} must divide by "
                              f"num_heads {num_heads}")

@@ -1,4 +1,5 @@
-"""Flax params tree -> torch state_dict, for shared-weight parity.
+"""Flax params tree <-> torch state_dict, for shared-weight parity and
+for the conversion artifact's `params.npz`.
 
 The two frameworks' random initialisers never agree, so the port is held
 against the JAX package on the SAME weights: the JAX params tree (as
@@ -7,11 +8,15 @@ numpy arrays — this module never imports flax or jax) goes through
 
 - Embed `embedding` [V, E]          -> `weight` [V, E]
 - LayerNorm `scale` / `bias`        -> `weight` / `bias`
+- RMSNorm `scale` (the block norms, `q_norm`/`k_norm`, `ln_attn_post`,
+  `ln_mlp_post`)                    -> `weight`
 - Dense `kernel` [in, out]          -> Linear `weight` [out, in]
 - Conv `kernel` HWIO [kh, kw, in, out] -> Conv2d `weight` OIHW
 - DenseGeneral q/k/v `kernel` [E, H, D] -> `weight` [H*D, E] (k/v
-  [E, Kv, D] -> [Kv*D, E] under grouped-query attention)
+  [E, Kv, D] -> [Kv*D, E] under grouped-query attention; H*D need not be
+  E: a decoupled head_dim)
 - DenseGeneral `out` `kernel` [H, D, E] -> `weight` [E, H*D]
+- Dense `gate` (swiglu, geglu) and the untied `lm_head` as any Dense
 - any `bias` [...]                  -> flattened
 - BatchNorm `batch_stats` `mean` / `var` -> buffers `running_mean` /
   `running_var`
@@ -25,6 +30,10 @@ in `weight`, as a LayerNorm's does: the ResNet's params and batch_stats
 (`conv_init`, `bn_init`, `BottleneckBlock_i/Conv_j`, `BatchNorm_j`,
 `conv_proj`, `norm_proj`, `Dense_0`) map onto `models/resnet.py` by
 these rules alone.
+
+`to_flax_params(model)` is the exact inverse for the port's transformer
+models (GPT): the numpy tree JAX's `GPT.apply` takes and the conversion
+artifact stores.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 #: the flax parameters made by `self.param` (no layer around them), kept
 #: under their own names and shapes
@@ -87,3 +97,51 @@ def from_flax_params(params: Mapping,
     if batch_stats is not None:
         walk(batch_stats, ())
     return out
+
+
+def to_flax_params(model: nn.Module) -> dict:
+    """The inverse of `from_flax_params` for a model built from `Dense`,
+    `nn.Embedding`, `LayerNorm` and `RMSNorm` (`models/transformer.py`,
+    `models/gpt.py`): {module: {param: fp32 numpy array}} in flax's
+    layouts, the attention projections as DenseGeneral kernels ([E, H, D]
+    for query/key/value, [H, D, E] for out, their biases [H, D] and [E]).
+    Values are copied exactly (a bf16 weight widens to fp32)."""
+    from tfde_tpu_torch.models.transformer import (
+        Dense, LayerNorm, MultiHeadAttention, RMSNorm)
+
+    tree: dict = {}
+    mods = dict(model.named_modules())
+    for name, mod in mods.items():
+        params = {n: p.detach().float().cpu().numpy()
+                  for n, p in mod.named_parameters(recurse=False)}
+        if not params:
+            continue
+        *parent, leaf = name.split(".")
+        owner = mods[".".join(parent)]
+        if isinstance(mod, Dense):
+            w, b = params["weight"], params.get("bias")
+            if isinstance(owner, MultiHeadAttention) and leaf == "out":
+                kernel = w.T.reshape(owner.num_heads, owner.head_dim, -1)
+            elif isinstance(owner, MultiHeadAttention):
+                hd = owner.head_dim
+                kernel = w.T.reshape(w.shape[1], -1, hd)
+                b = None if b is None else b.reshape(-1, hd)
+            else:
+                kernel = w.T
+            flax = {"kernel": kernel}
+            if b is not None:
+                flax["bias"] = b
+        elif isinstance(mod, nn.Embedding):
+            flax = {"embedding": params["weight"]}
+        elif isinstance(mod, LayerNorm):
+            flax = {"scale": params["weight"], "bias": params["bias"]}
+        elif isinstance(mod, RMSNorm):
+            flax = {"scale": params["weight"]}
+        else:
+            raise ValueError(f"to_flax_params has no flax layout for "
+                             f"{type(mod).__name__} at {name!r}")
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node.update({k: np.ascontiguousarray(v) for k, v in flax.items()})
+    return tree

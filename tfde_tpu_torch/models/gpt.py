@@ -1,16 +1,23 @@
 """GPT-style causal LM — counterpart of `tfde_tpu/models/gpt.py`.
 
-Ported: the GPT-2 arrangement — token embedding `wte`, learned position
-table `wpe` (positions continue per row from the cache index) or rotary
-positions (`position='rope'`: no table, q and k rotated inside each
-layer), pre-LN blocks, final LayerNorm, and the tied head `x @ wte.T`
-computed in the compute dtype with fp32 logits (flax `Embed.attend`) —
-with grouped-query attention (`num_kv_heads`), the sliding window
-(`sliding_window`, `sliding_window_pattern`), `remat` and sequence
-packing (`segment_ids`), and the training objective `next_token_loss`.
+Ported: the decoder-only LM with the fields the converted checkpoint
+families use — token embedding `wte` (times `embed_scale` in the compute
+dtype: Gemma's sqrt(hidden)), a learned position table `wpe` (positions
+continue per row from the cache index) or rotary positions
+(`position='rope'`: no table, q and k rotated inside each layer), the
+blocks of `models/transformer.py` (`norm` 'layer' | 'rms', `norm_style`,
+`mlp_act`, `use_bias`, `qkv_bias`, `qk_norm`, a decoupled `head_dim`,
+`attn_scale`, `attn_logit_cap`, grouped-query attention `num_kv_heads`,
+the sliding window `sliding_window`/`sliding_window_pattern`, `remat`),
+the final norm, and the head: tied, `x @ wte.T` in the compute dtype with
+fp32 logits (flax `Embed.attend`), or an untied `lm_head` Dense (with a
+bias under `head_bias`), then `final_logit_cap`'s fp32 softcap; sequence
+packing (`segment_ids`) and the training objective `next_token_loss`.
 Every other field of the JAX `GPT` raises NotImplementedError when set
 away from its default (`_UNPORTED`), so a configuration the port does not
-implement is never served as a different model.
+implement is never served as a different model. `config` holds the JAX
+fields the model was built with (`models/convert.save_converted` writes
+it).
 """
 
 from __future__ import annotations
@@ -22,41 +29,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfde_tpu_torch.models.transformer import Dense, Encoder, LayerNorm
+from tfde_tpu_torch.models.transformer import (
+    Dense, Encoder, LayerNorm, RMSNorm)
 from tfde_tpu_torch.ops.losses import masked_lm_loss
 from tfde_tpu_torch.utils.devices import resolve_device
 
-#: JAX `GPT` fields outside this slice, with the default the port implements
+#: JAX `GPT` fields outside the port, with the default the port implements
 _UNPORTED = {
     "dropout_rate": 0.0,
     "fused_qkv": False,
     "num_experts": 0,
+    "moe_every": 2,
+    "experts_per_token": 2,
+    "moe_capacity_factor": 1.25,
+    "moe_normalize_topk": True,
+    "moe_shared_expert_dim": None,
+    "router_z_loss_weight": 0.0,
     "rolling_cache": False,
     "paged_blocks": None,
+    "kv_block": 16,
     "kv_quant": None,
-    "norm": "layer",
-    "mlp_act": "gelu",
-    "use_bias": True,
-    "qkv_bias": False,
-    "qk_norm": False,
-    "norm_style": "pre",
-    "head_bias": False,
-    "embed_scale": None,
-    "head_dim": None,
-    "tie_embeddings": True,
     "quant": None,
-    "attn_scale": None,
-    "attn_logit_cap": None,
-    "final_logit_cap": None,
 }
 
 
 class GPT(nn.Module):
     """Decoder-only LM over [B, S] int token ids -> [B, S, vocab] fp32
     logits. Parameters are fp32 and initialised from `seed` with an
-    explicit generator (normal(0, 0.02) weights, zero biases, unit
-    LayerNorm scales); load real or shared weights with
-    `load_state_dict(models.flax_weights.from_flax_params(...))`."""
+    explicit generator (normal(0, 0.02) weights, zero biases, unit norm
+    scales); load real or shared weights with
+    `load_state_dict(models.flax_weights.from_flax_params(...))`, or a
+    converted checkpoint with `models.convert.load_converted`."""
 
     def __init__(self, vocab_size: int = 50257, hidden_size: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_dim: int = 3072,
@@ -68,6 +71,16 @@ class GPT(nn.Module):
                  num_kv_heads: Optional[int] = None,
                  sliding_window: Optional[int] = None,
                  sliding_window_pattern: str = "all", remat=False,
+                 norm: str = "layer", mlp_act: str = "gelu",
+                 use_bias: bool = True, qkv_bias: bool = False,
+                 qk_norm: bool = False, norm_style: str = "pre",
+                 head_bias: bool = False,
+                 embed_scale: Optional[float] = None,
+                 head_dim: Optional[int] = None,
+                 tie_embeddings: bool = True,
+                 attn_scale: Optional[float] = None,
+                 attn_logit_cap: Optional[float] = None,
+                 final_logit_cap: Optional[float] = None,
                  device=None, seed: int = 0, **fields):
         super().__init__()
         for name, value in fields.items():
@@ -77,34 +90,63 @@ class GPT(nn.Module):
                 raise NotImplementedError(
                     f"GPT field {name}={value!r} is not ported yet (the "
                     f"port implements {name}={_UNPORTED[name]!r})")
-        if hidden_size % num_heads:
+        if head_dim is None and hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} must divide by "
-                             f"num_heads {num_heads}")
+                             f"num_heads {num_heads} (or pass head_dim)")
         if position not in ("learned", "rope"):
             raise ValueError(
                 f"position must be 'learned' or 'rope', got {position!r}")
+        if tie_embeddings and head_bias:
+            raise ValueError(
+                "head_bias=True requires tie_embeddings=False (the tied "
+                "head is wte^T via Embed.attend, which carries no bias) — "
+                "a silently dropped bias would change the architecture")
         device = resolve_device(device)
+        self.config = dict(
+            vocab_size=vocab_size, hidden_size=hidden_size, depth=depth,
+            num_heads=num_heads, mlp_dim=mlp_dim, max_position=max_position,
+            attn_impl=attn_impl, ln_eps=ln_eps, position=position,
+            rope_theta=rope_theta,
+            rope_scaling=(None if rope_scaling is None
+                          else tuple(rope_scaling)),
+            rope_dim=rope_dim, num_kv_heads=num_kv_heads,
+            sliding_window=sliding_window,
+            sliding_window_pattern=sliding_window_pattern, remat=remat,
+            norm=norm, mlp_act=mlp_act, use_bias=use_bias,
+            qkv_bias=qkv_bias, qk_norm=qk_norm, norm_style=norm_style,
+            head_bias=head_bias, embed_scale=embed_scale, head_dim=head_dim,
+            tie_embeddings=tie_embeddings, attn_scale=attn_scale,
+            attn_logit_cap=attn_logit_cap, final_logit_cap=final_logit_cap)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.depth = depth
         self.num_heads = num_heads
-        self.head_dim = hidden_size // num_heads
+        self.head_dim = head_dim or hidden_size // num_heads
         self.mlp_dim = mlp_dim
         self.max_position = max_position
         self.dtype = dtype
         self.position = position
         self.kv_heads = num_kv_heads or num_heads
         self.sliding_window = sliding_window
+        self.embed_scale = embed_scale
+        self.final_logit_cap = final_logit_cap
         self.wte = nn.Embedding(vocab_size, hidden_size, device=device)
         self.wpe = (nn.Embedding(max_position, hidden_size, device=device)
                     if position == "learned" else None)
         self.decoder = Encoder(
             depth, hidden_size, num_heads, self.head_dim, mlp_dim, dtype,
             attn_impl=attn_impl, ln_eps=ln_eps, causal=True,
-            window=sliding_window, window_pattern=sliding_window_pattern,
-            remat=remat, rope=position == "rope", rope_theta=rope_theta,
+            norm_style=norm_style, norm=norm, mlp_act=mlp_act,
+            use_bias=use_bias, window=sliding_window,
+            window_pattern=sliding_window_pattern, remat=remat,
+            rope=position == "rope", rope_theta=rope_theta,
             rope_scaling=rope_scaling, rope_dim=rope_dim,
-            num_kv_heads=num_kv_heads, device=device)
+            num_kv_heads=num_kv_heads, qkv_bias=qkv_bias, qk_norm=qk_norm,
+            attn_scale=attn_scale, attn_logit_cap=attn_logit_cap,
+            device=device)
+        self.lm_head = (None if tie_embeddings else
+                        Dense(hidden_size, vocab_size, dtype, bias=head_bias,
+                              device=device))
         self.init_weights_(torch.Generator(device=device).manual_seed(seed))
 
     @property
@@ -121,12 +163,14 @@ class GPT(nn.Module):
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, RMSNorm):
+                mod.weight.fill_(1.0)
 
     @torch.no_grad()
     def cast_compute_weights_(self) -> "GPT":
         """Cast the matmul weights and embeddings to the compute dtype
         once, in place, for serving. Every forward casts them to that dtype
-        anyway, so the values are the same; the LayerNorms stay fp32.
+        anyway, so the values are the same; the norms stay fp32.
         Training keeps the fp32 master weights and never calls this."""
         for mod in self.modules():
             if isinstance(mod, (Dense, nn.Embedding)):
@@ -142,7 +186,7 @@ class GPT(nn.Module):
 
     def hidden(self, input_ids: torch.Tensor, cache=None,
                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """[B, S] ids -> [B, S, E] final-LayerNorm states (fp32). With a
+        """[B, S] ids -> [B, S, E] final-norm states (fp32). With a
         cache, positions continue from `cache.index` (an int, or a [B]
         tensor of per-row positions) and the index advances by S.
 
@@ -167,6 +211,11 @@ class GPT(nn.Module):
             mask = seg[:, None, :, None] == seg[:, None, None, :]
         s = input_ids.shape[1]
         x = self.wte(input_ids).to(self.dtype)
+        if self.embed_scale is not None:
+            # the scale rounded to the compute dtype, as JAX's
+            # jnp.asarray(embed_scale, dtype)
+            x = x * torch.tensor(self.embed_scale, dtype=self.dtype,
+                                 device=x.device)
         if self.wpe is not None:
             positions = torch.arange(s, device=input_ids.device)
             if cache is not None:
@@ -180,9 +229,18 @@ class GPT(nn.Module):
         return x
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        """Tied LM head: h @ wte.T in the compute dtype, logits in fp32."""
-        return F.linear(h.to(self.dtype),
-                        self.wte.weight.to(self.dtype)).float()
+        """The LM head in the compute dtype, logits in fp32: tied, h @
+        wte.T (flax `Embed.attend`), or the untied `lm_head`; then the
+        fp32 softcap `final_logit_cap * tanh(logits / final_logit_cap)`."""
+        h = h.to(self.dtype)
+        if self.lm_head is None:
+            logits = F.linear(h, self.wte.weight.to(self.dtype)).float()
+        else:
+            logits = self.lm_head(h).float()
+        if self.final_logit_cap is not None:
+            cap = self.final_logit_cap
+            logits = cap * torch.tanh(logits / cap)
+        return logits
 
     def forward(self, input_ids: torch.Tensor, cache=None,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -2,20 +2,26 @@
 
 Ported: `MultiHeadAttention` (with the dense decode cache: the
 scalar-index prefill branch and the per-row-index branch; rotary
-positions, grouped-query attention and the sliding window), `Mlp` (tanh
-gelu), `TransformerBlock` and `Encoder` (`window_pattern`, `remat`), with
-the options the GPT, BERT and ViT configurations use: `causal` (False by
-default, as in JAX; GPT passes True), an optional attention `mask`
-(True = attend, broadcastable to [B, H, S, S]), `norm_style` 'pre'
-(x + MHA(LN(x)); x + MLP(LN(x)), then a final LayerNorm) or 'post'
-(LN(x + MHA(x)); LN(x + MLP(x)), the original BERT arrangement, no final
-LayerNorm), and `dropout_rate`: dropout on the attention output after
-`out` and on the MLP output after `fc2`, in training only, drawn from
-the `generator` the forward is given. Every other JAX field raises
+positions, grouped-query attention, the sliding window, the decoupled
+`head_dim`, `use_bias`/`qkv_bias`, the per-head q/k RMSNorm `qk_norm`,
+`attn_scale` and `attn_logit_cap`), `Mlp` (`act` 'gelu' (tanh), 'relu',
+'swiglu', 'geglu'; `use_bias`), `TransformerBlock` and `Encoder`
+(`window_pattern`, `remat`), with the options the GPT, BERT and ViT
+configurations and the converted checkpoint families use: `causal`
+(False by default, as in JAX; GPT passes True), an optional attention
+`mask` (True = attend, broadcastable to [B, H, S, S]), `norm` 'layer' or
+'rms', `norm_style` 'pre' (x + MHA(LN(x)); x + MLP(LN(x)), then a final
+norm), 'post' (LN(x + MHA(x)); LN(x + MLP(x)), the original BERT
+arrangement, no final norm), 'parallel' (one norm feeding attention and
+MLP side by side: Phi, Falcon-7B), 'parallel2' (a parallel residual with
+two norms: NeoX, Falcon-40B) and 'sandwich' (each sublayer normed on both
+sides: Gemma-2), and `dropout_rate`: dropout on the attention output
+after `out` and on the MLP output after `fc2`, in training only, drawn
+from the `generator` the forward is given. Every other JAX field raises
 NotImplementedError when set away from its default (`_UNPORTED`).
 
 The dtype policy is the JAX one: parameters in fp32, matmuls in the
-compute dtype (bf16 by default), LayerNorm in fp32. Flax layouts map onto
+compute dtype (bf16 by default), the norms in fp32. Flax layouts map onto
 torch ones in `models/flax_weights.py`: the DenseGeneral q/k/v kernels
 [E, H, D] become Linear weights [H*D, E], `out` [H, D, E] becomes
 [E, H*D], Dense [in, out] becomes Linear [out, in].
@@ -51,13 +57,6 @@ _UNPORTED = {
     "paged_blocks": None,
     "kv_block": 16,
     "kv_quant": None,
-    "attn_scale": None,
-    "attn_logit_cap": None,
-    "norm": "layer",
-    "mlp_act": "gelu",
-    "use_bias": True,
-    "qkv_bias": False,
-    "qk_norm": False,
     "num_experts": 0,
     "experts_per_token": 2,
     "moe_capacity_factor": 1.25,
@@ -68,34 +67,37 @@ _UNPORTED = {
 }
 
 #: the `MultiHeadAttention` fields `TransformerBlock` and `Encoder` pass
-#: through (rope, grouped-query attention, the sliding window)
+#: through (rope, grouped-query attention, the sliding window, the bias
+#: and q/k-norm arrangements, the Gemma-2 score scale and softcap)
 ATTN_FIELDS = ("rope", "rope_theta", "rope_scaling", "rope_dim",
-               "num_kv_heads", "window")
+               "num_kv_heads", "window", "qkv_bias", "qk_norm",
+               "attn_scale", "attn_logit_cap")
 
-#: the block arrangements the port implements (JAX also has 'parallel',
-#: 'parallel2' and 'sandwich')
-NORM_STYLES = ("pre", "post")
+#: the block arrangements (`TransformerBlock.forward`)
+NORM_STYLES = ("pre", "post", "parallel", "parallel2", "sandwich")
+
+#: the MLP activations (`Mlp`)
+MLP_ACTS = ("gelu", "relu", "swiglu", "geglu")
 
 
-def check_unported(owner: str, fields: dict) -> None:
+def check_unported(owner: str, fields: dict, unported=None) -> None:
     """Raise for a JAX field of `owner` the port does not implement:
     TypeError for a name JAX does not have either, NotImplementedError for
-    a value other than the default the port implements."""
+    a value other than the default the port implements. `unported` maps
+    each such field of `owner` to that default (`_UNPORTED` by default:
+    the fields of the JAX `TransformerBlock` and `Encoder`)."""
+    unported = _UNPORTED if unported is None else unported
     for name, value in fields.items():
-        if name not in _UNPORTED:
+        if name not in unported:
             raise TypeError(f"{owner} got an unexpected field {name!r}")
-        if value != _UNPORTED[name]:
+        if value != unported[name]:
             raise NotImplementedError(
                 f"{owner} field {name}={value!r} is not ported yet (the "
-                f"port implements {name}={_UNPORTED[name]!r})")
+                f"port implements {name}={unported[name]!r})")
 
 
 def _check_norm_style(norm_style: str) -> None:
     if norm_style not in NORM_STYLES:
-        if norm_style in ("parallel", "parallel2", "sandwich"):
-            raise NotImplementedError(
-                f"norm_style={norm_style!r} is not ported yet (the port "
-                f"implements {NORM_STYLES})")
         raise ValueError(f"norm_style must be 'pre', 'post', 'parallel', "
                          f"'parallel2' or 'sandwich', got {norm_style!r}")
 
@@ -132,6 +134,32 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps)
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm over the last dim, computed in fp32 whatever the input
+    dtype and returned in fp32 (flax nn.RMSNorm(dtype=float32)): x *
+    (rsqrt(mean(x^2) + eps) * scale), in flax's order. The scale is
+    `weight` (flax `scale`) and is used as stored: a checkpoint whose norm
+    computes x * (1 + w) (Gemma) is folded to 1 + w at conversion."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        ms = x.square().mean(dim=-1, keepdim=True)
+        return x * (torch.rsqrt(ms + self.eps) * self.weight)
+
+
+def make_norm(norm: str, dim: int, eps: float, device=None) -> nn.Module:
+    """The block norm of kind `norm` ('layer' | 'rms')."""
+    if norm not in ("layer", "rms"):
+        raise ValueError(f"norm must be 'layer' or 'rms', got {norm!r}")
+    cls = RMSNorm if norm == "rms" else LayerNorm
+    return cls(dim, eps=eps, device=device)
+
+
 @torch.no_grad()
 def init_flax_(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initialisers on `model`'s layers: lecun_normal
@@ -146,19 +174,31 @@ def init_flax_(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
 
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with the dispatchable kernel (ops/attention.attention)
     and, when causal, the dense decode cache; dropout on its output.
 
-    `rope` rotates q and k (ops/rotary.apply_rotary, `rope_theta`,
-    `rope_scaling`, `rope_dim`) at their absolute positions before
-    attention and before the cache write. `num_kv_heads` (grouped-query
-    attention) makes `key`/`value` Kv * D wide; query head h reads KV head
-    h // (H / Kv), the layout of `grouped_attention` and of the kernels.
-    `window` (causal only) lets position i attend positions
-    (i - window, i]."""
+    The projections go E -> H * head_dim (q) and Kv * head_dim (k, v),
+    and `out` maps H * head_dim back to E: `head_dim` need not be E / H
+    (Gemma, Qwen3). q/k/v carry a bias under `use_bias` or `qkv_bias`
+    (Qwen2: biased q/k/v beside a bias-free `out`), `out` under
+    `use_bias`. `qk_norm` (Qwen3) applies an fp32 RMSNorm over head_dim
+    (`q_norm`, `k_norm`: one scale each, shared by the heads, epsilon
+    `ln_eps`) to q and k after the projection and before rope, in the
+    prefill and decode paths alike, so the cache holds the normed and
+    rotated K. `rope` rotates q and k (ops/rotary.apply_rotary,
+    `rope_theta`, `rope_scaling`, `rope_dim`) at their absolute positions
+    before attention and before the cache write. `num_kv_heads`
+    (grouped-query attention) makes `key`/`value` Kv * head_dim wide;
+    query head h reads KV head h // (H / Kv), the layout of
+    `grouped_attention` and of the kernels. `window` (causal only) lets
+    position i attend positions (i - window, i]. `attn_scale` replaces the
+    1 / sqrt(head_dim) score scale and `attn_logit_cap` softcaps the
+    scaled scores (Gemma-2), in every attention call."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype, attn_impl: str = "auto",
@@ -166,7 +206,10 @@ class MultiHeadAttention(nn.Module):
                  rope: bool = False, rope_theta: float = 10_000.0,
                  rope_scaling=None, rope_dim: Optional[int] = None,
                  num_kv_heads: Optional[int] = None,
-                 window: Optional[int] = None, device=None):
+                 window: Optional[int] = None, use_bias: bool = True,
+                 qkv_bias: bool = False, qk_norm: bool = False,
+                 ln_eps: float = 1e-6, attn_scale: Optional[float] = None,
+                 attn_logit_cap: Optional[float] = None, device=None):
         super().__init__()
         kv_heads = num_kv_heads or num_heads
         if kv_heads <= 0 or num_heads % kv_heads:
@@ -180,6 +223,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.kv_heads = kv_heads
         self.head_dim = head_dim
+        self.dtype = dtype
         self.attn_impl = attn_impl
         self.causal = causal
         self.dropout_rate = dropout_rate
@@ -189,10 +233,22 @@ class MultiHeadAttention(nn.Module):
                              else tuple(rope_scaling))
         self.rope_dim = rope_dim
         self.window = window
-        self.query = Dense(embed, num_heads * head_dim, dtype, device=device)
-        self.key = Dense(embed, kv_heads * head_dim, dtype, device=device)
-        self.value = Dense(embed, kv_heads * head_dim, dtype, device=device)
-        self.out = Dense(num_heads * head_dim, embed, dtype, device=device)
+        self.attn_scale = attn_scale
+        self.attn_logit_cap = attn_logit_cap
+        in_bias = use_bias or qkv_bias
+        self.query = Dense(embed, num_heads * head_dim, dtype, bias=in_bias,
+                           device=device)
+        self.key = Dense(embed, kv_heads * head_dim, dtype, bias=in_bias,
+                         device=device)
+        self.value = Dense(embed, kv_heads * head_dim, dtype, bias=in_bias,
+                           device=device)
+        if qk_norm:
+            self.q_norm = RMSNorm(head_dim, eps=ln_eps, device=device)
+            self.k_norm = RMSNorm(head_dim, eps=ln_eps, device=device)
+        else:
+            self.q_norm = self.k_norm = None
+        self.out = Dense(num_heads * head_dim, embed, dtype, bias=use_bias,
+                         device=device)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
@@ -202,10 +258,15 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x).view(b, s, self.num_heads, self.head_dim)
         k = self.key(x).view(b, s, self.kv_heads, self.head_dim)
         v = self.value(x).view(b, s, self.kv_heads, self.head_dim)
+        if self.q_norm is not None:
+            q = self.q_norm(q).to(self.dtype)
+            k = self.k_norm(k).to(self.dtype)
         if cache is None:
             q, k = self._rotate(q, k, 0)
             y = attn_lib.attention(q, k, v, mask=mask, causal=self.causal,
-                                   impl=self.attn_impl, window=self.window)
+                                   impl=self.attn_impl, window=self.window,
+                                   scale=self.attn_scale,
+                                   logit_cap=self.attn_logit_cap)
         else:
             if not self.causal:
                 raise ValueError("decode requires causal attention")
@@ -257,6 +318,7 @@ class MultiHeadAttention(nn.Module):
         k_w, v_w = k.to(keys.dtype), v.to(values.dtype)
         cols = torch.arange(max_len, device=q.device)
         steps = torch.arange(sq, device=q.device)
+        opts = dict(scale=self.attn_scale, logit_cap=self.attn_logit_cap)
         if isinstance(idx, int):
             start = min(max(idx, 0), max_len - sq)
             keys[:, start:start + sq] = k_w
@@ -264,7 +326,7 @@ class MultiHeadAttention(nn.Module):
             if idx == 0:
                 return attn_lib.attention(q, k_w, v_w, causal=True,
                                           impl=self.attn_impl,
-                                          window=self.window)
+                                          window=self.window, **opts)
             pos = (idx + steps)[None]  # [1, sq]
         else:
             start = idx.clamp(0, max_len - sq)
@@ -277,53 +339,93 @@ class MultiHeadAttention(nn.Module):
         if self.window is not None:
             valid = valid & (ago < self.window)
         return attn_lib.grouped_attention(q, keys, values,
-                                          mask=valid[:, None])
+                                          mask=valid[:, None], **opts)
 
 
 class Mlp(nn.Module):
-    """fc1 -> gelu (tanh approximation, flax nn.gelu's default) -> fc2,
-    then dropout."""
+    """fc1 -> act -> fc2, then dropout. `act`: 'gelu' (the tanh
+    approximation, flax nn.gelu's default), 'relu' (OPT), 'swiglu'
+    (silu(gate(x)) * fc1(x): the LLaMA family) or 'geglu' (tanh-gelu on
+    the gate: Gemma). Every projection carries a bias under `use_bias`."""
 
     def __init__(self, embed: int, mlp_dim: int, dtype: torch.dtype,
-                 dropout_rate: float = 0.0, device=None):
+                 dropout_rate: float = 0.0, act: str = "gelu",
+                 use_bias: bool = True, device=None):
         super().__init__()
+        if act not in MLP_ACTS:
+            raise ValueError(f"act must be 'gelu', 'relu', 'swiglu' or "
+                             f"'geglu', got {act!r}")
         self.dropout_rate = dropout_rate
-        self.fc1 = Dense(embed, mlp_dim, dtype, device=device)
-        self.fc2 = Dense(mlp_dim, embed, dtype, device=device)
+        self.act = act
+        self.fc1 = Dense(embed, mlp_dim, dtype, bias=use_bias, device=device)
+        self.gate = (Dense(embed, mlp_dim, dtype, bias=use_bias,
+                           device=device)
+                     if act in ("swiglu", "geglu") else None)
+        self.fc2 = Dense(mlp_dim, embed, dtype, bias=use_bias, device=device)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        h = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
-        return dropout(h, self.dropout_rate, train, generator)
+        h = self.fc1(x)
+        if self.act == "gelu":
+            h = F.gelu(h, approximate="tanh")
+        elif self.act == "relu":
+            h = F.relu(h)
+        elif self.act == "swiglu":
+            h = F.silu(self.gate(x)) * h
+        else:
+            h = F.gelu(self.gate(x), approximate="tanh") * h
+        return dropout(self.fc2(h), self.dropout_rate, train, generator)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN (default): x + MHA(LN(x)); x + MLP(LN(x)), the LayerNorms'
-    fp32 outputs cast to the compute dtype. `norm_style='post'`:
-    LN(x + MHA(x)); LN(x + MLP(x)), each LayerNorm's output cast to the
-    compute dtype (the original BERT arrangement). The attention fields
-    (`ATTN_FIELDS`) go to `MultiHeadAttention`."""
+    """One block in the arrangement `norm_style` (JAX :822-850), each norm
+    (`norm`: LayerNorm or RMSNorm, fp32) cast back to the compute dtype:
+
+    - 'pre': x + MHA(ln_attn(x)); x + MLP(ln_mlp(x));
+    - 'post': ln_attn(x + MHA(x)); ln_mlp(x + MLP(x)) (the original BERT);
+    - 'parallel': x + MHA(y) + MLP(y), y = ln_attn(x) (one norm: Phi);
+    - 'parallel2': x + MHA(ln_attn(x)) + MLP(ln_mlp(x)) (NeoX);
+    - 'sandwich': x + ln_attn_post(MHA(ln_attn(x))); then x +
+      ln_mlp_post(MLP(ln_mlp(x))) (Gemma-2).
+
+    The attention fields (`ATTN_FIELDS`) go to `MultiHeadAttention`,
+    `mlp_act` and `use_bias` to `Mlp` (and `use_bias` to the attention)."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int,
                  mlp_dim: int, dtype: torch.dtype, attn_impl: str = "auto",
                  ln_eps: float = 1e-6, causal: bool = False,
-                 norm_style: str = "pre", dropout_rate: float = 0.0,
-                 device=None, **fields):
+                 norm_style: str = "pre", norm: str = "layer",
+                 mlp_act: str = "gelu", use_bias: bool = True,
+                 dropout_rate: float = 0.0, device=None, **fields):
         super().__init__()
         attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
+        if fields.get("num_experts", 0) > 0 and (mlp_act, use_bias) not in (
+                ("gelu", True), ("swiglu", False)):
+            raise NotImplementedError(
+                "MoE expert MLPs are gelu+bias (Switch/GShard) or "
+                "bias-free swiglu (Mixtral); other mlp_act/use_bias "
+                "combinations would silently build a different "
+                "architecture than requested")
         check_unported("TransformerBlock", fields)
         _check_norm_style(norm_style)
         self.dtype = dtype
         self.norm_style = norm_style
-        self.ln_attn = LayerNorm(embed, eps=ln_eps, device=device)
+
+        def ln():
+            return make_norm(norm, embed, ln_eps, device)
+
+        self.ln_attn = ln()
         self.attn = MultiHeadAttention(embed, num_heads, head_dim, dtype,
                                        attn_impl=attn_impl, causal=causal,
                                        dropout_rate=dropout_rate,
+                                       use_bias=use_bias, ln_eps=ln_eps,
                                        device=device, **attn_fields)
-        self.ln_mlp = LayerNorm(embed, eps=ln_eps, device=device)
+        self.ln_mlp = None if norm_style == "parallel" else ln()
         self.mlp = Mlp(embed, mlp_dim, dtype, dropout_rate=dropout_rate,
-                       device=device)
+                       act=mlp_act, use_bias=use_bias, device=device)
+        if norm_style == "sandwich":
+            self.ln_attn_post, self.ln_mlp_post = ln(), ln()
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
@@ -332,12 +434,27 @@ class TransformerBlock(nn.Module):
         def attn(y):
             return self.attn(y, cache, layer, mask, train, generator)
 
-        if self.norm_style == "post":
-            x = self.ln_attn(x + attn(x)).to(self.dtype)
-            return self.ln_mlp(x + self.mlp(x, train, generator)).to(
-                self.dtype)
-        x = x + attn(self.ln_attn(x).to(self.dtype))
-        return x + self.mlp(self.ln_mlp(x).to(self.dtype), train, generator)
+        def mlp(y):
+            return self.mlp(y, train, generator)
+
+        def norm(ln, y):
+            return ln(y).to(self.dtype)
+
+        style = self.norm_style
+        if style == "post":
+            x = norm(self.ln_attn, x + attn(x))
+            return norm(self.ln_mlp, x + mlp(x))
+        if style == "parallel":
+            y = norm(self.ln_attn, x)
+            return x + attn(y) + mlp(y)
+        if style == "parallel2":
+            return (x + attn(norm(self.ln_attn, x))
+                    + mlp(norm(self.ln_mlp, x)))
+        if style == "sandwich":
+            x = x + norm(self.ln_attn_post, attn(norm(self.ln_attn, x)))
+            return x + norm(self.ln_mlp_post, mlp(norm(self.ln_mlp, x)))
+        x = x + attn(norm(self.ln_attn, x))
+        return x + mlp(norm(self.ln_mlp, x))
 
 
 #: the GEMMs without batch dims (a `Dense` on [B, S, E] folds to one of
@@ -367,9 +484,9 @@ def remat_mode(remat):
 
 
 class Encoder(nn.Module):
-    """`depth` blocks (`block_0` ...) and, for pre-LN blocks, the final
-    fp32 LayerNorm `ln_final` (post-LN blocks already end normalised, and
-    the JAX post-LN Encoder has none).
+    """`depth` blocks (`block_0` ...) and, unless the blocks are post-LN,
+    the final fp32 norm `ln_final` of kind `norm` (post-LN blocks already
+    end normalised, and the JAX post-LN Encoder has none).
 
     `window` reaches every block (`window_pattern='all'`) or the even ones
     (`'alternate'`: the odd blocks attend in full, the Gemma-2
@@ -380,9 +497,10 @@ class Encoder(nn.Module):
                  head_dim: int, mlp_dim: int, dtype: torch.dtype,
                  attn_impl: str = "auto", ln_eps: float = 1e-6,
                  causal: bool = False, norm_style: str = "pre",
-                 dropout_rate: float = 0.0, window: Optional[int] = None,
-                 window_pattern: str = "all", remat=False, device=None,
-                 **fields):
+                 norm: str = "layer", mlp_act: str = "gelu",
+                 use_bias: bool = True, dropout_rate: float = 0.0,
+                 window: Optional[int] = None, window_pattern: str = "all",
+                 remat=False, device=None, **fields):
         super().__init__()
         attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
         check_unported("Encoder", fields)
@@ -398,11 +516,12 @@ class Encoder(nn.Module):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed, num_heads, head_dim, mlp_dim, dtype,
                 attn_impl=attn_impl, ln_eps=ln_eps, causal=causal,
-                norm_style=norm_style, dropout_rate=dropout_rate,
+                norm_style=norm_style, norm=norm, mlp_act=mlp_act,
+                use_bias=use_bias, dropout_rate=dropout_rate,
                 window=window if windowed else None, device=device,
                 **attn_fields))
-        self.ln_final = (LayerNorm(embed, eps=ln_eps, device=device)
-                         if norm_style == "pre" else None)
+        self.ln_final = (None if norm_style == "post"
+                         else make_norm(norm, embed, ln_eps, device))
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.depth)]

@@ -16,7 +16,9 @@ default, as ViT-B/16 is published). Weights are initialised from `seed`
 with flax's default initialisers (`pos_embed` normal(0, 0.02), the cls
 token zero). `remat` checkpoints each encoder block
 (`transformer.Encoder`); the JAX field `fused_qkv` raises
-NotImplementedError when set (`transformer._UNPORTED`).
+NotImplementedError when set, and a field the JAX `ViT` does not have
+(the decoder fields `norm`, `mlp_act`, `use_bias` ...) raises TypeError
+(`_UNPORTED`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ from tfde_tpu_torch.models.transformer import (
     Dense, Encoder, check_unported, init_flax_)
 from tfde_tpu_torch.utils.devices import resolve_device
 
+#: the JAX `ViT` fields outside the port, with the default the port
+#: implements; any other name is not a field of the JAX `ViT`
+_UNPORTED = {"fused_qkv": False}
+
 
 class ViT(nn.Module):
     """Vision Transformer classifier: [B, image_size, image_size, 3]
@@ -46,7 +52,7 @@ class ViT(nn.Module):
                  attn_impl: str = "auto", image_size: int = 224,
                  remat=False, device=None, seed: int = 0, **fields):
         super().__init__()
-        check_unported("ViT", fields)
+        check_unported("ViT", fields, _UNPORTED)
         if pool not in ("cls", "gap"):
             raise ValueError(f"pool must be 'cls' or 'gap', got {pool!r}")
         if image_size % patch_size:

@@ -132,8 +132,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     impl: 'auto' | 'reference' | 'flash'. 'auto' takes flash for unmasked
     attention on a CUDA tensor, causal or of a shape the kernels take
     (`_flash_eligible`), else the reference einsum; flash raises on shapes
-    the kernels do not take (cross-attention, a head dim other than 64 or
-    128). Both are differentiable: flash through the
+    the kernels do not take (cross-attention, a head dim above 128; a
+    smaller one other than 64 is zero-padded on a CUDA tensor). Both are differentiable: flash through the
     kernels' autograd Function (forward kernel, then the backward pair).
     'ring' (sequence parallelism) is not ported yet."""
     if impl == "auto":

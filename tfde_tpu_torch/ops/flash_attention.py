@@ -12,6 +12,14 @@ CPU tensor takes `flash_forward_reference` / `flash_backward_reference`,
 the plain PyTorch versions of the same functions — which are also what
 `chip_smoke.py` holds the kernels against on the card.
 
+The kernels are compiled for head dims 64 and 128. On a CUDA tensor a
+smaller head dim (Phi-2's 80, Phi-3's 96) is zero-padded to the next of
+them on the way in and the outputs and gradients are cut back
+(`padded_forward`, `padded_backward`): a zero column adds nothing to
+Q K^T and the padded V columns give zero outputs, so this is the
+unpadded function, at the real head dim's scale. A head dim above 128
+raises (`kernel_head_dim`).
+
 `flash_attention` is differentiable: a `torch.autograd.Function` saves
 q, k, v, out and lse from the forward, and its backward is
 `flash_backward`. On CUDA that is the hand-written pair whatever the
@@ -31,6 +39,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from tfde_tpu_torch.utils.build import build_library
 
@@ -38,6 +47,11 @@ _NEG = -1e30
 
 #: head dims the kernel is compiled for
 KERNEL_HEAD_DIMS = (64, 128)
+
+#: where the port's queue names the kernels' missing head dims (256:
+#: Gemma, Gemma-2, Pythia-1B and larger, GPT-J)
+HEAD_DIM_256_ITEM = ("ROADMAP.md, queue 2, item 1: the flash kernels at "
+                     "head dim 256")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -230,6 +244,54 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim `d` at: the smallest of
+    `KERNEL_HEAD_DIMS` that is not below it (`d` itself for 64 and 128).
+    Raises ValueError above 128."""
+    for dp in KERNEL_HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(
+        f"the CUDA flash kernels take head_dim up to "
+        f"{KERNEL_HEAD_DIMS[-1]}, got {d} ({HEAD_DIM_256_ITEM})")
+
+
+def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    return F.pad(t, (0, dp - t.shape[-1]))
+
+
+def padded_forward(forward, q, k, v, causal, window, scale, logit_cap):
+    """`forward` (the kernel's launch, or a plain version) on q, k, v
+    zero-padded to `kernel_head_dim`, the output cut back to the real head
+    dim; `scale` must already be the real head dim's (or the caller's).
+    The padding adds zero to every score and gives zero output columns,
+    so out and lse are the unpadded function's."""
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    if dp == d:
+        return forward(q, k, v, causal, window, scale, logit_cap)
+    out, lse = forward(*(_pad_head_dim(t, dp) for t in (q, k, v)), causal,
+                       window, scale, logit_cap)
+    return out[..., :d].contiguous(), lse
+
+
+def padded_backward(backward, q, k, v, out, lse, do, causal, window, scale,
+                    logit_cap):
+    """`backward` (the kernels' pair, or a plain version) on q, k, v, out
+    and dO zero-padded as in `padded_forward`, the gradients cut back to
+    the real head dim. delta = rowsum(dO * O) and P are unchanged by the
+    zero columns, so dq, dk and dv are the unpadded function's."""
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    if dp == d:
+        return backward(q, k, v, out, lse, do, causal, window, scale,
+                        logit_cap)
+    q, k, v, out, do = (_pad_head_dim(t, dp) for t in (q, k, v, out, do))
+    grads = backward(q, k, v, out, lse, do, causal, window, scale,
+                     logit_cap)
+    return tuple(g[..., :d].contiguous() for g in grads)
+
+
 _TAIL = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
          ctypes.c_int, ctypes.c_void_p)
 
@@ -277,13 +339,16 @@ def build(source: str = "flash_fwd.cu", force: bool = False):
 
 def _check_launchable(*tensors: torch.Tensor) -> None:
     """What every kernel of this module takes: one CUDA device, float32 or
-    bfloat16 throughout, head_dim 64 or 128, a contiguous head dim and,
-    for bf16, 16-byte aligned rows."""
+    bfloat16 throughout, head_dim 64 or 128 (`flash_forward` and
+    `flash_backward` pad a smaller one), a contiguous head dim and, for
+    bf16, 16-byte aligned rows."""
     q = tensors[0]
     d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
+        kernel_head_dim(d)  # raises above 128, naming the queue item
         raise ValueError(
-            f"the CUDA flash kernels take head_dim {KERNEL_HEAD_DIMS}, got {d}")
+            f"the CUDA flash kernels take head_dim {KERNEL_HEAD_DIMS}, got "
+            f"{d}; flash_forward and flash_backward pad it")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(
             f"the CUDA flash kernels take float32 or bfloat16 tensors of one "
@@ -348,7 +413,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v may carry fewer heads [B, S, Kv, D] (GQA, H % Kv == 0). window:
     sliding band (causal only), row i sees cols (i - window, i]. scale
     defaults to 1/sqrt(D); logit_cap is the Gemma-2 tanh softcap, applied
-    before the mask. A CUDA tensor launches `csrc/flash_fwd.cu` and adds
+    before the mask. A CUDA tensor launches `csrc/flash_fwd.cu` (a head
+    dim below 128 other than 64 zero-padded, `padded_forward`) and adds
     one to `flash_forward.launches`; a CPU tensor takes
     `flash_forward_reference`."""
     _check_args(q, k, v, causal, window, logit_cap)
@@ -360,7 +426,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_forward runs on CUDA or the CPU, not "
                          f"{q.device}")
-    return _launch(q, k, v, causal, window, scale, logit_cap)
+    return padded_forward(_launch, q, k, v, causal, window, scale,
+                          logit_cap)
 
 
 #: launches of the CUDA kernel since the last reset (the count a run reads
@@ -420,7 +487,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from the forward's residuals (q, k, v, out, lse) and its options.
 
     A CUDA tensor computes delta = rowsum(dO * O) in fp32 and launches the
-    two kernels of `csrc/flash_bwd.cu` (dK/dV, then dQ), adding one to
+    two kernels of `csrc/flash_bwd.cu` (dK/dV, then dQ; a head dim below
+    128 other than 64 zero-padded, `padded_backward`), adding one to
     `flash_backward.dkv_launches` and `.dq_launches`; a CPU tensor takes
     `flash_backward_reference`."""
     _check_args(q, k, v, causal, window, logit_cap)
@@ -436,6 +504,12 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.device != q.device or not lse.is_contiguous():
         raise ValueError("the CUDA flash backward reads lse as a contiguous "
                          "[B, H, S] tensor on q's device")
+    return padded_backward(_launch_backward, q, k, v, out, lse, do, causal,
+                           window, scale, logit_cap)
+
+
+def _launch_backward(q, k, v, out, lse, do, causal, window, scale,
+                     logit_cap):
     delta = _delta(out, do)
     opts = (causal, window, scale, logit_cap)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *opts)

@@ -2,11 +2,17 @@
 `examples/serve_gpt.py`.
 
 Serves synthetic random-token requests through
-`inference.server.ContinuousBatcher` over GPT-2 small (or the tiny CI
+`inference.server.ContinuousBatcher` over a converted checkpoint
+(`--hf-dir`: an artifact of `python -m tfde_tpu_torch.models.convert`, or
+of the JAX package's converter), or over GPT-2 small (or the tiny CI
 config) with random weights made from `--seed`. Runs on CUDA by default:
 
+    python -m tfde_tpu_torch.serve_gpt --hf-dir DIR --requests 16
     python -m tfde_tpu_torch.serve_gpt --requests 16
     python -m tfde_tpu_torch.serve_gpt --tiny --device cpu --requests 6
+
+Request i's prompt is `rng.integers(0, vocab, rng.integers(2, 9))` from
+`np.random.default_rng(--seed)`, drawn in order.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 
 from tfde_tpu_torch.inference.server import ContinuousBatcher
+from tfde_tpu_torch.models.convert import load_converted
 from tfde_tpu_torch.models.gpt import GPT2Small, gpt_tiny_test
 from tfde_tpu_torch.utils.devices import resolve_device
 
@@ -46,10 +53,16 @@ def main(argv=None):
                         help="decode ticks per host round-trip (adapts "
                              "down near row completions; 1 = a host sync "
                              "every token)")
+    parser.add_argument("--hf-dir", type=str, default=None,
+                        help="serve a conversion artifact (params.npz + "
+                             "model_config.json from `python -m "
+                             "tfde_tpu_torch.models.convert`) instead of "
+                             "random weights; on CUDA its head dim must "
+                             "be at most 128")
     parser.add_argument("--tiny", action="store_true",
-                        help="the tiny CI config instead of GPT-2 small; its "
-                             "head dim 8 runs with --device cpu only (the "
-                             "CUDA flash kernel takes head dims 64 and 128)")
+                        help="the tiny CI config instead of GPT-2 small; on "
+                             "CUDA the flash kernels run its head dim 8 "
+                             "zero-padded to 64")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the random weights, prompts and draws")
@@ -62,9 +75,14 @@ def main(argv=None):
             "--top-k/--top-p/--min-p only act when sampling — set "
             "--temperature > 0")
     device = resolve_device(args.device)
-    build = gpt_tiny_test if args.tiny else GPT2Small
-    model = build(device=device, seed=args.seed).cast_compute_weights_()
-    log.warning("serving RANDOM weights (seed %d)", args.seed)
+    if args.hf_dir:
+        model = load_converted(args.hf_dir, device=device)
+    else:
+        build = gpt_tiny_test if args.tiny else GPT2Small
+        model = build(device=device, seed=args.seed)
+        log.warning("serving RANDOM weights (seed %d); pass --hf-dir for a "
+                    "real model", args.seed)
+    model.cast_compute_weights_()
     srv = ContinuousBatcher(
         model, batch_size=args.batch_size, max_len=args.max_len,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,

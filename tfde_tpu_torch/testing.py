@@ -10,6 +10,10 @@ rendezvouses through a `FileStore` (``file://``) or, for
 `bootstrap_worker`, through `bootstrap()`'s TCP store on a port the test
 picked free. Every group is destroyed in a `finally`.
 
+`FULL_WIDTH` and `FIELD_GROUPS` are the converted-checkpoint
+configurations that the CPU tests and `chip_smoke.py`'s hf_serve phase
+share.
+
 `recipe` is the verify recipe through the Estimator, and
 ``python -m tfde_tpu_torch.testing MODEL_DIR OUT_JSON --max-steps N``
 (`recipe_main`; on CUDA unless ``--device cpu``) runs it in a process of
@@ -36,6 +40,76 @@ log = logging.getLogger(__name__)
 #: this spawn's token (`run_ranks`), which makes every store path a
 #: spawn's own
 _SPAWN_TOKEN = ""
+
+
+#: the two checkpoints served at their published widths, as (family for
+#: `models.convert.save_converted`, `models.gpt.GPT` fields), from each
+#: model's `config.json`: meta-llama/Llama-3.2-1B (1,235,814,400
+#: parameters, head dim 64) and Qwen/Qwen3-0.6B (596,049,920, head dim
+#: 128 beside hidden 1024)
+FULL_WIDTH = {
+    "Llama-3.2-1B": ("llama", dict(
+        vocab_size=128256, hidden_size=2048, depth=16, num_heads=32,
+        num_kv_heads=8, mlp_dim=8192, max_position=131072, position="rope",
+        rope_theta=500000.0, rope_scaling=("llama3", 32.0, 1.0, 4.0, 8192.0),
+        norm="rms", mlp_act="swiglu", use_bias=False, tie_embeddings=True,
+        ln_eps=1e-5)),
+    "Qwen3-0.6B": ("qwen3", dict(
+        vocab_size=151936, hidden_size=1024, depth=28, num_heads=16,
+        num_kv_heads=8, head_dim=128, mlp_dim=3072, max_position=40960,
+        position="rope", rope_theta=1000000.0, norm="rms", mlp_act="swiglu",
+        use_bias=False, qk_norm=True, tie_embeddings=True, ln_eps=1e-6)),
+}
+
+_SMALL = dict(vocab_size=256, depth=2, max_position=128)
+_ROPE_RMS = dict(position="rope", norm="rms", mlp_act="swiglu",
+                 use_bias=False)
+
+#: one small GPT per group of the newly ported decoder fields, as (family,
+#: `GPT` fields); the head dims are ones the CUDA kernels take (Phi's 80
+#: through the zero padding)
+FIELD_GROUPS = {
+    # rms, swiglu, no bias, GQA 8 -> 2, llama3 rope scaling, untied head
+    "llama": ("llama", dict(
+        _SMALL, **_ROPE_RMS, hidden_size=512, num_heads=8, num_kv_heads=2,
+        mlp_dim=1024, rope_scaling=("llama3", 8.0, 1.0, 4.0, 32.0),
+        tie_embeddings=False, ln_eps=1e-5)),
+    # qk_norm, head_dim 128 decoupled from hidden 128 / 4 heads
+    "qwen3": ("qwen3", dict(
+        _SMALL, **_ROPE_RMS, hidden_size=128, num_heads=4, num_kv_heads=2,
+        head_dim=128, mlp_dim=256, rope_theta=1000000.0, qk_norm=True)),
+    # biased q/k/v beside a bias-free out projection and MLP
+    "qwen2": ("qwen2", dict(
+        _SMALL, **_ROPE_RMS, hidden_size=256, num_heads=4, num_kv_heads=2,
+        mlp_dim=512, qkv_bias=True, tie_embeddings=False)),
+    # sandwich norms, geglu, embed_scale, attn_scale, both softcaps, the
+    # alternating window, head dim 128
+    "gemma2": ("gemma2", dict(
+        _SMALL, **dict(_ROPE_RMS, mlp_act="geglu"), hidden_size=256,
+        num_heads=4, num_kv_heads=2, head_dim=128, mlp_dim=512,
+        norm_style="sandwich", embed_scale=16.0, attn_scale=256 ** -0.5,
+        attn_logit_cap=4.0, final_logit_cap=3.0, sliding_window=16,
+        sliding_window_pattern="alternate")),
+    # one parallel LayerNorm, partial rope, untied head with a bias, head
+    # dim 80 (padded to 128 on the card)
+    "phi": ("phi", dict(
+        _SMALL, hidden_size=320, num_heads=4, mlp_dim=640, position="rope",
+        rope_dim=32, norm_style="parallel", tie_embeddings=False,
+        head_bias=True, ln_eps=1e-5)),
+    # a parallel residual with two LayerNorms
+    "neox": ("neox", dict(
+        _SMALL, hidden_size=256, num_heads=4, mlp_dim=512, position="rope",
+        rope_dim=16, norm_style="parallel2", tie_embeddings=False,
+        ln_eps=1e-5)),
+    # multi-query attention: one KV head
+    "bigcode": ("bigcode", dict(
+        _SMALL, hidden_size=256, num_heads=4, num_kv_heads=1, mlp_dim=512,
+        ln_eps=1e-5)),
+    # relu MLP
+    "opt": ("opt", dict(
+        _SMALL, hidden_size=256, num_heads=4, mlp_dim=512, mlp_act="relu",
+        ln_eps=1e-5)),
+}
 
 
 def _child(fn: Callable, rank: int, args: tuple, results, token: str
