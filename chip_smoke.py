@@ -11,20 +11,29 @@ without printing a result:
    (tfde_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu) with nvcc (sm_90a),
    one nvcc per source, all started together; count each bf16 kernel's
    wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA) instructions in
-   `cuobjdump -sass` (the forward, dK/dV and dQ kernels must have wgmma
-   and TMA and no mma.sync), and time one tensor-map encode on the host;
+   `cuobjdump -sass` at each head dim, 64, 128 and 256 (the forward, dK/dV
+   and dQ kernels must have wgmma and TMA and no mma.sync), and time one
+   tensor-map encode on the host;
 3. kernels — each kernel against its plain PyTorch version on the card,
    over the slice shape and the option matrix (the forward's out and lse;
    the backward pair's dq, dk and dv; at the slice shape and one GQA case
    two backward calls must give the same bits), then its time beside the
    plain version's, the library call's (SDPA's forward, SDPA's backward;
-   timing only) and the bound; then the three bf16 kernels at D 128;
+   timing only) and the bound; then the three bf16 kernels at D 128; then
+   at D 256 (cases of the option matrix above, fp32 among them, and 160
+   zero-padded), timed at Gemma-2-2B's shapes: the forward at its prefill
+   ([1, 4096, 8 -> 4 KV heads, 256], window 4096, cap 50, scale 1/16),
+   the backward pair at [2, 1024, 8 -> 4, 256] with the cap;
 4. parity — a small fp32 GPT with head_dim 64: logits of the CUDA model
    (flash prefill) against the same weights on the CPU (plain attention),
    and the CUDA batcher's greedy tokens against CPU `generate`;
 5. train parity — the same kind of GPT takes one next_token_loss + AdamW
    step on CUDA (flash forward and backward kernels) and on the CPU
    (plain versions): loss, every gradient and the updated parameters;
+   then a 2-layer GPT with head dim 256 (Gemma-2's fields) takes three
+   steps in fp32 on the card and on the CPU (every loss, the final
+   parameters) and in bf16 on the card, the counters zeroed just before:
+   each D-256 kernel once a layer a step;
 6. serve  — GPT-2 small at full width (768 x 12 layers, 12 heads, MLP
    3072, vocab 50257, 1024 positions, bf16, random weights from seed 0)
    behind a ContinuousBatcher (batch 8, max_len 1024, scan depth 4,
@@ -94,13 +103,16 @@ without printing a result:
    whose newest artifact must be the one best_metric.json names;
    `python -m tfde_tpu_torch.mnist_tf2 --custom-loop --max-steps 100`,
    then `--model-dir D2 --max-steps 200`, each exiting 0 at its step
-   count with a finite loss; a GPT whose forward launches the flash
-   kernel must refuse to export (NotImplementedError after one probe
-   launch); on a machine with two cards or more, ParameterServerStrategy
+   count with a finite loss; a bf16 GPT whose forward launches the flash
+   kernel exports from the card (the kernels are `torch.library` ops, so
+   the trace records them and launches nothing), and its artifact,
+   loaded in a fresh process on the card, launches the kernel once a
+   layer and gives the live model's logits bit for bit; on a machine
+   with two cards or more, ParameterServerStrategy
    one process a card on NCCL against the mirrored run (the same bits on
    every rank, each rank's optimizer-state bytes: 296,264 at four). It
-   runs none of the flash kernels but the probe's. Every directory lies
-   under build/ and is removed at the end;
+   runs none of the flash kernels but the exported GPT's. Every directory
+   lies under build/ and is removed at the end;
 11. resnet — CIFAR-10 ResNet-50 and the host input pipeline: the native
    loader's library built with g++ (seconds); one epoch of the 50,000
    training rows through NativeBatchLoader (batch 128, seed 0) holding
@@ -176,7 +188,11 @@ without printing a result:
    against their plain versions, timed beside their band-aware bounds
    and SDPA (`enable_gqa`, the band as a boolean mask; timing only); then
    `bert_mlm.main --remat` for 10 steps on a one-rank NCCL group: 24
-   forward launches a step;
+   forward launches a step; then GPT-2 small through `gpt_lm.main
+   --generate 32 --export-generate DIR --temperature 0` (3 steps, then 32
+   greedy tokens after two 16-token prompts, exported as a generative
+   artifact), the artifact loaded in a fresh process on the card: the
+   same tokens, the flash prefill once a layer on both sides;
 15. hf_serve — converted checkpoints (`models/convert.py`, `serve_gpt
    --hf-dir`): one small GPT per group of decoder fields
    (`testing.FIELD_GROUPS`: Llama, Qwen3, Qwen2, Gemma-2, Phi at head dim
@@ -200,11 +216,18 @@ without printing a result:
    batch-invariant); then the forward kernel at the two prefill shapes
    ([1, 4096, 32 -> 8 KV heads, 64] and [1, 4096, 16 -> 8, 128], bf16,
    causal) against its plain version, three timed calls beside the plain
-   version, SDPA (`enable_gqa`) and the bound. Every artifact lies under
-   build/ and is removed at the end.
+   version, SDPA (`enable_gqa`) and the bound. Gemma-2-2B (head dim 256,
+   26 layers, the caps, the alternating window 4096) is served the same
+   way from its published widths, built on the card from seed 0 without
+   the artifact round trip (`save_converted` and `--hf-dir` are held on
+   the two above; its fp32 artifact would be ~10.5 GB): the batcher's
+   D-256 forward launches exactly 26 a prefill wave, the fp32 and bf16
+   logit holds and the fp32 tokens. Every artifact lies under build/ and
+   is removed at the end.
 
-The last two lines are the kernels JSON line and
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+The last two lines are the kernels JSON line (the three kernels, then
+the same three at head dim 256: launches from the Gemma-2-2B serve and
+the D-256 training check) and {"ok": true, "device": {...}}. The script imports nothing of JAX.
 `--phases kernels,train` (any subset of the phases after the build) runs
 only those, prints no result line and exits 1: the parent/change A/B of
 kernel and train times.
@@ -349,7 +372,7 @@ def phase_build(fa):
                     or "spill" in line or "arning" in line
                     or "Performance" in line):
                 print(f"  ptxas: {line.strip()}")
-    _check_sass(libs)
+    _check_sass(fa, libs)
     _print_encode_time(fa)
 
 
@@ -359,7 +382,7 @@ HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "dkv_bf16_kernel",
                   "dq_bf16_kernel")
 
 
-def _check_sass(libs):
+def _check_sass(fa, libs):
     """Count HGMMA, UTMALDG and HMMA instructions of each bf16 kernel in
     `cuobjdump -sass` of the built libraries; raise if one lacks wgmma or
     TMA, or still has an mma.sync."""
@@ -372,7 +395,7 @@ def _check_sass(libs):
             name = next((k for k in HOPPER_KERNELS if k in symbol), None)
             if name is None:
                 continue
-            d = 128 if "ILi128E" in symbol else 64
+            d = next(d for d in (256, 128, 64) if f"ILi{d}E" in symbol)
             print(f"sass: {name}<{d}>: HGMMA {counts['HGMMA']}, UTMALDG "
                   f"{counts['UTMALDG']}, HMMA {counts['HMMA']}, local-memory "
                   f"STL {counts['STL']} / LDL {counts['LDL']}")
@@ -380,7 +403,7 @@ def _check_sass(libs):
                 raise AssertionError(f"{name}<{d}> compiled without wgmma or "
                                      f"TMA, or with mma.sync: {counts}")
             seen.add((name, d))
-    want = {(k, d) for k in HOPPER_KERNELS for d in (64, 128)}
+    want = {(k, d) for k in HOPPER_KERNELS for d in fa.KERNEL_HEAD_DIMS}
     if seen != want:
         raise AssertionError(f"the SASS check found {sorted(seen)}, not "
                              f"{sorted(want)}")
@@ -428,11 +451,22 @@ CASES = [
     ("pad_d96_gqa", 2, 257, 32, 8, 96, torch.bfloat16, True, None, None,
      None),
     ("mqa_kv1", 2, 300, 12, 1, 64, torch.bfloat16, True, None, None, None),
+    # head dim 256 (Gemma, Gemma-2: query_pre_attn_scalar 256 is the scale
+    # 1/16, cap 50; GPT-J, Pythia-1B), where the kernels split their
+    # outputs by columns: a window and GQA, a ragged non-causal edge, fp32
+    # with a window and cap, and 160 zero-padded to 256
+    ("d256_gqa_window_cap", 2, 700, 8, 4, 256, torch.bfloat16, True, 100,
+     0.0625, 50.0),
+    ("d256_noncausal_s200", 2, 200, 4, 4, 256, torch.bfloat16, False, None,
+     None, None),
+    ("fp32_d256_gqa_window_cap", 1, 333, 8, 2, 256, torch.float32, True, 70,
+     0.0625, 50.0),
+    ("pad_d160", 2, 300, 8, 8, 160, torch.bfloat16, True, None, None, None),
 ]
 
 #: the cases whose backward runs twice and must give the same bits (no
 #: atomics, a fixed order of every sum)
-DETERMINISM_CASES = ("slice", "gqa_window_cap_scale")
+DETERMINISM_CASES = ("slice", "gqa_window_cap_scale", "d256_gqa_window_cap")
 
 #: the D 128 timing shape: the slice's model width (768) as 6 heads of 128
 D128 = (8, 1024, 6, 6, 128)
@@ -575,7 +609,31 @@ def phase_kernels(fa, dev):
                   f"{fwd['bound_ms']:.4f} ({fwd['bound_by']})")
             _time_backward(fa, q, k, v, do, out, lse, causal, dev, result)
     _time_d128(fa, dev, gen)
+    result.update(_kernels_d256(fa, dev))
     return result
+
+
+#: head dim 256 at Gemma-2-2B's shapes ([B, S, H, D] queries and KV
+#: heads): the prefill forward of a 4096-token prompt and the backward pair
+#: of 2 x 1024 training tokens, both causal with the model's logit cap 50
+#: and scale 1/16 (query_pre_attn_scalar 256); the prefill with the local
+#: layers' window 4096, which at S = 4096 is the causal band
+D256_PREFILL, D256_TRAIN, D256_OPTS = ((1, 4096, 8, 256), 4), \
+    ((2, 1024, 8, 256), 4), dict(causal=True, scale=1 / 16, cap=50.0)
+
+
+def _kernels_d256(fa, dev):
+    """The three bf16 kernels at head dim 256 (`_kernels_at`): the forward
+    at Gemma-2-2B's prefill shape, the backward pair at its training
+    shape. Returns their entries of the kernels JSON line."""
+    fwd = _kernels_at(fa, dev, "d256 prefill", D256_PREFILL[0],
+                      kv=D256_PREFILL[1], window=4096, backward=False,
+                      **D256_OPTS)
+    bwd = _kernels_at(fa, dev, "d256 train", D256_TRAIN[0],
+                      kv=D256_TRAIN[1], **D256_OPTS)
+    return {"flash_fwd_d256": fwd["flash_fwd"],
+            "flash_bwd_dkv_d256": bwd["flash_bwd_dkv"],
+            "flash_bwd_dq_d256": bwd["flash_bwd_dq"]}
 
 
 def _time_d128(fa, dev, gen):
@@ -765,6 +823,79 @@ def phase_train_parity(fa, dev):
                              "kernel once per layer")
     if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and param_rel <= 1e-4):
         raise AssertionError("the CUDA train step disagrees with the CPU")
+    return _train_parity_d256(fa, dev)
+
+
+#: the D-256 training check: a 2-layer Gemma-2-shaped GPT (head dim 256
+#: beside hidden 256, 4 -> 2 KV heads, rope, RMSNorm, geglu, the cap 50
+#: and scale 1/16, the window 24 on even layers), D256_STEPS AdamW steps
+#: of 4 x 96 tokens
+D256_GPT = dict(vocab_size=97, hidden_size=256, depth=2, num_heads=4,
+                num_kv_heads=2, head_dim=256, mlp_dim=512, max_position=128,
+                position="rope", norm="rms", mlp_act="geglu", use_bias=False,
+                attn_scale=1 / 16, attn_logit_cap=50.0, sliding_window=24,
+                sliding_window_pattern="alternate", seed=3)
+D256_STEPS = 3
+
+
+def _train_parity_d256(fa, dev):
+    """D256_STEPS next_token_loss + AdamW steps of a GPT with head dim
+    256 on the card (the D-256 forward and backward kernels inside
+    autograd) against the same steps on the CPU, fp32: every step's loss
+    and the final parameters; then the same steps in bf16 compute on the
+    card (the bf16 D-256 kernels), losses finite and near fp32's. The
+    counters are zeroed just before and read just after: one launch of
+    each kernel a layer a step. Returns the D-256 launches by kernel."""
+    from tfde_tpu_torch.models.gpt import GPT, next_token_loss
+    from tfde_tpu_torch.training.optimizers import adamw
+    from tfde_tpu_torch.training.step import init_state, make_custom_train_step
+
+    ids = np.random.default_rng(9).integers(0, 97, (D256_STEPS, 4, 96))
+    runs = {}
+    torch.cuda.synchronize(dev)
+    _zero_counts(fa)
+    weights = None
+    for where, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                         ("cuda bf16", torch.bfloat16)):
+        device = dev if where.startswith("cuda") else "cpu"
+        model = GPT(device=device, dtype=dtype, **D256_GPT)
+        if weights is None:  # the card's initial weights on every side
+            weights = {k: t.detach().cpu().clone()
+                       for k, t in model.state_dict().items()}
+        model.load_state_dict(weights)
+        state = init_state(model, adamw(model, 1e-3, weight_decay=0.1))
+        step_fn = make_custom_train_step(next_token_loss)
+        losses = []
+        for x in ids:
+            state, metrics = step_fn(state, (torch.as_tensor(x,
+                                                             device=device),))
+            losses.append(float(metrics["loss"]))
+        params = torch.cat([p.detach().cpu().flatten()
+                            for p in model.parameters()])
+        runs[where] = (losses, params)
+    torch.cuda.synchronize(dev)
+    launched = {"fwd": fa.flash_forward.by_head_dim[256],
+                "dkv": fa.flash_backward.dkv_by_head_dim[256],
+                "dq": fa.flash_backward.dq_by_head_dim[256]}
+    (l_gpu, p_gpu), (l_cpu, p_cpu), (l_bf16, _) = runs.values()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    param_rel = _rel(p_gpu, p_cpu)
+    bf16_rel = max(abs(a - b) / abs(b) for a, b in zip(l_bf16, l_gpu))
+    want = 2 * D256_GPT["depth"] * D256_STEPS
+    print(f"train parity d256: a GPT with head dim 256 (4 -> 2 KV heads, "
+          f"cap 50, window 24), {D256_STEPS} AdamW steps of 4 x 96 tokens, "
+          f"CUDA kernels vs CPU plain, fp32: losses {l_gpu} vs {l_cpu} "
+          f"(worst rel {loss_rel:.3e}, tol 1e-5), final params rel "
+          f"{param_rel:.3e} (tol 1e-4); bf16 compute on the card: losses "
+          f"{l_bf16} (worst rel to fp32 {bf16_rel:.3e}, tol 2e-2); D-256 "
+          f"launches {launched} (fp32 and bf16 runs)")
+    if set(launched.values()) != {want}:
+        raise AssertionError(f"the D-256 train steps did not launch each "
+                             f"kernel once a layer a step: {launched}")
+    if not (loss_rel <= 1e-5 and param_rel <= 1e-4 and bf16_rel <= 2e-2
+            and all(math.isfinite(x) for x in l_bf16)):
+        raise AssertionError("the D-256 train steps disagree with the CPU")
+    return launched
 
 
 #: kernel-name fragments (lower case) of each group in the train step's
@@ -1700,8 +1831,8 @@ def _ex_recipe(dev, root, dp_ms):
             torch.cuda.synchronize(dev)
             walls.append((time.perf_counter() - t0) * 1e3 / 50)
     print(f"export timing: export_serving of BatchNormCNN {export_s:.2f} s "
-          f"(a CPU copy traced by torch.export, written); artifact "
-          f"{size} bytes ({', '.join(sorted(os.listdir(out)))}); a batch of "
+          f"(an eval copy traced by torch.export on the card, written); "
+          f"artifact {size} bytes ({', '.join(sorted(os.listdir(out)))}); a batch of "
           f"128: served {served_ms:.4f} ms, live {live_ms:.4f} ms device "
           f"time (CUDA events, L2 flushed); {walls[0]:.4f} and "
           f"{walls[1]:.4f} ms a call on the host clock over 50 calls; on "
@@ -1769,27 +1900,88 @@ def _ex_tf2(root):
         raise AssertionError("mnist_tf2 did not end as it should")
 
 
-def _ex_flash_refused(dev, root):
-    """A GPT whose forward launches the flash kernels on the card must not
-    export: NotImplementedError, after one probe launch."""
+#: a child process that loads an artifact on the card with the flash
+#: launch counters zeroed: argv[1] "serving" or "generate", the artifact,
+#: the input ids (.npy), the output (.npy); prints its launches as JSON
+ARTIFACT_CHILD = """
+import json, sys
+import numpy as np
+from tfde_tpu_torch.export import load_generate, load_serving
+from tfde_tpu_torch.ops import flash_attention as fa
+kind, path, ids_npy, out_npy = sys.argv[1:5]
+ids = np.load(ids_npy)
+fa.reset_launches()
+if kind == "serving":
+    out = load_serving(path).predict(ids)
+else:
+    out = load_generate(path).generate(ids, seed=int(sys.argv[5]))[0]
+np.save(out_npy, out)
+print(json.dumps({"fwd": fa.flash_forward.launches,
+                  "fwd_by_head_dim": dict(fa.flash_forward.by_head_dim)}))
+"""
+
+
+def _artifact_child(kind, path, ids, root, *extra):
+    """`ARTIFACT_CHILD` on `path` with `ids`: (its output, its launches,
+    seconds); raises unless it exits 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ids_npy = os.path.join(root, f"{kind}_ids.npy")
+    out_npy = os.path.join(root, f"{kind}_out.npy")
+    np.save(ids_npy, ids)
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHILD, kind, path, ids_npy, out_npy,
+         *map(str, extra)], cwd=here, env=env, capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"the {kind} artifact child exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return (np.load(out_npy), json.loads(proc.stdout.strip().splitlines()[-1]),
+            secs)
+
+
+def _artifact_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _ex_flash_gpt(fa, dev, root):
+    """A GPT whose forward launches the flash kernel on the card exports
+    (the trace launches nothing: fake tensors), and its artifact, loaded
+    in a fresh process on the card, launches the kernel once a layer and
+    gives the live model's logits, bit for bit."""
     from tfde_tpu_torch.export import export_serving
     from tfde_tpu_torch.models.gpt import GPT
-    from tfde_tpu_torch.ops import flash_attention as fa
 
-    model = GPT(vocab_size=97, hidden_size=128, depth=1, num_heads=2,
+    model = GPT(vocab_size=97, hidden_size=128, depth=2, num_heads=2,
                 mlp_dim=256, max_position=64, dtype=torch.bfloat16,
                 device=dev)
-    before = fa.flash_forward.launches
-    try:
-        export_serving(model, (None, 16), os.path.join(root, "gpt"),
-                       input_dtype=torch.int64)
-    except NotImplementedError as e:
-        print(f"export gpt: a GPT (head dim 64) on the card refused after "
-              f"{fa.flash_forward.launches - before} probe launch: {e}")
-    else:
-        raise AssertionError("a flash GPT exported from the card")
-    if fa.flash_forward.launches - before != 1:
-        raise AssertionError("the probe did not launch the flash kernel")
+    ids = np.random.default_rng(8).integers(0, 97, (3, 16))
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    path = export_serving(model, (None, 16), os.path.join(root, "gpt"),
+                          input_dtype=torch.int64, apply_softmax=False)
+    export_s, traced = time.perf_counter() - t0, _counts(fa)
+    with torch.no_grad():
+        live = model(torch.as_tensor(ids, device=dev)).cpu().numpy()
+    live_launches = _counts(fa)[0]
+    served, child, child_s = _artifact_child("serving", path, ids, root)
+    same = bool(np.array_equal(served, live))
+    err = float(np.abs(served - live).max())
+    print(f"export gpt: a bf16 GPT (head dim 64, 2 layers) on the card "
+          f"exported in {export_s:.2f} s ({_artifact_bytes(path):,} bytes; "
+          f"flash launches while tracing {traced}); served in a fresh "
+          f"process on the card ({child_s:.1f} s): flash launches "
+          f"{child['fwd']} (live {live_launches}), logits equal to the live "
+          f"model's bit for bit: {same} (max abs {err:.3e})")
+    if traced != (0, 0, 0) or live_launches != 2 or child["fwd"] != 2:
+        raise AssertionError("the exported GPT did not launch the flash "
+                             "kernel once a layer on both sides")
+    if not same:
+        raise AssertionError("the served GPT's logits differ from the live "
+                             "model's")
 
 
 def _ex_cards():
@@ -1842,7 +2034,7 @@ def _ex_cards():
                              f"{EX_PS_BYTES[n]}")
 
 
-def phase_export(dev, dp_ms=None):
+def phase_export(fa, dev, dp_ms=None):
     """The reference's two Estimator recipes and the serving export on the
     card (docstring, phase 10). Every directory lies under build/ and is
     removed at the end."""
@@ -1856,7 +2048,7 @@ def phase_export(dev, dp_ms=None):
         _ex_recipe(dev, root, dp_ms)
         _ex_best(dev, root)
         _ex_tf2(root)
-        _ex_flash_refused(dev, root)
+        _ex_flash_gpt(fa, dev, root)
         _ex_cards()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2006,9 +2198,7 @@ def _rn_streaming(dev, root, train):
 
 
 def _zero_counts(fa) -> None:
-    fa.flash_forward.launches = 0
-    fa.flash_backward.dkv_launches = 0
-    fa.flash_backward.dq_launches = 0
+    fa.reset_launches()
 
 
 def _counts(fa) -> tuple:
@@ -2326,14 +2516,17 @@ VIT_EXAMPLES, VIT_ENTRY_STEPS, VIT_ENTRY_EXAMPLES = 1024, 10, 512
 ENC_TOL = {"loss": 1e-5, "params": 1e-4}
 
 
-def _kernels_at(fa, dev, label, shape, kv=None, causal=False, window=None):
+def _kernels_at(fa, dev, label, shape, kv=None, causal=False, window=None,
+                scale=None, cap=None, backward=True):
     """The three bf16 kernels against their plain versions at a model's
     attention shape ([B, S, H, D] queries, `kv` KV heads, unmasked but
-    for the causal band): the forward's out and lse, the backward pair's
-    dq, dk and dv (`_check_backward`); then each kernel's time beside the
-    plain version's, SDPA's (timing only; the band as a boolean mask, GQA
-    through `enable_gqa`) and its bound. Returns {kernel: {max_abs_err,
-    ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    for the causal band; `scale` and the logit `cap` as the model sets
+    them): the forward's out and lse, the backward pair's dq, dk and dv
+    (`_check_backward`; with `backward` False the forward only); then each
+    kernel's time beside the plain version's, SDPA's (timing only; the
+    band as a boolean mask, GQA through `enable_gqa`; SDPA has no logit
+    cap) and its bound. Returns {kernel: {max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by}}."""
     import torch.nn.functional as F
 
     b, s, h, d = shape
@@ -2343,7 +2536,7 @@ def _kernels_at(fa, dev, label, shape, kv=None, causal=False, window=None):
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    opts = (causal, window)
+    opts = (causal, window, scale, cap)
     out, lse = fa.flash_forward(q, k, v, *opts)
     torch.cuda.synchronize(dev)
     ref_out, ref_lse = fa.flash_forward_reference(q, k, v, *opts)
@@ -2354,34 +2547,36 @@ def _kernels_at(fa, dev, label, shape, kv=None, causal=False, window=None):
     ok = (bool(torch.isfinite(out).all()) and out_rel <= tol_out
           and lse_err <= tol_lse)
     what = (f"B={b} S={s} H={h} KV={kv} D={d} bf16 "
-            f"{'causal' if causal else 'non-causal'} window={window}")
+            f"{'causal' if causal else 'non-causal'} window={window} "
+            f"scale={scale} cap={cap}")
     print(f"kernel flash_fwd {label}: {what}: out rel {out_rel:.3e} (tol "
           f"{tol_out:g}), lse max abs {lse_err:.3e} (tol {tol_lse:g}), out "
           f"max abs {max_abs:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash_fwd disagrees with its plain version "
                              f"at the {label} shape")
-    do, out, lse, dq_err, dkv_err = _check_backward(
-        fa, label, q, k, v, causal, window, None, None, gen)
     del ref_out, ref_lse
-    delta = fa._delta(out, do)
-    res = {"flash_fwd": {"max_abs_err": max_abs},
-           "flash_bwd_dkv": {"max_abs_err": dkv_err},
-           "flash_bwd_dq": {"max_abs_err": dq_err}}
+    res = {"flash_fwd": {"max_abs_err": max_abs}}
     res["flash_fwd"]["ms"] = _time_ms(lambda: fa.flash_forward(q, k, v,
                                                                *opts), dev)
     res["flash_fwd"]["plain_ms"] = _time_ms(
         lambda: fa.flash_forward_reference(q, k, v, *opts), dev, iters=3)
-    res["flash_bwd_dkv"]["ms"] = _time_ms(
-        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, *opts), dev)
-    res["flash_bwd_dq"]["ms"] = _time_ms(
-        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, *opts), dev)
-    plain_bwd = _time_ms(lambda: fa.flash_backward_reference(
-        q, k, v, out, lse, do, *opts), dev, iters=3)
+    if backward:
+        do, out, lse, dq_err, dkv_err = _check_backward(
+            fa, label, q, k, v, *opts, gen)
+        delta = fa._delta(out, do)
+        res["flash_bwd_dkv"] = {"max_abs_err": dkv_err}
+        res["flash_bwd_dq"] = {"max_abs_err": dq_err}
+        res["flash_bwd_dkv"]["ms"] = _time_ms(
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, *opts), dev)
+        res["flash_bwd_dq"]["ms"] = _time_ms(
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, *opts), dev)
+        plain_bwd = _time_ms(lambda: fa.flash_backward_reference(
+            q, k, v, out, lse, do, *opts), dev, iters=3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    sdpa = {}
-    if window is not None:
+    sdpa = {} if scale is None else {"scale": scale}
+    if window is not None and window < s:
         rows = torch.arange(s, device=dev)[:, None]
         ago = rows - torch.arange(s, device=dev)[None, :]
         sdpa["attn_mask"] = (ago >= 0) & (ago < window)
@@ -2391,11 +2586,14 @@ def _kernels_at(fa, dev, label, shape, kv=None, causal=False, window=None):
         sdpa["enable_gqa"] = True
     res["flash_fwd"]["library_ms"] = _time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa), dev)
-    ref = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
-    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
-        ref, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), dev)
+    if backward:
+        ref = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+        sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
+            ref, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), dev)
     for name, kernel in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
                          ("flash_bwd_dq", "dq")):
+        if name not in res:
+            continue
         r = res[name]
         r["bound_ms"], r["bound_by"] = _bound(b, s, h, kv, d, dtype, causal,
                                               window, kernel)
@@ -2994,6 +3192,67 @@ def _gl_bert_remat(fa, dev):
                              f"times a step: {launches}")
 
 
+#: gpt_lm --generate: GPT-2 small trained a few steps, then 32 tokens
+#: greedy after a 16-token prompt of two rows, exported and served again
+GL_GEN_STEPS, GL_GEN_TOKENS = 3, 32
+
+
+def _gl_generate(fa, dev, root):
+    """`gpt_lm.main([... "--generate", "32", "--export-generate", DIR,
+    "--temperature", "0"])` at GPT-2 small's width: the in-process greedy
+    tokens (one flash prefill: 12 launches beyond the training steps'),
+    the export's seconds and bytes, then the artifact loaded in a fresh
+    process on the card, which must give the same tokens for the same
+    seed and launch the flash kernel once a layer in its prefill."""
+    from tfde_tpu_torch import gpt_lm
+
+    calls = {}
+    real_generate, real_export = gpt_lm.generate, gpt_lm.export_generate
+
+    def generate(model, prompt, n, **kw):
+        calls["prompt"], calls["seed"] = np.asarray(prompt), kw["seed"]
+        before = fa.flash_forward.launches
+        out = real_generate(model, prompt, n, **kw)
+        calls["tokens"] = out[0].cpu().numpy()
+        calls["launches"] = fa.flash_forward.launches - before
+        return out
+
+    def export(*args, **kw):
+        t0 = time.perf_counter()
+        calls["dir"] = real_export(*args, **kw)
+        calls["export_s"] = time.perf_counter() - t0
+        return calls["dir"]
+
+    gpt_lm.generate, gpt_lm.export_generate = generate, export
+    try:
+        gpt_lm.main(["--max-steps", str(GL_GEN_STEPS), "--generate",
+                     str(GL_GEN_TOKENS), "--export-generate",
+                     os.path.join(root, "generate"), "--temperature", "0",
+                     *GL_ARGS])
+    finally:
+        gpt_lm.generate, gpt_lm.export_generate = real_generate, real_export
+    served, child, child_s = _artifact_child(
+        "generate", calls["dir"], calls["prompt"], root, calls["seed"])
+    same = bool(np.array_equal(served, calls["tokens"]))
+    print(f"gpt_lm generate: gpt_lm.main --generate {GL_GEN_TOKENS} "
+          f"--export-generate --temperature 0 (GPT-2 small, "
+          f"{GL_GEN_STEPS} steps): {calls['prompt'].shape[0]} prompts of "
+          f"{calls['prompt'].shape[1]} tokens; in process {calls['launches']} "
+          f"flash launches; the artifact exported in {calls['export_s']:.2f} "
+          f"s ({_artifact_bytes(calls['dir']):,} bytes: prefill and tick "
+          f"programs, params.npz), loaded and run in a fresh process on the "
+          f"card in {child_s:.1f} s with {child['fwd']} flash launches; its "
+          f"greedy tokens equal the in-process run's: {same}")
+    depth = 12
+    if calls["launches"] != depth or child["fwd"] != depth:
+        raise AssertionError("the generate prefill did not launch the flash "
+                             "kernel once a layer on both sides")
+    if not same:
+        raise AssertionError(f"the generative artifact's tokens "
+                             f"{served.tolist()} differ from the in-process "
+                             f"run's {calls['tokens'].tolist()}")
+
+
 def phase_gpt_lm(fa, dev):
     """GPT pretraining with rope, GQA, the sliding window, remat and
     packing through `python -m tfde_tpu_torch.gpt_lm` (docstring, phase
@@ -3029,6 +3288,16 @@ def phase_gpt_lm(fa, dev):
     kernels = _kernels_at(fa, dev, "gpt_lm", GL_SHAPE, kv=GL_KV, causal=True,
                           window=GL_WINDOW)
     _gl_bert_remat(fa, dev)
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"gpt_lm_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        _gl_generate(fa, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     print(f"gpt_lm phase: {time.perf_counter() - t0:.1f} s")
     return kernels
 
@@ -3127,13 +3396,15 @@ def _hf_wave_logits(model, wave, dev) -> dict:
     return logits
 
 
-def _hf_full(fa, dev, root, name):
+def _hf_full(fa, dev, root, name, artifact=True):
     """A full-width model from its published config (random weights from
     seed 0, fp32 master weights) written with `save_converted`, served by
     `serve_gpt.main(["--hf-dir", ...])`, then loaded again and served in
     bf16 through a ContinuousBatcher as in `phase_serve`; then the same
     weights computed in fp32 for the held flash-vs-einsum logits and
-    greedy tokens."""
+    greedy tokens. With `artifact` False the model is built on the card
+    and served as it is: no artifact round trip. Returns the batcher's
+    flash launches at the kernel's head dim."""
     import gc
     import shutil
 
@@ -3146,37 +3417,50 @@ def _hf_full(fa, dev, root, name):
 
     family, fields = FULL_WIDTH[name]
     out = os.path.join(root, name)
-    model = GPT(**fields, device=dev, seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    save_converted(model, out, family)
-    write_s = time.perf_counter() - t0
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    nbytes = os.path.getsize(os.path.join(out, "params.npz"))
-    t0 = time.perf_counter()
-    done = serve_gpt.main(["--hf-dir", out, "--requests", "16",
-                           "--batch-size", "8", "--max-len", "1024",
-                           "--max-new-tokens", "32"])
-    torch.cuda.synchronize(dev)
-    entry_s = time.perf_counter() - t0
-    if len(done) != 16 or any(len(t) != 32 for _, t in done):
-        raise AssertionError(f"hf_serve {name}: serve_gpt --hf-dir did not "
-                             f"answer 16 requests of 32 tokens")
-    gc.collect()
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = load_converted(out, device=dev).cast_compute_weights_()
+    model = GPT(**fields, device=dev, seed=0)
     torch.cuda.synchronize(dev)
-    load_s = time.perf_counter() - t0
-    print(f"hf_serve {name}: {n_params:,} parameters; artifact "
-          f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s, loaded onto the "
-          f"card (fp32, then cast to bf16) in {load_s:.2f} s; serve_gpt.main "
-          f"--hf-dir (load + 16 requests of 2-8 prompt tokens x 32) "
-          f"{entry_s:.2f} s")
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if artifact:
+        t0 = time.perf_counter()
+        save_converted(model, out, family)
+        write_s = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        nbytes = os.path.getsize(os.path.join(out, "params.npz"))
+        t0 = time.perf_counter()
+        done = serve_gpt.main(["--hf-dir", out, "--requests", "16",
+                               "--batch-size", "8", "--max-len", "1024",
+                               "--max-new-tokens", "32"])
+        torch.cuda.synchronize(dev)
+        entry_s = time.perf_counter() - t0
+        if len(done) != 16 or any(len(t) != 32 for _, t in done):
+            raise AssertionError(f"hf_serve {name}: serve_gpt --hf-dir did "
+                                 f"not answer 16 requests of 32 tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = load_converted(out, device=dev).cast_compute_weights_()
+        torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t0
+        print(f"hf_serve {name}: {n_params:,} parameters; artifact "
+              f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s, loaded "
+              f"onto the card (fp32, then cast to bf16) in {load_s:.2f} s; "
+              f"serve_gpt.main --hf-dir (load + 16 requests of 2-8 prompt "
+              f"tokens x 32) {entry_s:.2f} s")
+    else:
+        model.cast_compute_weights_()
+        torch.cuda.synchronize(dev)
+        print(f"hf_serve {name}: {n_params:,} parameters, built on the card "
+              f"(fp32 master weights from seed 0) in {build_s:.2f} s and cast "
+              f"to bf16; the artifact round trip is skipped for this model "
+              f"(save_converted and serve_gpt --hf-dir are held on "
+              f"Llama-3.2-1B and Qwen3-0.6B; its fp32 artifact would be "
+              f"{4 * n_params / 1e9:.1f} GB)")
 
     srv = ContinuousBatcher(model, batch_size=8, max_len=1024, scan_depth=4,
                             device=dev)
@@ -3184,13 +3468,15 @@ def _hf_full(fa, dev, root, name):
     plens = rng.integers(16, 961, 16)
     prompts = [rng.integers(0, model.vocab_size, int(p)) for p in plens]
     torch.cuda.synchronize(dev)
-    fa.flash_forward.launches = 0
+    _zero_counts(fa)
     t0 = time.perf_counter()
     rids = [srv.submit(p, 32) for p in prompts]
     done = dict(srv.run())
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     launches = fa.flash_forward.launches
+    at_head_dim = fa.flash_forward.by_head_dim[
+        fa.kernel_head_dim(model.head_dim)]
     stats = srv.stats()
     ttft = srv.ttft_ms()
     n_tok = sum(len(t) for t in done.values())
@@ -3202,8 +3488,9 @@ def _hf_full(fa, dev, root, name):
           f"{dt * 1e3 / n_tok:.2f} ms per output token, peak "
           f"{peak:.2f} GiB; prompt lengths {[int(p) for p in plens]}")
     print(f"hf_serve {name}: stats {json.dumps(stats)}")
-    print(f"hf_serve {name}: flash_fwd launches {launches} over "
-          f"{stats['prefill_waves']} prefill waves x {model.depth} layers")
+    print(f"hf_serve {name}: flash_fwd launches {launches} ({at_head_dim} "
+          f"at head dim {model.head_dim}) over {stats['prefill_waves']} "
+          f"prefill waves x {model.depth} layers")
     if sorted(done) != sorted(rids):
         raise AssertionError(f"hf_serve {name}: not every request finished")
     for rid, toks in done.items():
@@ -3211,7 +3498,7 @@ def _hf_full(fa, dev, root, name):
                 or toks.max() >= model.vocab_size):
             raise AssertionError(f"hf_serve {name}: request {rid} returned "
                                  f"{toks!r}")
-    if not (launches > 0
+    if not (launches > 0 and at_head_dim == launches
             and launches == model.depth * stats["prefill_waves"]):
         raise AssertionError(f"hf_serve {name}: the batcher did not run the "
                              f"flash kernel once a layer a prefill wave")
@@ -3266,6 +3553,7 @@ def _hf_full(fa, dev, root, name):
     shutil.rmtree(out, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return at_head_dim
 
 
 def _hf_prefill_kernels(fa, dev):
@@ -3319,10 +3607,12 @@ def phase_hf_serve(fa, dev):
         _hf_parity(fa, dev, root)
         for name in ("Llama-3.2-1B", "Qwen3-0.6B"):
             _hf_full(fa, dev, root, name)
+        gemma = _hf_full(fa, dev, root, "Gemma-2-2B", artifact=False)
         _hf_prefill_kernels(fa, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"hf_serve phase: {time.perf_counter() - t0:.1f} s")
+    return gemma
 
 
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
@@ -3359,8 +3649,8 @@ def main(argv=None) -> int:
     timing = phase_kernels(fa, dev) if "kernels" in phases else None
     if "parity" in phases:
         phase_parity(dev)
-    if "train_parity" in phases:
-        phase_train_parity(fa, dev)
+    d256_train = (phase_train_parity(fa, dev) if "train_parity" in phases
+                  else None)
     if "serve" in phases:
         phase_serve(fa, dev)
     launches = phase_train(fa, dev) if "train" in phases else None
@@ -3368,7 +3658,7 @@ def main(argv=None) -> int:
     if "lifecycle" in phases:
         phase_lifecycle(fa, dev, dp_ms)
     if "export" in phases:
-        phase_export(dev, dp_ms)
+        phase_export(fa, dev, dp_ms)
     if "resnet" in phases:
         phase_resnet(fa, dev)
     if "bert" in phases:
@@ -3377,17 +3667,22 @@ def main(argv=None) -> int:
         phase_vit(fa, dev)
     if "gpt_lm" in phases:
         phase_gpt_lm(fa, dev)
-    if "hf_serve" in phases:
-        phase_hf_serve(fa, dev)
+    d256_serve = phase_hf_serve(fa, dev) if "hf_serve" in phases else None
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")
         return 1
+    # the D-256 kernels' main paths: Gemma-2-2B served (the forward) and
+    # the D-256 training check (the backward pair)
+    launches.update({"flash_fwd_d256": d256_serve,
+                     "flash_bwd_dkv_d256": d256_train["dkv"],
+                     "flash_bwd_dq_d256": d256_train["dq"]})
     replaces = {"flash_fwd": ("flash_fwd.cu", 188),
                 "flash_bwd_dkv": ("flash_bwd.cu", 606),
                 "flash_bwd_dq": ("flash_bwd.cu", 683)}
     kernels = []
-    for name, (source, line) in replaces.items():
+    for name in timing:
+        source, line = replaces[name.removesuffix("_d256")]
         t = timing[name]
         kernels.append({
             "name": name,

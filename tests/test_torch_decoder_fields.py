@@ -210,10 +210,10 @@ def test_padding_equals_the_unpadded_plain_versions(d, heads, kv, s, causal,
 
 
 def test_kernel_head_dims():
-    assert [fa.kernel_head_dim(d) for d in (8, 64, 80, 96, 128)] \
-        == [64, 64, 128, 128, 128]
-    with pytest.raises(ValueError, match="queue 2, item 1"):
-        fa.kernel_head_dim(256)
+    assert [fa.kernel_head_dim(d) for d in (8, 64, 80, 96, 128, 160, 256)] \
+        == [64, 64, 128, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="head dims above 256"):
+        fa.kernel_head_dim(320)
 
 
 # --------------------------------------------------- full width, refusals --
@@ -230,7 +230,8 @@ class _OnMeta(TorchFunctionMode):
 
 
 @pytest.mark.parametrize("name,count", [("Llama-3.2-1B", 1_235_814_400),
-                                        ("Qwen3-0.6B", 596_049_920)])
+                                        ("Qwen3-0.6B", 596_049_920),
+                                        ("Gemma-2-2B", 2_614_341_888)])
 def test_full_width_parameter_counts(name, count):
     _family, fields = FULL_WIDTH[name]
     with _OnMeta():

@@ -154,17 +154,34 @@ class _ReportsCuda(torch.Tensor):
         return torch.device("cuda")
 
 
-@pytest.mark.parametrize("head_dim", [160, 256])
-def test_auto_on_cuda_takes_the_kernel_and_raises_on_its_head_dim(head_dim):
+@pytest.mark.parametrize("head_dim", [160, 256, 320])
+def test_auto_on_cuda_takes_the_kernel_and_raises_on_its_head_dim(
+        head_dim, monkeypatch):
     """'auto' on a CUDA tensor goes to the kernel's wrapper whatever the
-    shape: a head dim the kernel does not take (above 128; a smaller one
-    is zero-padded to 64 or 128) raises there, and never falls back to
-    the plain version."""
+    shape, and never falls back to the plain version: the wrapper runs
+    the kernel's checks and calls the forward op `tfde::flash_forward` at
+    the kernel's head dim (160 zero-padded to 256, 256 as it is; the op
+    call is recorded here in place of a launch), and a head dim above 256
+    raises there, naming the ROADMAP line."""
+    seen = []
+
+    def op(q, k, v, *opts):
+        tfa._check_launchable(q, k, v)
+        seen.append(tuple(q.shape))
+        b, s, h, _ = q.shape
+        return torch.zeros(q.shape), torch.zeros((b, h, s))
+
+    monkeypatch.setattr(tfa, "_forward_op", op)
     q, k, v = (torch.as_tensor(t).as_subclass(_ReportsCuda)
                for t in _qkv(8, 1, 16, 4, 4, head_dim))
     before = tfa.flash_forward.launches
-    with pytest.raises(ValueError, match="head_dim"):
-        tattn.attention(q, k, v, causal=True, impl="auto")
+    if head_dim > 256:
+        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+            tattn.attention(q, k, v, causal=True, impl="auto")
+    else:
+        out = tattn.attention(q, k, v, causal=True, impl="auto")
+        assert out.shape == q.shape
+    assert seen == ([] if head_dim > 256 else [(1, 16, 4, 256)])
     assert tfa.flash_forward.launches == before
 
 

@@ -177,8 +177,8 @@ def _cuda_args(d=64, dtype=torch.float32, kv=4, s=16):
     ("strided", "contiguous head dim"), ("misaligned", "16-byte"),
     ("lse", "lse")])
 def test_cuda_backward_checks_raise_before_any_launch(case, match):
-    if case == "head_dim":  # above 128 (a smaller one is zero-padded)
-        args = _cuda_args(d=256)
+    if case == "head_dim":  # above 256 (a smaller one is zero-padded)
+        args = _cuda_args(d=320)
     elif case == "dtype":
         args = _cuda_args(dtype=torch.float16)
     elif case == "device":  # k on the CPU beside a CUDA q
@@ -206,10 +206,10 @@ def test_cuda_backward_checks_raise_before_any_launch(case, match):
 
 def test_cuda_flash_attention_with_gradients_takes_the_kernels():
     """A CUDA call that needs gradients no longer raises for being
-    differentiated: it enters the autograd Function, whose forward goes
-    to the kernel's wrapper (which raises here on its head dim, above the
-    128 that the zero padding reaches)."""
-    q, k, v = (t.detach().requires_grad_() for t in _cuda_args(d=256)[:3])
+    differentiated: it goes to the kernel's wrapper, whose op carries the
+    autograd formula (the wrapper raises here on its head dim, above the
+    256 that the zero padding reaches)."""
+    q, k, v = (t.detach().requires_grad_() for t in _cuda_args(d=320)[:3])
     before = tfa.flash_forward.launches
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(q, k, v, causal=True)

@@ -60,36 +60,62 @@ def test_full_sequence_logits_match_jax(pair, impl):
     assert _rel(got.numpy(), want) <= 1e-5
 
 
+DECODE_B, DECODE_P, DECODE_MAX_LEN = 3, 9, 24
+
+
+def _decode_inputs():
+    """The prompt and three per-row feeds of the decode test."""
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, 97, (DECODE_B, DECODE_P))
+    return prompt, [rng.integers(0, 97, (DECODE_B, 1)) for _ in range(3)]
+
+
+@pytest.fixture(scope="module")
+def jax_decode(pair):
+    """The JAX decode clone's logits for the prefill and each tick, and its
+    cached keys at the end: computed once for both attention impls."""
+    jm, params, _tm = pair
+    prompt, feeds = _decode_inputs()
+    dm = _decode_clone(jm)
+    jcache = j_init_cache(jm, DECODE_B, DECODE_MAX_LEN)
+    jl, mut = dm.apply({"params": params, "cache": jcache},
+                       jnp.asarray(prompt), mutable=["cache"])
+    jcache, logits = mut["cache"], [np.asarray(jl)]
+    # rows rewound to different committed counts, as the batcher holds them
+    idx = np.array([DECODE_P, DECODE_P - 3, DECODE_P - 1])
+    for feed in feeds:
+        jcache = _set_index_counters(jcache, idx.astype(np.int32))
+        jl, mut = dm.apply({"params": params, "cache": jcache},
+                           jnp.asarray(feed), mutable=["cache"])
+        jcache = mut["cache"]
+        logits.append(np.asarray(jl))
+        idx = idx + 1
+    blocks = jcache["decoder"]
+    keys = [np.asarray(blocks[f"block_{i}"]["attn"]["cached_key"])
+            for i in range(len(blocks))]
+    return logits, keys
+
+
 @pytest.mark.parametrize("impl", ["reference", "flash"])
-def test_prefill_and_per_row_decode_match_jax(pair, impl):
+def test_prefill_and_per_row_decode_match_jax(pair, jax_decode, impl):
     """A shared-index prefill into a fresh cache (the admission prefill),
     then three per-row ticks with the rows at different positions (the
     batcher's decode), against the JAX decode clone's two branches."""
-    jm, params, tm = pair
-    rng = np.random.default_rng(2)
-    b, p, max_len = 3, 9, 24
-    prompt = rng.integers(0, 97, (b, p))
-    dm = _decode_clone(jm)
-    jcache = j_init_cache(jm, b, max_len)
-    jl, mut = dm.apply({"params": params, "cache": jcache},
-                       jnp.asarray(prompt), mutable=["cache"])
-    jcache = mut["cache"]
+    _jm, _params, tm = pair
+    want, jkeys = jax_decode
+    b, p = DECODE_B, DECODE_P
+    prompt, feeds = _decode_inputs()
     tm.set_attn_impl(impl)
-    cache = init_cache(tm, b, max_len)
+    cache = init_cache(tm, b, DECODE_MAX_LEN)
     try:
         with torch.no_grad():
             tl = tm(torch.as_tensor(prompt), cache=cache)
             assert cache.index == p
-            assert _rel(tl.numpy(), jl) <= 1e-5
+            assert _rel(tl.numpy(), want[0]) <= 1e-5
             # rows rewound to different committed counts, as the batcher
             # holds them
             idx = np.array([p, p - 3, p - 1])
-            for _ in range(3):
-                feed = rng.integers(0, 97, (b, 1))
-                jcache = _set_index_counters(jcache, idx.astype(np.int32))
-                jl, mut = dm.apply({"params": params, "cache": jcache},
-                                   jnp.asarray(feed), mutable=["cache"])
-                jcache = mut["cache"]
+            for feed, jl in zip(feeds, want[1:]):
                 cache.set_index(torch.as_tensor(idx))
                 tl = tm(torch.as_tensor(feed), cache=cache)
                 assert _rel(tl.numpy(), jl) <= 1e-5
@@ -99,11 +125,10 @@ def test_prefill_and_per_row_decode_match_jax(pair, impl):
         tm.set_attn_impl("auto")
     # the cache itself matches the JAX cache on every written position
     for layer in range(tm.depth):
-        jk = np.asarray(jcache["decoder"][f"block_{layer}"]["attn"]
-                        ["cached_key"])
         for r in range(b):
             n = int(idx[r])
-            assert _rel(cache.keys[layer][r, :n].numpy(), jk[r, :n]) <= 1e-5
+            assert _rel(cache.keys[layer][r, :n].numpy(),
+                        jkeys[layer][r, :n]) <= 1e-5
 
 
 @pytest.mark.parametrize("field,value", [

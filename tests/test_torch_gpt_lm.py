@@ -94,8 +94,8 @@ def test_packed_refuses_the_sliding_window():
 
 
 @pytest.mark.parametrize("flag", [["--seq-parallel", "2"], ["--tensor", "2"],
-                                  ["--beams", "2"],
-                                  ["--export-generate", "d"],
+                                  ["--pipeline", "2"],
+                                  ["--moe", "2"],
                                   ["--fake-devices", "8"]])
 def test_unported_flags_stay_argparse_errors(flag, capsys):
     with pytest.raises(SystemExit) as exc:

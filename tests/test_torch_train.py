@@ -339,7 +339,7 @@ def test_gpt_lm_runs_on_cuda_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--pipeline", "2"], ["--moe", "4"],
-                                  ["--generate", "4"]])
+                                  ["--microbatches", "4"]])
 def test_gpt_lm_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         gpt_lm.main(["--tiny", "--device", "cpu", *flag])

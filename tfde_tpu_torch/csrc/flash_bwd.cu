@@ -28,7 +28,7 @@
 // - Ragged S: rows and columns past S are masked and never stored.
 // - bf16 runs every product on the tensor cores (wgmma); fp32 runs them in
 //   fp32 FMA on the CUDA cores (TF32 would miss the fp32 tolerance).
-//   head_dim 64 or 128.
+//   head_dim 64, 128 or 256.
 //
 // Bound on the H100: at the training slice's shape (8 x 1024 tokens, 12
 // heads, D = 64, bf16, causal; 50.4 M visible pairs) the dK/dV kernel does
@@ -53,6 +53,16 @@
 //   computed while dP is still on the tensor cores; at D = 64 the dQ
 //   product of one tile stays in flight under the next tile's S and dP;
 //   the longest causal rows launch first.
+// - D = 256 (Gemma, Gemma-2, GPT-J, Pythia-1B): the accumulators of 64
+//   rows x 256 columns (dK and dV: 256 registers a thread; dQ: 128) do not
+//   fit a consumer's 168. Both kernels then split the outputs by columns:
+//   a block owns 64 keys (dK/dV) or 64 query rows (dQ), and its two
+//   consumer warpgroups run the same S and dP products over the whole D
+//   (the same values, recomputed: one extra pair of products a tile) and
+//   each accumulates half of the output's columns, 128 a warpgroup, as the
+//   D 128 kernels accumulate all of theirs. Still no atomics and a fixed
+//   order of every sum. The fp32 kernels take 32 x 32 tiles there (64 x 64
+//   tiles of four D-256 operands would need 263 KB of shared memory).
 
 #include "flash_common.cuh"
 
@@ -108,8 +118,19 @@ __device__ __forceinline__ size_t lse_index(const Params& p, int b, int h,
 // tx + 16 j, output columns tx + 16 jj. A row's scores are written to
 // shared memory and read back by the same half-warp (__syncwarp only).
 constexpr int F_THREADS = 256;
-constexpr int RPT = 4;  // rows per thread
-constexpr int CPT = 4;  // score columns per thread
+
+// the fp32 kernels' square tile edge: BM (64), or 32 at D = 256, where four
+// 64-row operands of pitch D + 1 would not fit shared memory. A thread owns
+// ft / 16 rows and ft / 16 score columns.
+template <int D>
+__host__ __device__ constexpr int fp32_tile() {
+  return D == 256 ? 32 : BM;
+}
+
+template <int D>
+dim3 fp32_grid(int S, int heads, int B) {
+  return dim3((S + fp32_tile<D>() - 1) / fp32_tile<D>(), heads, B);
+}
 
 // rows [r0, r0 + n) of one head of a BSHD fp32 tensor into a tile of pitch
 // D + 1 (conflict-free column reads); rows past S are zero
@@ -125,38 +146,41 @@ __device__ __forceinline__ void load_rows_fp32(float* dst, const float* src,
 
 template <int D>
 constexpr size_t dkv_fp32_smem_bytes() {
-  // K, V, Q, dO tiles (pitch D + 1), P^T and dS^T (pitch BM + 4), lse,
+  // K, V, Q, dO tiles (pitch D + 1), P^T and dS^T (pitch T + 4), lse,
   // delta
-  return sizeof(float) * (4 * (size_t)BM * (D + 1) +
-                          2 * (size_t)BN * (BM + 4) + 2 * BM);
+  constexpr size_t T = fp32_tile<D>();
+  return sizeof(float) * (4 * T * (D + 1) + 2 * T * (T + 4) + 2 * T);
 }
 
 template <int D>
 __global__ void __launch_bounds__(F_THREADS)
 dkv_fp32_kernel(const Params p) {
   extern __shared__ float smem[];
+  constexpr int T = fp32_tile<D>();
+  constexpr int RPT = T / 16;  // rows per thread
+  constexpr int CPT = T / 16;  // score columns per thread
   constexpr int TP = D + 1;
-  constexpr int PP = BM + 4;
+  constexpr int PP = T + 4;
   constexpr int OPT = D / 16;
   float* Ks = smem;
-  float* Vs = Ks + BN * TP;
-  float* Qs = Vs + BN * TP;
-  float* Os = Qs + BM * TP;
-  float* Ps = Os + BM * TP;
-  float* Ss = Ps + BN * PP;
-  float* Ls = Ss + BN * PP;
-  float* Ds = Ls + BM;
+  float* Vs = Ks + T * TP;
+  float* Qs = Vs + T * TP;
+  float* Os = Qs + T * TP;
+  float* Ps = Os + T * TP;
+  float* Ss = Ps + T * PP;
+  float* Ls = Ss + T * PP;
+  float* Ds = Ls + T;
 
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int grp = p.H / p.KV;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = blockIdx.x * BN;
+  const int k0 = blockIdx.x * T;
   load_rows_fp32<D>(Ks, static_cast<const float*>(p.k) + b * p.k_sb +
-                            kvh * p.k_sh, p.k_ss, k0, BN, p.S, tid);
+                            kvh * p.k_sh, p.k_ss, k0, T, p.S, tid);
   load_rows_fp32<D>(Vs, static_cast<const float*>(p.v) + b * p.v_sb +
-                            kvh * p.v_sh, p.v_ss, k0, BN, p.S, tid);
+                            kvh * p.v_sh, p.v_ss, k0, T, p.S, tid);
   int qb_begin, qb_end;
-  q_band(p, k0, qb_begin, qb_end);
+  q_band<T, T>(p, k0, qb_begin, qb_end);
 
   float dk[RPT][OPT], dv[RPT][OPT];
 #pragma unroll
@@ -166,21 +190,21 @@ dkv_fp32_kernel(const Params p) {
 
   for (int h = kvh * grp; h < (kvh + 1) * grp; ++h) {
     for (int qi = qb_begin; qi < qb_end; ++qi) {
-      const int q0 = qi * BM;
+      const int q0 = qi * T;
       __syncthreads();  // the previous Q tile's reads are done
       load_rows_fp32<D>(Qs, static_cast<const float*>(p.q) + b * p.q_sb +
-                                h * p.q_sh, p.q_ss, q0, BM, p.S, tid);
+                                h * p.q_sh, p.q_ss, q0, T, p.S, tid);
       load_rows_fp32<D>(Os, static_cast<const float*>(p.dout) +
-                                b * p.o_sb + h * p.o_sh, p.o_ss, q0, BM,
+                                b * p.o_sb + h * p.o_sh, p.o_ss, q0, T,
                         p.S, tid);
-      for (int i = tid; i < BM; i += F_THREADS) {
+      for (int i = tid; i < T; i += F_THREADS) {
         const bool ok = q0 + i < p.S;
         Ls[i] = ok ? p.lse[lse_index(p, b, h, q0 + i)] : 0.f;
         Ds[i] = ok ? p.delta[lse_index(p, b, h, q0 + i)] : 0.f;
       }
       __syncthreads();
 
-      // S^T = K Q^T and dP^T = V dO^T for keys ty*4+i, queries tx+16j
+      // S^T = K Q^T and dP^T = V dO^T for keys ty*RPT+i, queries tx+16j
       float s[RPT][CPT], dp[RPT][CPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -222,7 +246,7 @@ dkv_fp32_kernel(const Params p) {
 
       // dV += P^T dO, dK += dS^T Q
 #pragma unroll 4
-      for (int ql = 0; ql < BM; ++ql) {
+      for (int ql = 0; ql < T; ++ql) {
         float pv[RPT], sv[RPT];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
@@ -262,31 +286,35 @@ dkv_fp32_kernel(const Params p) {
 
 template <int D>
 constexpr size_t dq_fp32_smem_bytes() {
-  // Q, dO, K, V tiles (pitch D + 1), dS (pitch BN + 4)
-  return sizeof(float) * (4 * (size_t)BM * (D + 1) + (size_t)BM * (BN + 4));
+  // Q, dO, K, V tiles (pitch D + 1), dS (pitch T + 4)
+  constexpr size_t T = fp32_tile<D>();
+  return sizeof(float) * (4 * T * (D + 1) + T * (T + 4));
 }
 
 template <int D>
 __global__ void __launch_bounds__(F_THREADS)
 dq_fp32_kernel(const Params p) {
   extern __shared__ float smem[];
+  constexpr int T = fp32_tile<D>();
+  constexpr int RPT = T / 16;  // rows per thread
+  constexpr int CPT = T / 16;  // score columns per thread
   constexpr int TP = D + 1;
-  constexpr int SP = BN + 4;
+  constexpr int SP = T + 4;
   constexpr int OPT = D / 16;
   float* Qs = smem;
-  float* Os = Qs + BM * TP;
-  float* Ks = Os + BM * TP;
-  float* Vs = Ks + BN * TP;
-  float* Ss = Vs + BN * TP;
+  float* Os = Qs + T * TP;
+  float* Ks = Os + T * TP;
+  float* Vs = Ks + T * TP;
+  float* Ss = Vs + T * TP;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * T;
   load_rows_fp32<D>(Qs, static_cast<const float*>(p.q) + b * p.q_sb +
-                            h * p.q_sh, p.q_ss, q0, BM, p.S, tid);
+                            h * p.q_sh, p.q_ss, q0, T, p.S, tid);
   load_rows_fp32<D>(Os, static_cast<const float*>(p.dout) + b * p.o_sb +
-                            h * p.o_sh, p.o_ss, q0, BM, p.S, tid);
+                            h * p.o_sh, p.o_ss, q0, T, p.S, tid);
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb +
                     kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb +
@@ -299,7 +327,7 @@ dq_fp32_kernel(const Params p) {
     delta[i] = row < p.S ? p.delta[lse_index(p, b, h, row)] : 0.f;
   }
   int kb_begin, kb_end;
-  band(p, q0, kb_begin, kb_end);
+  band<T, T>(p, q0, kb_begin, kb_end);
 
   float dq[RPT][OPT];
 #pragma unroll
@@ -308,13 +336,13 @@ dq_fp32_kernel(const Params p) {
     for (int jj = 0; jj < OPT; ++jj) dq[i][jj] = 0.f;
 
   for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int k0 = kb * BN;
+    const int k0 = kb * T;
     __syncthreads();  // the previous K/V tile's reads are done
-    load_rows_fp32<D>(Ks, kg, p.k_ss, k0, BN, p.S, tid);
-    load_rows_fp32<D>(Vs, vg, p.v_ss, k0, BN, p.S, tid);
+    load_rows_fp32<D>(Ks, kg, p.k_ss, k0, T, p.S, tid);
+    load_rows_fp32<D>(Vs, vg, p.v_ss, k0, T, p.S, tid);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T for queries ty*4+i, keys tx+16j
+    // S = Q K^T and dP = dO V^T for queries ty*RPT+i, keys tx+16j
     float s[RPT][CPT], dp[RPT][CPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
@@ -355,7 +383,7 @@ dq_fp32_kernel(const Params p) {
 
     // dQ += dS K
 #pragma unroll 4
-    for (int kl = 0; kl < BN; ++kl) {
+    for (int kl = 0; kl < T; ++kl) {
       float sv[RPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) sv[i] = Ss[(ty * RPT + i) * SP + kl];
@@ -386,7 +414,7 @@ using bf16 = __nv_bfloat16;
 // 384 threads: warpgroups 0 and 1 are the consumers, each owning 64 of the
 // block's 128 keys of one KV head, warpgroup 2 the producer. The
 // producer loads K and V once, then streams (query head, Q tile) steps
-// through a ring of DKV_STAGES stages: Q and dO by TMA (64 rows each),
+// through a ring of STAGES stages: Q and dO by TMA (64 rows each),
 // lse and delta by its warp's 4-byte cp.async into the same stage (their
 // [B, H, S] rows are 4 S bytes apart: no 16-byte pitch for a tensor map at
 // a ragged S; rows past S are zero-filled). The full barrier counts the 32
@@ -401,20 +429,35 @@ using bf16 = __nv_bfloat16;
 //   dK += dS^T Q                 wgmma, A from registers, B MN-major
 // ptxas holds a consumer thread to 168 registers (hopper.cuh, setmaxnreg),
 // and at D = 128 the dK and dV accumulators alone take 128: there each Q
-// tile is taken in two halves of 32 queries.
-constexpr int DKV_BN = 128;     // keys per block
+// tile is taken in two halves of 32 queries. At D = 256 (DkvTile::SPLIT)
+// the block owns 64 keys, both warpgroups run S^T and dP^T for all of them
+// over the whole D, and warpgroup w accumulates dK and dV columns 128 w ..
+// 128 w + 127: its accumulators take the 128 registers of D = 128's, and
+// Q tiles go in halves as there. K and V take 64 KB, a Q/dO stage 64 KB.
 constexpr int DKV_BM = 64;      // query rows per streamed tile
-constexpr int DKV_STAGES = 3;   // Q/dO tiles in flight
 constexpr int DKV_THREADS = 384;  // 2 consumer warpgroups, then the producer
-constexpr int K_SLAB = DKV_BN * 128;  // bytes of a 64-column slab of K or V
-constexpr int Q_SLAB = DKV_BM * 128;  // ... of Q or dO
+constexpr int Q_SLAB = DKV_BM * 128;  // bytes of a 64-column slab of Q or dO
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
+struct DkvTile {
+  static constexpr bool SPLIT = D == 256;       // dK/dV split by columns
+  static constexpr int BN = SPLIT ? 64 : 128;   // keys per block
+  static constexpr int STAGES = SPLIT ? 2 : 3;  // Q/dO tiles in flight
+  static constexpr int DO = SPLIT ? D / 2 : D;  // dK/dV columns a warpgroup
+  // queries a product: ptxas holds the consumers to 168 registers a thread
+  // (setmaxnreg does not raise its budget), so beside the 128 of the dK
+  // and dV accumulators (D 128 and 256) a Q tile is taken in two halves
+  static constexpr int QN = D == 64 ? DKV_BM : DKV_BM / 2;
+  static constexpr int KSLAB = BN * 128;  // bytes of a 64-column slab of K or V
+};
+
+template <int D>
 constexpr size_t dkv_smem_bytes() {
-  // K and V, then DKV_STAGES x (Q, dO), each D / 64 slabs; 1024 bytes of
+  // K and V, then STAGES x (Q, dO), each D / 64 slabs; 1024 bytes of
   // slack to align the base for the 128-byte swizzle
-  return (size_t)(D / 64) * (2 * K_SLAB + 2 * DKV_STAGES * Q_SLAB) + 1024;
+  using T = DkvTile<D>;
+  return (size_t)(D / 64) * (2 * T::KSLAB + 2 * T::STAGES * Q_SLAB) + 1024;
 }
 
 // P^T of one warpgroup's 64 keys x QN queries from S^T: P = exp(z - lse),
@@ -469,15 +512,17 @@ __device__ __forceinline__ void ds_tile(const float (&s)[QN / 2],
 
 // One (query head, Q tile) step of a consumer warpgroup: its 64 keys x the
 // tile's DKV_BM queries in parts of QN, each part skipped where no pair is
-// visible. DV: dV += P^T dO; DK: dK += dS^T Q. K/V at k_addr/v_addr (this
-// warpgroup's rows), the stage's Q/dO at q_addr/o_addr and its lse/delta.
-template <int D, int QN, bool DV, bool DK>
-__device__ __forceinline__ void dkv_step(float (&dv)[D / 2], float (&dk)[D / 2],
+// visible; dV += P^T dO and dK += dS^T Q over the DO output columns of
+// slabs cs, cs + 1, ... K/V at k_addr/v_addr (this warpgroup's rows, slabs
+// of KSLAB bytes), the stage's Q/dO at q_addr/o_addr and its lse/delta.
+template <int D, int DO, int QN, int KSLAB>
+__device__ __forceinline__ void dkv_step(float (&dv)[DO / 2],
+                                         float (&dk)[DO / 2],
                                          uint32_t k_addr, uint32_t v_addr,
                                          uint32_t q_addr, uint32_t o_addr,
-                                         const float* lse, const float* delta,
-                                         int q0, int kw0, int key0, int c,
-                                         const Params& p) {
+                                         int cs, const float* lse,
+                                         const float* delta, int q0, int kw0,
+                                         int key0, int c, const Params& p) {
 #pragma unroll
   for (int h = 0; h < DKV_BM / QN; ++h) {
     const int qh = q0 + h * QN;
@@ -490,7 +535,7 @@ __device__ __forceinline__ void dkv_step(float (&dv)[D / 2], float (&dk)[D / 2],
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * K_SLAB + (kk % 4) * 32;
+      const uint32_t off = (kk / 4) * KSLAB + (kk % 4) * 32;
       const uint32_t qoff = (kk / 4) * Q_SLAB + (kk % 4) * 32;
       wgmma_ss<QN>(s, desc_sw128(k_addr + off, 16, 1024),
                    desc_sw128(qa + qoff, 16, 1024), kk > 0);
@@ -502,67 +547,65 @@ __device__ __forceinline__ void dkv_step(float (&dv)[D / 2], float (&dk)[D / 2],
       p_tile<false, QN>(s, pa, key0, qh, c, lse + h * QN, p);
     else
       p_tile<true, QN>(s, pa, key0, qh, c, lse + h * QN, p);
-    if constexpr (DV) {
-      // dV += P^T dO, P rounded to bf16 (the TPU kernels cast it to the
-      // input dtype): QN / 16 k-steps of 16 queries = 2048 bytes of dO rows
-      // each, dO MN-major
-      fence_regs(dv);
-      fence_regs(pa);
-      wgmma_fence();
+    // dV += P^T dO, P rounded to bf16 (the TPU kernels cast it to the
+    // input dtype): QN / 16 k-steps of 16 queries = 2048 bytes of dO rows
+    // each, dO MN-major
+    fence_regs(dv);
+    fence_regs(pa);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < QN / 16; ++kk)
-        wgmma_rs<D>(dv, pa + 4 * kk, desc_sw128(oa + kk * 2048, Q_SLAB, 1024),
-                    1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(pa);
+    for (int kk = 0; kk < QN / 16; ++kk)
+      wgmma_rs<DO>(dv, pa + 4 * kk,
+                   desc_sw128(oa + cs * Q_SLAB + kk * 2048, Q_SLAB, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(pa);
+    // dP^T = V dO^T, dS^T, then dK += dS^T Q with dS rounded to bf16, Q
+    // MN-major
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * KSLAB + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * Q_SLAB + (kk % 4) * 32;
+      wgmma_ss<QN>(dp, desc_sw128(v_addr + off, 16, 1024),
+                   desc_sw128(oa + qoff, 16, 1024), kk > 0);
     }
-    if constexpr (DK) {
-      // dP^T = V dO^T, dS^T, then dK += dS^T Q with dS rounded to bf16, Q
-      // MN-major
-      fence_regs(dp);
-      wgmma_fence();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+    ds_tile<QN>(s, dp, c, delta + h * QN, p);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * K_SLAB + (kk % 4) * 32;
-        const uint32_t qoff = (kk / 4) * Q_SLAB + (kk % 4) * 32;
-        wgmma_ss<QN>(dp, desc_sw128(v_addr + off, 16, 1024),
-                     desc_sw128(oa + qoff, 16, 1024), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dp);
-      ds_tile<QN>(s, dp, c, delta + h * QN, p);
+    for (int kk = 0; kk < QN / 16; ++kk) acc_to_a(sa + 4 * kk, dp, kk);
+    fence_regs(dk);
+    fence_regs(sa);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < QN / 16; ++kk) acc_to_a(sa + 4 * kk, dp, kk);
-      fence_regs(dk);
-      fence_regs(sa);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < QN / 16; ++kk)
-        wgmma_rs<D>(dk, sa + 4 * kk, desc_sw128(qa + kk * 2048, Q_SLAB, 1024),
-                    1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(sa);
-    }
+    for (int kk = 0; kk < QN / 16; ++kk)
+      wgmma_rs<DO>(dk, sa + 4 * kk,
+                   desc_sw128(qa + cs * Q_SLAB + kk * 2048, Q_SLAB, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(sa);
   }
 }
 
 // rows row0 and row0 + 8 of head hd of a BSHD bf16 tensor (dK, dV, dQ)
-// from a thread's wgmma accumulator; rows past S are not stored
+// from a thread's wgmma accumulator of D columns, from column col0 on; rows
+// past S are not stored
 template <int D>
 __device__ __forceinline__ void store_rows(void* base, long long sb,
                                            long long ss, long long sh, int b,
-                                           int hd, int row0, int c,
+                                           int hd, int row0, int col0, int c,
                                            const float (&acc)[D / 2], int S) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row < S) {
-      bf16* out = static_cast<bf16*>(base) + b * sb + row * ss + hd * sh;
+      bf16* out = static_cast<bf16*>(base) + b * sb + row * ss + hd * sh +
+                  col0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + c) =
@@ -577,31 +620,29 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_do, const Params p) {
+  using T = DkvTile<D>;
+  constexpr int STAGES = T::STAGES, KSLAB = T::KSLAB;
   constexpr int NS = D / 64;  // slabs per tile
-  // queries a product: ptxas holds the consumers to 168 registers a thread
-  // (setmaxnreg does not raise its budget), so at D = 128, beside the 128 of
-  // the dK and dV accumulators, a Q tile is taken in two halves
-  constexpr int QN = D == 64 ? DKV_BM : DKV_BM / 2;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ uint64_t kv_full, full[DKV_STAGES], empty[DKV_STAGES];
-  __shared__ float LD[DKV_STAGES][2][DKV_BM];  // lse, delta
+  __shared__ uint64_t kv_full, full[STAGES], empty[STAGES];
+  __shared__ float LD[STAGES][2][DKV_BM];  // lse, delta
   unsigned char* Ks = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Vs = Ks + NS * K_SLAB;
-  unsigned char* QO = Vs + NS * K_SLAB;  // stage s: Q at 2s, dO at 2s + 1
+  unsigned char* Vs = Ks + NS * KSLAB;
+  unsigned char* QO = Vs + NS * KSLAB;  // stage s: Q at 2s, dO at 2s + 1
 
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * DKV_BN;  // causal: the longest loops first
+  const int k0 = blockIdx.z * T::BN;  // causal: the longest loops first
   const int grp = p.H / p.KV;
   int qb_begin, qb_end;
-  q_band<DKV_BM, DKV_BN>(p, k0, qb_begin, qb_end);
+  q_band<DKV_BM, T::BN>(p, k0, qb_begin, qb_end);
   const int nq = max(qb_end - qb_begin, 0);
   const int steps = grp * nq;  // (query head, Q tile) pairs, head-major
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(&kv_full, 1);
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 33);  // 32 lanes' cp.async + the TMA thread
       mbar_init(&empty[s], 256);
     }
@@ -615,16 +656,16 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     if (tid < 256 + 32) {
       const int lane = tid - 256;
       if (lane == 0) {
-        mbar_arrive_tx(&kv_full, 2 * NS * K_SLAB);
+        mbar_arrive_tx(&kv_full, 2 * NS * KSLAB);
         for (int s = 0; s < NS; ++s) {
-          tma_load(Ks + s * K_SLAB, &map_k, &kv_full, 64 * s, kvh, k0, b);
-          tma_load(Vs + s * K_SLAB, &map_v, &kv_full, 64 * s, kvh, k0, b);
+          tma_load(Ks + s * KSLAB, &map_k, &kv_full, 64 * s, kvh, k0, b);
+          tma_load(Vs + s * KSLAB, &map_v, &kv_full, 64 * s, kvh, k0, b);
         }
       }
       for (int it = 0; it < steps; ++it) {
-        const int stage = it % DKV_STAGES;
+        const int stage = it % STAGES;
         const int h = kvh * grp + it / nq, q0 = (qb_begin + it % nq) * DKV_BM;
-        mbar_wait(&empty[stage], ((it / DKV_STAGES) & 1) ^ 1);
+        mbar_wait(&empty[stage], ((it / STAGES) & 1) ^ 1);
         const size_t row = ((size_t)b * p.H + h) * p.S + q0;
         for (int i = lane; i < DKV_BM; i += 32) {
           const bool ok = q0 + i < p.S;
@@ -647,26 +688,31 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     regs_alloc<232>();
     const int w = wg, t = tid % 128;
     const int lane = t & 31, g = lane >> 2, c = (lane & 3) * 2;
-    const int kw0 = k0 + 64 * w;               // this warpgroup's first key
+    // D 64/128: warpgroup w owns keys 64 w.. and every column; D 256: both
+    // own the block's 64 keys, warpgroup w the columns of slabs 2w, 2w + 1
+    const int kw0 = k0 + (T::SPLIT ? 0 : 64 * w);  // this warpgroup's first key
     const int key0 = kw0 + 16 * (t >> 5) + g;  // this thread's keys: +0, +8
-    const uint32_t k_addr = smem_u32(Ks) + w * 64 * 128;
-    const uint32_t v_addr = smem_u32(Vs) + w * 64 * 128;
-    float dk[D / 2], dv[D / 2];
+    const int cs = T::SPLIT ? 2 * w : 0;       // its first output slab
+    const uint32_t k_addr = smem_u32(Ks) + (T::SPLIT ? 0 : w * 64 * 128);
+    const uint32_t v_addr = smem_u32(Vs) + (T::SPLIT ? 0 : w * 64 * 128);
+    float dk[T::DO / 2], dv[T::DO / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < T::DO / 2; ++i) dk[i] = dv[i] = 0.f;
     mbar_wait(&kv_full, 0);
     for (int it = 0; it < steps; ++it) {
-      const int stage = it % DKV_STAGES;
+      const int stage = it % STAGES;
       const int q0 = (qb_begin + it % nq) * DKV_BM;
-      mbar_wait(&full[stage], (it / DKV_STAGES) & 1);
+      mbar_wait(&full[stage], (it / STAGES) & 1);
       const uint32_t q_addr = smem_u32(QO) + 2 * stage * NS * Q_SLAB;
-      dkv_step<D, QN, true, true>(dv, dk, k_addr, v_addr, q_addr,
-                                  q_addr + NS * Q_SLAB, LD[stage][0],
-                                  LD[stage][1], q0, kw0, key0, c, p);
+      dkv_step<D, T::DO, T::QN, KSLAB>(dv, dk, k_addr, v_addr, q_addr,
+                                       q_addr + NS * Q_SLAB, cs, LD[stage][0],
+                                       LD[stage][1], q0, kw0, key0, c, p);
       mbar_arrive(&empty[stage]);
     }
-    store_rows<D>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, kvh, key0, c, dv, p.S);
-    store_rows<D>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, kvh, key0, c, dk, p.S);
+    store_rows<T::DO>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, kvh, key0, 64 * cs,
+                      c, dv, p.S);
+    store_rows<T::DO>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, kvh, key0, 64 * cs,
+                      c, dk, p.S);
   }
 }
 
@@ -677,10 +723,10 @@ int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
                                       p.q_ss, p.q_sh, DKV_BM))
     return TMA_ENCODE_ERROR + e;
   if (int e = hopper::encode_rows_map(&mk, p.k, p.B, p.S, p.KV, D, p.k_sb,
-                                      p.k_ss, p.k_sh, DKV_BN))
+                                      p.k_ss, p.k_sh, DkvTile<D>::BN))
     return TMA_ENCODE_ERROR + e;
   if (int e = hopper::encode_rows_map(&mv, p.v, p.B, p.S, p.KV, D, p.v_sb,
-                                      p.v_ss, p.v_sh, DKV_BN))
+                                      p.v_ss, p.v_sh, DkvTile<D>::BN))
     return TMA_ENCODE_ERROR + e;
   if (int e = hopper::encode_rows_map(&mo, p.dout, p.B, p.S, p.H, D, p.o_sb,
                                       p.o_ss, p.o_sh, DKV_BM))
@@ -690,7 +736,7 @@ int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.KV, p.B, (p.S + DKV_BN - 1) / DKV_BN);
+  const dim3 grid(p.KV, p.B, (p.S + DkvTile<D>::BN - 1) / DkvTile<D>::BN);
   kernel<<<grid, DKV_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
   return (int)cudaGetLastError();
 }
@@ -699,7 +745,7 @@ int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
 // 384 threads: warpgroups 0 and 1 are the consumers, each owning 64 of the
 // block's 128 query rows of one query head, warpgroup 2 the producer. The
 // producer loads the Q and dO tiles once, then streams the in-band K/V
-// tiles of KV head h / (H / KV) through a ring of DQ_STAGES stages (full
+// tiles of KV head h / (H / KV) through a ring of STAGES stages (full
 // barrier: the TMA bytes; empty barrier: the 256 consumer threads). lse and
 // delta are per query row: each consumer thread reads its two rows once,
 // before the loop. A consumer runs, for its 64 queries x a tile's 64 keys:
@@ -715,19 +761,30 @@ int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
 // ptxas's 168. Measured on the H100 (PERF.md): one commit group for
 // S and dP ran 0.129 ms at the slice shape, two 0.116; a ping-pong of the
 // two warpgroups on named barriers 0.141; 8 stages in place of 4, or the
-// dS math under the previous dQ product, no faster.
-constexpr int DQ_BM = 128;        // query rows per block
+// dS math under the previous dQ product, no faster. At D = 256
+// (DqTile::SPLIT) the block owns 64 query rows, both warpgroups run S and
+// dP for all of them over the whole D, and warpgroup w accumulates dQ
+// columns 128 w .. 128 w + 127 (64 registers, as at D = 128). Q and dO take
+// 64 KB, a K/V stage 64 KB.
 constexpr int DQ_BN = 64;         // keys per K/V tile
-constexpr int DQ_STAGES = 4;      // K/V tiles in flight
 constexpr int DQ_THREADS = 384;   // 2 consumer warpgroups, then the producer
-constexpr int DQ_QO_SLAB = DQ_BM * 128;  // bytes of a 64-column slab of Q or dO
-constexpr int DQ_KV_SLAB = DQ_BN * 128;  // ... of K or V
+constexpr int DQ_KV_SLAB = DQ_BN * 128;  // bytes of a 64-column slab of K or V
+
+template <int D>
+struct DqTile {
+  static constexpr bool SPLIT = D == 256;       // dQ split by columns
+  static constexpr int BM = SPLIT ? 64 : 128;   // query rows per block
+  static constexpr int STAGES = SPLIT ? 2 : 4;  // K/V tiles in flight
+  static constexpr int DO = SPLIT ? D / 2 : D;  // dQ columns a warpgroup
+  static constexpr int QO_SLAB = BM * 128;  // a 64-column slab of Q or dO
+};
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // Q and dO, then DQ_STAGES x (K, V), each D / 64 slabs; 1024 bytes of
+  // Q and dO, then STAGES x (K, V), each D / 64 slabs; 1024 bytes of
   // slack to align the base for the 128-byte swizzle
-  return (size_t)(D / 64) * (2 * DQ_QO_SLAB + 2 * DQ_STAGES * DQ_KV_SLAB) +
+  using T = DqTile<D>;
+  return (size_t)(D / 64) * (2 * T::QO_SLAB + 2 * T::STAGES * DQ_KV_SLAB) +
          1024;
 }
 
@@ -772,7 +829,7 @@ __device__ __forceinline__ void dq_ss_product(float (&acc)[DQ_BN / 2],
                                               uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t aoff = (kk / 4) * DQ_QO_SLAB + (kk % 4) * 32;
+    const uint32_t aoff = (kk / 4) * DqTile<D>::QO_SLAB + (kk % 4) * 32;
     const uint32_t boff = (kk / 4) * DQ_KV_SLAB + (kk % 4) * 32;
     wgmma_ss<DQ_BN>(acc, desc_sw128(a_addr + aoff, 16, 1024),
                     desc_sw128(b_addr + boff, 16, 1024), kk > 0);
@@ -780,9 +837,9 @@ __device__ __forceinline__ void dq_ss_product(float (&acc)[DQ_BN / 2],
   wgmma_commit();
 }
 
-// dQ += dS K over one tile: DQ_BN / 16 k-steps of 16 keys = 2048 bytes of
-// K rows each, K MN-major (the second 64-column slab at D = 128 one slab
-// on); committed as one group, not waited for.
+// dQ += dS K over one tile for D output columns, from the K slab at k_addr:
+// DQ_BN / 16 k-steps of 16 keys = 2048 bytes of K rows each, K MN-major (the
+// next 64-column slab one slab on); committed as one group, not waited for.
 template <int D>
 __device__ __forceinline__ void dq_product(float (&dq)[D / 2],
                                            const uint32_t (&dsa)[DQ_BN / 4],
@@ -801,27 +858,30 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                const __grid_constant__ CUtensorMap map_do, const Params p) {
+  using T = DqTile<D>;
+  constexpr int STAGES = T::STAGES, QO_SLAB = T::QO_SLAB;
   constexpr int NS = D / 64;  // slabs per tile
-  // D = 128 waits for each dQ product at once: with it in flight beside S,
-  // dP and the 64 dQ accumulators, ptxas serializes every wgmma (C7512)
+  // D = 128 and 256 wait for each dQ product at once: with it in flight
+  // beside S, dP and the 64 dQ accumulators, ptxas serializes every wgmma
+  // (C7512)
   constexpr bool OVERLAP = D == 64;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ uint64_t qo_full, full[DQ_STAGES], empty[DQ_STAGES];
+  __shared__ uint64_t qo_full, full[STAGES], empty[STAGES];
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Os = Qs + NS * DQ_QO_SLAB;
-  unsigned char* KV = Os + NS * DQ_QO_SLAB;  // stage s: K at 2s, V at 2s + 1
+  unsigned char* Os = Qs + NS * QO_SLAB;
+  unsigned char* KV = Os + NS * QO_SLAB;  // stage s: K at 2s, V at 2s + 1
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BM;  // longest rows first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * T::BM;  // longest rows first
   const int kvh = h / (p.H / p.KV);
   int kb_begin, kb_end;
-  band<DQ_BM, DQ_BN>(p, q0, kb_begin, kb_end);
+  band<T::BM, DQ_BN>(p, q0, kb_begin, kb_end);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(&qo_full, 1);
-    for (int s = 0; s < DQ_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
     }
@@ -833,14 +893,14 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wg == 2) {  // -------------------------------------------- producer --
     regs_dealloc<40>();
     if (tid == 256) {
-      mbar_arrive_tx(&qo_full, 2 * NS * DQ_QO_SLAB);
+      mbar_arrive_tx(&qo_full, 2 * NS * QO_SLAB);
       for (int s = 0; s < NS; ++s) {
-        tma_load(Qs + s * DQ_QO_SLAB, &map_q, &qo_full, 64 * s, h, q0, b);
-        tma_load(Os + s * DQ_QO_SLAB, &map_do, &qo_full, 64 * s, h, q0, b);
+        tma_load(Qs + s * QO_SLAB, &map_q, &qo_full, 64 * s, h, q0, b);
+        tma_load(Os + s * QO_SLAB, &map_do, &qo_full, 64 * s, h, q0, b);
       }
       for (int kb = kb_begin; kb < kb_end; ++kb) {
-        const int i = kb - kb_begin, stage = i % DQ_STAGES;
-        mbar_wait(&empty[stage], ((i / DQ_STAGES) & 1) ^ 1);
+        const int i = kb - kb_begin, stage = i % STAGES;
+        mbar_wait(&empty[stage], ((i / STAGES) & 1) ^ 1);
         unsigned char* ks = KV + 2 * stage * NS * DQ_KV_SLAB;
         mbar_arrive_tx(&full[stage], 2 * NS * DQ_KV_SLAB);
         for (int s = 0; s < NS; ++s) {
@@ -855,10 +915,13 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     regs_alloc<232>();
     const int w = wg, t = tid % 128;
     const int lane = t & 31, g = lane >> 2, c = (lane & 3) * 2;
-    const int r0 = q0 + 64 * w;               // this warpgroup's first row
+    // D 64/128: warpgroup w owns rows 64 w.. and every column; D 256: both
+    // own the block's 64 rows, warpgroup w the dQ columns of slabs 2w, 2w + 1
+    const int r0 = q0 + (T::SPLIT ? 0 : 64 * w);  // this warpgroup's first row
     const int row0 = r0 + 16 * (t >> 5) + g;  // this thread's rows: +0, +8
-    const uint32_t q_addr = smem_u32(Qs) + w * 64 * 128;
-    const uint32_t o_addr = smem_u32(Os) + w * 64 * 128;
+    const int cs = T::SPLIT ? 2 * w : 0;       // its first dQ slab
+    const uint32_t q_addr = smem_u32(Qs) + (T::SPLIT ? 0 : w * 64 * 128);
+    const uint32_t o_addr = smem_u32(Os) + (T::SPLIT ? 0 : w * 64 * 128);
     const uint32_t kv_addr = smem_u32(KV);
     float lse2[2], dl[2];  // rows past S: never stored, masked in dS
 #pragma unroll
@@ -868,17 +931,17 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       lse2[r] = ok ? p.lse[lse_index(p, b, h, row)] * LOG2E : 0.f;
       dl[r] = ok ? p.delta[lse_index(p, b, h, row)] : 0.f;
     }
-    float dq[D / 2];
+    float dq[T::DO / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < T::DO / 2; ++i) dq[i] = 0.f;
     uint32_t dsa[DQ_BN / 4];  // dS rounded to bf16: dQ's A fragments
     int pending = -1;         // the stage whose dQ product is in flight
     mbar_wait(&qo_full, 0);
 
     for (int kb = kb_begin; kb < kb_end; ++kb) {
-      const int i = kb - kb_begin, stage = i % DQ_STAGES;
+      const int i = kb - kb_begin, stage = i % STAGES;
       const int k0 = kb * DQ_BN;
-      mbar_wait(&full[stage], (i / DQ_STAGES) & 1);
+      mbar_wait(&full[stage], (i / STAGES) & 1);
       if (!tile_live<64, DQ_BN>(p, r0, k0)) {
         mbar_arrive(&empty[stage]);
         continue;
@@ -913,7 +976,7 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dq);
       fence_regs(dsa);
       wgmma_fence();
-      dq_product<D>(dq, dsa, k_addr);
+      dq_product<T::DO>(dq, dsa, k_addr + cs * DQ_KV_SLAB);
       if constexpr (OVERLAP) {
         pending = stage;
       } else {
@@ -927,7 +990,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_regs(dq);
     fence_regs(dsa);
     if (pending >= 0) mbar_arrive(&empty[pending]);
-    store_rows<D>(p.dq, p.dq_sb, p.dq_ss, p.dq_sh, b, h, row0, c, dq, p.S);
+    store_rows<T::DO>(p.dq, p.dq_sb, p.dq_ss, p.dq_sh, b, h, row0, 64 * cs,
+                      c, dq, p.S);
   }
 }
 
@@ -935,7 +999,7 @@ template <int D>
 int launch_dq_bf16(const Params& p, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
   if (int e = hopper::encode_rows_map(&mq, p.q, p.B, p.S, p.H, D, p.q_sb,
-                                      p.q_ss, p.q_sh, DQ_BM))
+                                      p.q_ss, p.q_sh, DqTile<D>::BM))
     return TMA_ENCODE_ERROR + e;
   if (int e = hopper::encode_rows_map(&mk, p.k, p.B, p.S, p.KV, D, p.k_sb,
                                       p.k_ss, p.k_sh, DQ_BN))
@@ -944,21 +1008,21 @@ int launch_dq_bf16(const Params& p, cudaStream_t stream) {
                                       p.v_ss, p.v_sh, DQ_BN))
     return TMA_ENCODE_ERROR + e;
   if (int e = hopper::encode_rows_map(&mo, p.dout, p.B, p.S, p.H, D, p.o_sb,
-                                      p.o_ss, p.o_sh, DQ_BM))
+                                      p.o_ss, p.o_sh, DqTile<D>::BM))
     return TMA_ENCODE_ERROR + e;
   auto kernel = dq_bf16_kernel<D>;
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.H, p.B, (p.S + DQ_BM - 1) / DQ_BM);
+  const dim3 grid(p.H, p.B, (p.S + DqTile<D>::BM - 1) / DqTile<D>::BM);
   kernel<<<grid, DQ_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
   return (int)cudaGetLastError();
 }
 
 int check(const Params& p, int D, int dtype) {
   if (p.H <= 0 || p.KV <= 0 || p.H % p.KV != 0 || p.B <= 0 || p.S <= 0 ||
-      (D != 64 && D != 128) || (dtype != 0 && dtype != 1))
+      (D != 64 && D != 128 && D != 256) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -989,8 +1053,8 @@ void set_common(Params& p, const void* q, const void* k, const void* v,
 // error of its launch (0 on success), or TMA_ENCODE_ERROR + the CUresult of
 // a tensor map the CUDA driver refused; the launch does not synchronise.
 
-// dK, dV [B, S, KV, D]: grid (ceil(S / 64), KV, B) for fp32, (KV, B,
-// ceil(S / 128)) for bf16.
+// dK, dV [B, S, KV, D]: grid (ceil(S / T), KV, B) for fp32 (T = 64, or 32
+// at D = 256), (KV, B, ceil(S / 128)) for bf16 (S / 64 at D = 256).
 extern "C" int tfde_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
@@ -1013,19 +1077,22 @@ extern "C" int tfde_flash_bwd_dkv(
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
   if (int err = check(p, D, dtype)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((S + BN - 1) / BN, KV, B);
   if (dtype == 0 && D == 64)
-    return (int)launch(dkv_fp32_kernel<64>, grid, F_THREADS,
-                       dkv_fp32_smem_bytes<64>(), p, s);
+    return (int)launch(dkv_fp32_kernel<64>, fp32_grid<64>(S, KV, B),
+                       F_THREADS, dkv_fp32_smem_bytes<64>(), p, s);
+  if (dtype == 0 && D == 128)
+    return (int)launch(dkv_fp32_kernel<128>, fp32_grid<128>(S, KV, B),
+                       F_THREADS, dkv_fp32_smem_bytes<128>(), p, s);
   if (dtype == 0)
-    return (int)launch(dkv_fp32_kernel<128>, grid, F_THREADS,
-                       dkv_fp32_smem_bytes<128>(), p, s);
+    return (int)launch(dkv_fp32_kernel<256>, fp32_grid<256>(S, KV, B),
+                       F_THREADS, dkv_fp32_smem_bytes<256>(), p, s);
   if (D == 64) return launch_dkv_bf16<64>(p, s);
-  return launch_dkv_bf16<128>(p, s);
+  if (D == 128) return launch_dkv_bf16<128>(p, s);
+  return launch_dkv_bf16<256>(p, s);
 }
 
-// dQ [B, S, H, D]: grid (ceil(S / 64), H, B) for fp32, (H, B,
-// ceil(S / 128)) for bf16.
+// dQ [B, S, H, D]: grid (ceil(S / T), H, B) for fp32 (T = 64, or 32 at
+// D = 256), (H, B, ceil(S / 128)) for bf16 (S / 64 at D = 256).
 extern "C" int tfde_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq,
@@ -1046,13 +1113,16 @@ extern "C" int tfde_flash_bwd_dq(
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   if (int err = check(p, D, dtype)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((S + BM - 1) / BM, H, B);
   if (dtype == 0 && D == 64)
-    return (int)launch(dq_fp32_kernel<64>, grid, F_THREADS,
+    return (int)launch(dq_fp32_kernel<64>, fp32_grid<64>(S, H, B), F_THREADS,
                        dq_fp32_smem_bytes<64>(), p, s);
+  if (dtype == 0 && D == 128)
+    return (int)launch(dq_fp32_kernel<128>, fp32_grid<128>(S, H, B),
+                       F_THREADS, dq_fp32_smem_bytes<128>(), p, s);
   if (dtype == 0)
-    return (int)launch(dq_fp32_kernel<128>, grid, F_THREADS,
-                       dq_fp32_smem_bytes<128>(), p, s);
+    return (int)launch(dq_fp32_kernel<256>, fp32_grid<256>(S, H, B),
+                       F_THREADS, dq_fp32_smem_bytes<256>(), p, s);
   if (D == 64) return launch_dq_bf16<64>(p, s);
-  return launch_dq_bf16<128>(p, s);
+  if (D == 128) return launch_dq_bf16<128>(p, s);
+  return launch_dq_bf16<256>(p, s);
 }

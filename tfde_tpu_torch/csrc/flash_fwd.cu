@@ -22,7 +22,7 @@
 // - Two kernels behind one entry point, by input dtype: bf16 runs both
 //   products on the tensor cores (wgmma, fp32 accumulation); fp32 runs
 //   them in fp32 FMA on the CUDA cores, because TF32 tensor-core products
-//   would round the inputs to 10 mantissa bits. head_dim 64 or 128.
+//   would round the inputs to 10 mantissa bits. head_dim 64, 128 or 256.
 //
 // Bound on the H100: at the slice's shape (8 x 1024 tokens, 12 heads,
 // D = 64, bf16, causal) the call moves ~50.7 MB of q/k/v/out/lse (~15 us
@@ -43,7 +43,10 @@
 // - a mask-free path for tiles whose every pair is visible (all but the
 //   diagonal, window-edge and ragged-edge tiles of a causal row), and
 //   warpgroup blocks with no visible pair skipped;
-// - the longest causal rows launch first, so the short ones fill the tail.
+// - the longest causal rows launch first, so the short ones fill the tail;
+// - at D = 256 (Gemma, Gemma-2, GPT-J, Pythia-1B) a 64-row O accumulator
+//   alone takes 128 of a consumer thread's 168 registers: the block owns 64
+//   rows and its two consumer warpgroups split O by columns (FwdTile).
 // Left for later: overlapping one warpgroup's softmax with the next
 // product (FA3's ping-pong and intra-warpgroup overlap), and fp8.
 
@@ -219,37 +222,55 @@ flash_fwd_fp32_kernel(const Params p) {
 
 // ---------------------------------------------------------------- bf16 --
 // 384 threads: warpgroups 0 and 1 are the consumers, each owning 64 of the
-// block's 128 query rows, warpgroup 2 the producer (one thread issues every
-// TMA load). The producer loads the Q tile once and streams the
-// in-band K/V tiles through a ring of FWD_STAGES stages (full barrier:
+// block's 128 query rows (D 64/128), warpgroup 2 the producer (one thread
+// issues every TMA load). The producer loads the Q tile once and streams the
+// in-band K/V tiles through a ring of STAGES stages (full barrier:
 // the TMA bytes; empty barrier: all 256 consumer threads). A consumer runs
 // S = Q K^T as a wgmma from shared memory (both K-major), the online
 // softmax on the accumulator fragment (the four lanes of a quad hold a
 // row's columns), then O += P V as a wgmma with P rounded to bf16 in
 // registers and V from shared memory, MN-major. A consumer thread has 168
-// registers (hopper.cuh, setmaxnreg): S takes 64, O 32 (D = 64) or 64
-// (D = 128), P's fragments 32.
-constexpr int FWD_BM = 128;      // query rows per block
-constexpr int FWD_BN = 128;      // key columns per K/V tile
-constexpr int FWD_STAGES = 3;    // K/V tiles in flight
+// registers (hopper.cuh, setmaxnreg): at D 64/128 S takes 64, O 32 (D = 64)
+// or 64 (D = 128), P's fragments 32.
+//
+// At D = 256 a 64 x 256 O accumulator would take 128 registers beside S and
+// P, and one 128-row Q tile with a 128-key K/V stage would not fit shared
+// memory (64 KB + 128 KB a stage). So the block owns 64 query rows and the
+// two consumer warpgroups split O by columns: each runs the same S = Q K^T
+// over the whole D and the same softmax (the same values, so the same m and
+// l), then O[:, 128 w .. 128 w + 127] += P V[:, 128 w ..]. That costs one
+// extra Q K^T a tile (1.5x the tensor-core work) and keeps a consumer at S
+// 32, O 64 and P 16 registers; K/V tiles of 64 keys, two stages (Q 32 KB +
+// 2 x 64 KB of K/V).
 constexpr int FWD_THREADS = 384;  // 2 consumer warpgroups, then the producer
-constexpr int SLAB = 128 * 128;  // one 128-row x 64-column bf16 slab, bytes
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
+struct FwdTile {
+  static constexpr bool SPLIT = D == 256;       // O split by columns
+  static constexpr int BM = SPLIT ? 64 : 128;   // query rows per block
+  static constexpr int BN = SPLIT ? 64 : 128;   // key columns per K/V tile
+  static constexpr int STAGES = SPLIT ? 2 : 3;  // K/V tiles in flight
+  static constexpr int DO = SPLIT ? D / 2 : D;  // O columns a warpgroup
+  static constexpr int QSLAB = BM * 128;  // a 64-column slab of Q, bytes
+  static constexpr int KSLAB = BN * 128;  // ... of K or V
+};
+
+template <int D>
 constexpr size_t bf16_smem_bytes() {
-  // the Q tile and FWD_STAGES x (K, V), each D / 64 slabs; 1024 bytes of
+  // the Q tile and STAGES x (K, V), each D / 64 slabs; 1024 bytes of
   // slack to align the base for the 128-byte swizzle
-  return (size_t)(1 + 2 * FWD_STAGES) * (D / 64) * SLAB + 1024;
+  using T = FwdTile<D>;
+  return (size_t)(D / 64) * (T::QSLAB + 2 * T::STAGES * T::KSLAB) + 1024;
 }
 
-// Scale, cap and (MASKED) mask one warpgroup's 64 x FWD_BN score tile in
+// Scale, cap and (MASKED) mask one warpgroup's 64 x BN score tile in
 // place, then turn it into P = exp(z - m) with the running max m, sum l
 // (this thread's partial: its quad's four partials add up at the end) and
-// the output's rescaling.
-template <bool MASKED, int D>
-__device__ __forceinline__ void softmax_tile(float (&s)[FWD_BN / 2],
-                                             float (&o)[D / 2], float* m,
+// the rescaling of the warpgroup's DO output columns.
+template <bool MASKED, int BN, int DO>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2],
+                                             float (&o)[DO / 2], float* m,
                                              float* l, int row0, int k0,
                                              int c, const Params& p) {
   // mask-free without a cap: s stays the raw dot product, and the scale
@@ -257,21 +278,21 @@ __device__ __forceinline__ void softmax_tile(float (&s)[FWD_BN / 2],
   const bool raw = !MASKED && p.cap <= 0.f && p.scale > 0.f;
   if (MASKED) {
 #pragma unroll
-    for (int i = 0; i < FWD_BN / 2; ++i)
+    for (int i = 0; i < BN / 2; ++i)
       s[i] = score(s[i], row0 + 8 * ((i >> 1) & 1),
                    k0 + 8 * (i >> 2) + c + (i & 1), p);
   } else if (p.cap > 0.f) {
     const float inv = p.scale / p.cap;
 #pragma unroll
-    for (int i = 0; i < FWD_BN / 2; ++i) s[i] = p.cap * tanhf(s[i] * inv);
+    for (int i = 0; i < BN / 2; ++i) s[i] = p.cap * tanhf(s[i] * inv);
   } else if (!raw) {
 #pragma unroll
-    for (int i = 0; i < FWD_BN / 2; ++i) s[i] *= p.scale;
+    for (int i = 0; i < BN / 2; ++i) s[i] *= p.scale;
   }
   const float zs = raw ? p.scale : 1.f;  // score = zs * s
   float mx[2] = {NEG, NEG};
 #pragma unroll
-  for (int i = 0; i < FWD_BN / 2; ++i)
+  for (int i = 0; i < BN / 2; ++i)
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   float corr[2], ml[2];
 #pragma unroll
@@ -288,13 +309,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[FWD_BN / 2],
   }
   const float sl = zs * LOG2E;
 #pragma unroll
-  for (int i = 0; i < FWD_BN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     const int r = (i >> 1) & 1;
     s[i] = exp2_approx(fmaf(s[i], sl, -ml[r]));
     l[r] += s[i];
   }
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+  for (int i = 0; i < DO / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 }
 
 template <int D>
@@ -303,23 +324,25 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const Params p) {
+  using T = FwdTile<D>;
+  constexpr int BN = T::BN, STAGES = T::STAGES, DO = T::DO;
   constexpr int NS = D / 64;  // slabs per tile
   extern __shared__ unsigned char smem_raw[];
-  __shared__ uint64_t q_full, kv_full[FWD_STAGES], kv_empty[FWD_STAGES];
+  __shared__ uint64_t q_full, kv_full[STAGES], kv_empty[STAGES];
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* KV = Qs + NS * SLAB;  // stage s: K at 2s, V at 2s + 1
+  unsigned char* KV = Qs + NS * T::QSLAB;  // stage s: K at 2s, V at 2s + 1
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * FWD_BM;  // longest rows first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * T::BM;  // longest rows first
   const int kvh = h / (p.H / p.KV);
   int kb_begin, kb_end;
-  band<FWD_BM, FWD_BN>(p, q0, kb_begin, kb_end);
+  band<T::BM, BN>(p, q0, kb_begin, kb_end);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(&q_full, 1);
-    for (int s = 0; s < FWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&kv_full[s], 1);
       mbar_init(&kv_empty[s], 256);
     }
@@ -331,19 +354,19 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wg == 2) {  // -------------------------------------------- producer --
     regs_dealloc<40>();
     if (tid == 256) {
-      mbar_arrive_tx(&q_full, NS * SLAB);
+      mbar_arrive_tx(&q_full, NS * T::QSLAB);
       for (int s = 0; s < NS; ++s)
-        tma_load(Qs + s * SLAB, &map_q, &q_full, 64 * s, h, q0, b);
+        tma_load(Qs + s * T::QSLAB, &map_q, &q_full, 64 * s, h, q0, b);
       for (int kb = kb_begin; kb < kb_end; ++kb) {
-        const int i = kb - kb_begin, stage = i % FWD_STAGES;
-        mbar_wait(&kv_empty[stage], ((i / FWD_STAGES) & 1) ^ 1);
-        unsigned char* ks = KV + 2 * stage * NS * SLAB;
-        mbar_arrive_tx(&kv_full[stage], 2 * NS * SLAB);
+        const int i = kb - kb_begin, stage = i % STAGES;
+        mbar_wait(&kv_empty[stage], ((i / STAGES) & 1) ^ 1);
+        unsigned char* ks = KV + 2 * stage * NS * T::KSLAB;
+        mbar_arrive_tx(&kv_full[stage], 2 * NS * T::KSLAB);
         for (int s = 0; s < NS; ++s) {
-          tma_load(ks + s * SLAB, &map_k, &kv_full[stage], 64 * s, kvh,
-                   kb * FWD_BN, b);
-          tma_load(ks + (NS + s) * SLAB, &map_v, &kv_full[stage], 64 * s, kvh,
-                   kb * FWD_BN, b);
+          tma_load(ks + s * T::KSLAB, &map_k, &kv_full[stage], 64 * s, kvh,
+                   kb * BN, b);
+          tma_load(ks + (NS + s) * T::KSLAB, &map_v, &kv_full[stage], 64 * s,
+                   kvh, kb * BN, b);
         }
       }
     }
@@ -351,40 +374,44 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     regs_alloc<232>();
     const int w = wg, t = tid % 128;
     const int lane = t & 31, g = lane >> 2, c = (lane & 3) * 2;
-    const int r0 = q0 + 64 * w;             // this warpgroup's first row
+    // D 64/128: warpgroup w owns rows 64 w.. and every column; D 256: both
+    // own the block's 64 rows, warpgroup w the O columns of slabs 2w, 2w + 1
+    const int r0 = q0 + (T::SPLIT ? 0 : 64 * w);  // this warpgroup's first row
     const int row0 = r0 + 16 * (t >> 5) + g;  // this thread's rows: +0, +8
-    const uint32_t q_addr = smem_u32(Qs) + w * 64 * 128;
-    float o[D / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    const int cs = T::SPLIT ? 2 * w : 0;       // its first O column slab
+    const uint32_t q_addr = smem_u32(Qs) + (T::SPLIT ? 0 : w * 64 * 128);
+    float o[DO / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
     mbar_wait(&q_full, 0);
 
-    // D = 64: P V of one tile runs on the tensor cores while Q K^T of the
-    // next is issued; the wait for both comes before the softmax, and the
-    // stage of the pending P V is released after it. D = 128 waits for P V
-    // at once: S, O and P together (160 registers) leave ptxas too few to
-    // keep both products in flight, and it serializes every wgmma.
-    uint32_t pa[FWD_BN / 4];
+    // D = 64 and 256: P V of one tile runs on the tensor cores while Q K^T
+    // of the next is issued; the wait for both comes before the softmax,
+    // and the stage of the pending P V is released after it. D = 128 waits
+    // for P V at once: S, O and P together (160 registers) leave ptxas too
+    // few to keep both products in flight, and it serializes every wgmma.
+    uint32_t pa[BN / 4];
     int pending = -1;  // the stage whose P V is in flight
     for (int kb = kb_begin; kb < kb_end; ++kb) {
-      const int i = kb - kb_begin, stage = i % FWD_STAGES;
-      const int k0 = kb * FWD_BN;
-      mbar_wait(&kv_full[stage], (i / FWD_STAGES) & 1);
-      if (!tile_live<64, FWD_BN>(p, r0, k0)) {
+      const int i = kb - kb_begin, stage = i % STAGES;
+      const int k0 = kb * BN;
+      mbar_wait(&kv_full[stage], (i / STAGES) & 1);
+      if (!tile_live<64, BN>(p, r0, k0)) {
         mbar_arrive(&kv_empty[stage]);
         continue;
       }
-      const uint32_t k_addr = smem_u32(KV) + 2 * stage * NS * SLAB;
-      const uint32_t v_addr = k_addr + NS * SLAB;
-      // S = Q K^T: 64 x 128, D / 16 k-steps of 32 bytes inside a slab
-      float s[FWD_BN / 2];
+      const uint32_t k_addr = smem_u32(KV) + 2 * stage * NS * T::KSLAB;
+      const uint32_t v_addr = k_addr + NS * T::KSLAB;
+      // S = Q K^T: 64 x BN, D / 16 k-steps of 32 bytes inside a slab
+      float s[BN / 2];
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * SLAB + (kk % 4) * 32;
-        wgmma_ss<FWD_BN>(s, desc_sw128(q_addr + off, 16, 1024),
-                         desc_sw128(k_addr + off, 16, 1024), kk > 0);
+        const uint32_t in = (kk % 4) * 32;
+        wgmma_ss<BN>(s, desc_sw128(q_addr + (kk / 4) * T::QSLAB + in, 16, 1024),
+                     desc_sw128(k_addr + (kk / 4) * T::KSLAB + in, 16, 1024),
+                     kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -392,21 +419,23 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(o);
       fence_regs(pa);
       if (pending >= 0) mbar_arrive(&kv_empty[pending]);
-      if (tile_unmasked<64, FWD_BN>(p, r0, k0))
-        softmax_tile<false, D>(s, o, m, l, row0, k0, c, p);
+      if (tile_unmasked<64, BN>(p, r0, k0))
+        softmax_tile<false, BN, DO>(s, o, m, l, row0, k0, c, p);
       else
-        softmax_tile<true, D>(s, o, m, l, row0, k0, c, p);
+        softmax_tile<true, BN, DO>(s, o, m, l, row0, k0, c, p);
       // O += P V: P rounded to bf16 (the TPU kernel casts p to v's dtype),
-      // 8 k-steps of 16 keys = 2048 bytes of V rows each
+      // BN / 16 k-steps of 16 keys = 2048 bytes of V rows each
 #pragma unroll
-      for (int kk = 0; kk < FWD_BN / 16; ++kk) acc_to_a(pa + 4 * kk, s, kk);
+      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(pa + 4 * kk, s, kk);
       fence_regs(o);
       fence_regs(pa);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < FWD_BN / 16; ++kk) {
-        wgmma_rs<D>(o, pa + 4 * kk, desc_sw128(v_addr + kk * 2048, SLAB, 1024),
-                    1);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        wgmma_rs<DO>(o, pa + 4 * kk,
+                     desc_sw128(v_addr + cs * T::KSLAB + kk * 2048, T::KSLAB,
+                                1024),
+                     1);
       }
       wgmma_commit();
       if constexpr (D == 128) {  // no room for S, O and P at once
@@ -431,13 +460,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       if (row < p.S) {
         const float ll = fmaxf(l[r], 1e-20f), inv = 1.f / ll;
         __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out) +
-                            b * p.o_sb + row * p.o_ss + h * p.o_sh;
+                            b * p.o_sb + row * p.o_ss + h * p.o_sh + 64 * cs;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DO / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(og + 8 * j + c) =
               __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
                                     o[4 * j + 2 * r + 1] * inv);
-        if ((lane & 3) == 0)
+        if ((lane & 3) == 0 && (!T::SPLIT || w == 0))  // once a row
           p.lse[((long long)b * p.H + h) * p.S + row] = m[r] + logf(ll);
       }
     }
@@ -446,22 +475,23 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int D>
 int launch_bf16(const Params& p, cudaStream_t stream) {
+  using T = FwdTile<D>;
   CUtensorMap mq, mk, mv;
   if (int e = hopper::encode_rows_map(&mq, p.q, p.B, p.S, p.H, D, p.q_sb,
-                                      p.q_ss, p.q_sh, FWD_BM))
+                                      p.q_ss, p.q_sh, T::BM))
     return TMA_ENCODE_ERROR + e;
   if (int e = hopper::encode_rows_map(&mk, p.k, p.B, p.S, p.KV, D, p.k_sb,
-                                      p.k_ss, p.k_sh, FWD_BN))
+                                      p.k_ss, p.k_sh, T::BN))
     return TMA_ENCODE_ERROR + e;
   if (int e = hopper::encode_rows_map(&mv, p.v, p.B, p.S, p.KV, D, p.v_sb,
-                                      p.v_ss, p.v_sh, FWD_BN))
+                                      p.v_ss, p.v_sh, T::BN))
     return TMA_ENCODE_ERROR + e;
   auto kernel = flash_fwd_bf16_kernel<D>;
   const size_t smem = bf16_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.H, p.B, (p.S + FWD_BM - 1) / FWD_BM);
+  const dim3 grid(p.H, p.B, (p.S + T::BM - 1) / T::BM);
   kernel<<<grid, FWD_THREADS, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
@@ -503,8 +533,12 @@ extern "C" int tfde_flash_fwd(
   if (dtype == 0 && D == 128)
     return (int)launch(flash_fwd_fp32_kernel<128>, fwd_grid(p), F_THREADS,
                        fp32_smem_bytes<128>(), p, st);
+  if (dtype == 0 && D == 256)
+    return (int)launch(flash_fwd_fp32_kernel<256>, fwd_grid(p), F_THREADS,
+                       fp32_smem_bytes<256>(), p, st);
   if (dtype == 1 && D == 64) return launch_bf16<64>(p, st);
   if (dtype == 1 && D == 128) return launch_bf16<128>(p, st);
+  if (dtype == 1 && D == 256) return launch_bf16<256>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -518,7 +552,7 @@ extern "C" int tfde_flash_tma_encode_ns(const void* base, int reps) {
   clock_gettime(CLOCK_MONOTONIC, &t0);
   for (int i = 0; i < reps; ++i)
     hopper::encode_rows_map(&map, base, 8, 1024, 12, 64, 1024 * 12 * 64,
-                            12 * 64, 64, FWD_BM);
+                            12 * 64, 64, FwdTile<64>::BM);
   clock_gettime(CLOCK_MONOTONIC, &t1);
   const double ns =
       (t1.tv_sec - t0.tv_sec) * 1e9 + (double)(t1.tv_nsec - t0.tv_nsec);

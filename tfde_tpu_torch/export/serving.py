@@ -18,21 +18,21 @@ The serving function is the model in eval mode followed by a softmax
 probabilities, the reference's observable signature, though the models
 return logits. The batch dimension is symbolic (`torch.export.Dim`), so
 one artifact serves any batch size; it is traced at a batch of 2, since
-`torch.export` specialises sizes 0 and 1. The program is traced from a
-CPU copy of the unwrapped module (a DDP wrapper's ``module``), where an
-eval-mode forward runs no collective, and is moved to the serving
-device when it is loaded (`load_serving`: the card by default, the CPU
-when asked).
+`torch.export` specialises sizes 0 and 1. The program is traced from an
+eval-mode copy of the unwrapped module (a DDP wrapper's ``module``),
+where a forward runs no collective, on the module's own device, with
+fake tensors (nothing runs): on CUDA a model whose attention takes the
+flash kernels records their `torch.library` ops (`tfde::flash_forward`,
+ops/flash_attention.py), so the artifact launches the same kernels when
+it serves on the card, and their plain versions on the CPU. It is moved
+to the serving device when it is loaded (`load_serving`: the card by
+default, the CPU when asked); loading imports the ops' module, which
+registers them.
 
-What `torch.export` cannot trace is refused, never replaced: on CUDA, a
-model whose forward launches the ctypes-bound flash kernels
-(`ops/flash_attention.py`) raises NotImplementedError, because exporting
-the CPU copy would serve the plain attention in the kernels' place. The
-kernels first need registering as `torch.library` custom ops (ROADMAP,
-queue 1, "generative export"). `FinalExporter(savedmodel=True)` raises as
-well: a TF SavedModel needs `tensorflow`, which the port does not use.
-Directories are local paths (the JAX package's remote `utils/fs` is not
-ported).
+`FinalExporter(savedmodel=True)` raises: a TF SavedModel needs
+`tensorflow`, which the port does not use. Directories are local paths
+(the JAX package's remote `utils/fs` is not ported). Generative export
+(the whole decode loop) is export/generative.py.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ import torch
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
-from tfde_tpu_torch.ops import flash_attention as fa
+from tfde_tpu_torch.ops import flash_attention  # noqa: F401 (the ops)
 from tfde_tpu_torch.utils.devices import resolve_device
 
 log = logging.getLogger(__name__)
@@ -59,8 +59,6 @@ _FLAT_SEP = "/"
 PROGRAM_FILE = "model.pt2"
 #: the batch size the serving function is traced at (0 and 1 specialise)
 TRACE_BATCH = 2
-_CUSTOM_OPS = ("the flash kernels are not registered as torch.library "
-               "custom ops yet (ROADMAP, queue 1, 'generative export')")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -70,7 +68,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
         if isinstance(value, Mapping):
             flat.update(_flatten(value, name))
         elif isinstance(value, torch.Tensor):
-            flat[name] = value.detach().cpu().numpy()
+            value = value.detach().cpu()
+            if value.dtype == torch.bfloat16:  # numpy has no bfloat16
+                value = value.float()
+            flat[name] = value.numpy()
         else:
             flat[name] = np.asarray(value)
     return flat
@@ -126,23 +127,6 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _refuse_flash_kernels(model: nn.Module, sample: torch.Tensor) -> None:
-    """Raise NotImplementedError when `model` lies on CUDA and its forward
-    launches the flash kernels (one probe forward on the card)."""
-    device = next(model.parameters()).device
-    if device.type != "cuda":
-        return
-    before = fa.flash_forward.launches
-    with torch.no_grad():
-        model(sample.to(device))
-    if fa.flash_forward.launches != before:
-        raise NotImplementedError(
-            f"cannot export {type(model).__name__} from CUDA: its forward "
-            f"launches the flash attention kernels through ctypes, which "
-            f"torch.export cannot trace, and the CPU copy would serve the "
-            f"plain attention in their place; {_CUSTOM_OPS}")
-
-
 def _write_artifact(directory: str, program, host_vars: dict,
                     signature: dict) -> str:
     """A timestamped directory under `directory` with model.pt2,
@@ -188,12 +172,12 @@ def export_serving(model: nn.Module, input_shape: Sequence[Optional[int]],
     if isinstance(model, DistributedDataParallel):
         model = model.module
     shape = tuple(TRACE_BATCH if d is None else int(d) for d in input_shape)
-    sample = torch.zeros(shape, dtype=input_dtype)
-    _refuse_flash_kernels(model, sample)
-    cpu_model = copy.deepcopy(model).to("cpu").eval()
+    traced = copy.deepcopy(model).eval()
+    sample = torch.zeros(shape, dtype=input_dtype,
+                         device=next(traced.parameters()).device)
     batch = torch.export.Dim("batch", min=1)
     dynamic = {i: batch for i, d in enumerate(input_shape) if d is None}
-    program = torch.export.export(_Serve(cpu_model, apply_softmax),
+    program = torch.export.export(_Serve(traced, apply_softmax),
                                   (sample,), dynamic_shapes=(dynamic,),
                                   strict=False)
     out = next(n for n in program.graph.nodes if n.op == "output")
@@ -209,7 +193,7 @@ def export_serving(model: nn.Module, input_shape: Sequence[Optional[int]],
         "platforms": ["cpu", "cuda"],
         "framework": "tfde_tpu_torch",
     }
-    out_dir = _write_artifact(directory, program, _host_vars(cpu_model),
+    out_dir = _write_artifact(directory, program, _host_vars(traced),
                               signature)
     log.info("serving artifact exported -> %s", out_dir)
     return out_dir
@@ -247,16 +231,21 @@ def load_serving(export_dir: str, device=None) -> ServingModel:
     if signature.get("kind") == "generate":
         raise ValueError(
             f"{path} is a generative artifact ((prompt, seed) entry point); "
-            f"generative export is not ported yet (ROADMAP, queue 1, "
-            f"'generative export')")
-    program = torch.export.load(os.path.join(path, PROGRAM_FILE))
-    if device.type != "cpu":
-        from torch.export.passes import move_to_device_pass
+            f"load it with export.generative.load_generate")
+    program, params = _load_program(path, device)
+    return ServingModel(program, signature, params, device)
 
-        program = move_to_device_pass(program, device)
+
+def _load_program(path: str, device: torch.device):
+    """The exported program of the artifact at `path`, on `device`, and
+    its params.npz as a nested mapping of arrays."""
+    program = torch.export.load(os.path.join(path, PROGRAM_FILE))
+    from torch.export.passes import move_to_device_pass
+
+    program = move_to_device_pass(program, device)
     with np.load(os.path.join(path, "params.npz")) as z:
         params = _unflatten({k: z[k] for k in z.files})
-    return ServingModel(program, signature, params, device)
+    return program, params
 
 
 class FinalExporter:

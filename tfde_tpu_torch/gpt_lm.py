@@ -13,17 +13,28 @@ the flash forward runs again in the backward). `--packed` trims the
 corpus's rows to document lengths drawn by `default_rng(7)` and packs
 them (`data.packing`): the segment mask sends attention to the reference
 einsum, and the loss is `packed_next_token_loss`; it does not compose
-with `--sliding-window`. Runs on CUDA by default:
+with `--sliding-window`.
+
+After training, `--generate N` samples N tokens after a 16-token prompt
+from the first two training rows (`inference.decode.generate`, the JAX
+example's sampling: temperature 0.8, top-k 40, seed 2; `--temperature 0`
+decodes greedily), and `--export-generate DIR` also writes the whole
+decode loop as a generative artifact with the same sampling under DIR
+(`export.generative.export_generate`; `load_generate(DIR)` serves it, and
+its tokens for seed 2 are the ones logged). `--beams K` (beam search) is
+not ported and raises. Runs on CUDA by default:
 
     python -m tfde_tpu_torch.gpt_lm --seq-len 1024 --batch-size 8 --max-steps 20
     python -m tfde_tpu_torch.gpt_lm --rope --kv-heads 4 --sliding-window 256 \\
         --remat --seq-len 1024 --batch-size 8 --max-steps 20
+    python -m tfde_tpu_torch.gpt_lm --seq-len 1024 --batch-size 8 \\
+        --max-steps 20 --generate 32 --export-generate /tmp/gen
     python -m tfde_tpu_torch.gpt_lm --tiny --device cpu --max-steps 3 \\
         --batch-size 4 --seq-len 16 --train-examples 64 --packed --rope
 
 The JAX example's strategies and other options (--seq-parallel,
---pipeline, --tensor, --moe, --generate, --beams, --export-generate,
---fake-devices, ...) are not ported yet; an unknown flag is an error.
+--pipeline, --tensor, --moe, --fake-devices, ...) are not ported yet; an
+unknown flag is an error.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ import torch
 
 from tfde_tpu_torch.data import datasets
 from tfde_tpu_torch.data.packing import pack_documents, packed_next_token_loss
+from tfde_tpu_torch.export.generative import export_generate
+from tfde_tpu_torch.inference.decode import generate
 from tfde_tpu_torch.models.gpt import GPT2Small, gpt_tiny_test, next_token_loss
 from tfde_tpu_torch.training.optimizers import (
     adamw, warmup_cosine_decay_schedule)
@@ -74,6 +87,20 @@ def main(argv=None):
                         help="each position attends the last N only")
     parser.add_argument("--remat", nargs="?", const="full", default=False,
                         choices=["full", "dots"])
+    parser.add_argument("--generate", type=int, default=0, metavar="N",
+                        help="after training, sample N continuation tokens "
+                             "from a training prompt (inference/decode.py)")
+    parser.add_argument("--beams", type=int, default=0, metavar="K",
+                        help="with --generate: beam-search decode with K "
+                             "beams (not ported: raises)")
+    parser.add_argument("--export-generate", type=str, default=None,
+                        metavar="DIR",
+                        help="with --generate: also export the whole decode "
+                             "loop as a torch.export serving artifact "
+                             "(export/generative.py) under DIR")
+    parser.add_argument("--temperature", type=float, default=0.8,
+                        help="with --generate: the sampling temperature "
+                             "(0: greedy); top-k 40 either way")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the random weights")
@@ -81,6 +108,22 @@ def main(argv=None):
 
     if args.packed and args.sliding_window > 0:
         raise ValueError("--packed doesn't compose with --sliding-window")
+    if args.beams > 0 and args.generate <= 0:
+        raise ValueError("--beams selects the decode mode for --generate; "
+                         "pass --generate N to produce output")
+    if args.export_generate and args.generate <= 0:
+        raise ValueError("--export-generate sizes the artifact from "
+                         "--generate; pass --generate N to export")
+    if args.export_generate and args.beams > 0:
+        raise ValueError("--export-generate exports the sampling decode "
+                         "loop; exporting beam search is not supported yet "
+                         "— drop --beams to export, or drop "
+                         "--export-generate to beam-decode in process")
+    if args.beams > 0:
+        # before training, not after: the run would be discarded
+        raise NotImplementedError(
+            "--beams: beam search (inference/beam.py) is not ported yet "
+            "(ROADMAP.md, queue 1, item 5)")
     device = resolve_device(args.device)
     model_kw = {"remat": args.remat}
     if args.rope:
@@ -128,6 +171,29 @@ def main(argv=None):
             sps = (step + 1 - since) / (time.perf_counter() - t0)
             t0, since = time.perf_counter(), step + 1
             log.info("step %d: %s (%.2f steps/s)", step + 1, vals, sps)
+
+    if args.generate > 0:
+        if seg is not None:
+            # packed rows hold several documents: prompt from each row's
+            # FIRST document only, at a common length
+            keep = min(int((seg[0] == 1).sum()), int((seg[1] == 1).sum()),
+                       16, args.seq_len)
+        else:
+            keep = min(16, args.seq_len)
+        prompt = tokens[:2, :keep]
+        # one sampling config for the in-process decode AND the export, so
+        # the artifact reproduces exactly what was just logged
+        sampling = dict(temperature=args.temperature, top_k=40)
+        out, lengths = generate(model, prompt, args.generate, device=device,
+                                seed=2, **sampling)
+        for row, n in zip(out.cpu().numpy(), lengths.cpu().numpy()):
+            log.info("generated: %s", row[:int(n)].tolist())
+        if args.export_generate:
+            d = export_generate(model, args.export_generate,
+                                prompt_len=prompt.shape[1],
+                                max_new_tokens=args.generate,
+                                batch_size=prompt.shape[0], **sampling)
+            log.info("generative serving artifact: %s", d)
     return state, metrics
 
 

@@ -7,10 +7,18 @@
   together). `set_index` is the JAX `_set_index_counters` surgery.
 - `sample_logits`: repetition penalty, then greedy or temperature with
   the top-k, top-p and min-p filters (`filter_logits`), then a draw from
-  an explicit `torch.Generator`.
+  an explicit `torch.Generator`, or, given `gumbel_noise`, the Gumbel-max
+  draw argmax(filtered logits + noise).
+- `gumbel_noise`: Gumbel(0, 1) noise that is a pure function of (seed,
+  step, row, token id) — a counter-based hash, no generator state — so a
+  traced program takes the seed as an input (export/generative.py), as
+  the JAX package's exported decode takes its PRNG seed.
 - `generate`: the solo oracle — one prefill at index 0, then one decode
   step per token with EOS masking; PyTorch runs eagerly, so the JAX scan
-  is a Python loop.
+  is a Python loop over `decode_token`, the decode tick a generative
+  artifact exports (export/generative.py). Sampling draws from a
+  `generator` or, with `seed`, from `gumbel_noise`: the same seed gives
+  the same tokens in process and from an exported artifact.
 - `remat_off`: serves a remat-trained model (the JAX `_decode_clone`'s
   remat=False); decode itself refuses remat.
 """
@@ -149,23 +157,58 @@ def _penalize(logits, repetition_penalty, seen):
     return torch.where(seen, penalized, logits)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash (xor-shift-multiply) of int64
+    tensors holding values in [0, 2^32); both multipliers are below 2^31,
+    so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x6C8E9CF5) & _M32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seed, step: int, batch: int, vocab: int,
+                 device=None) -> torch.Tensor:
+    """[batch, vocab] float32 Gumbel(0, 1) noise, a pure function of
+    (seed, step, row, token id): the row's key hashes (seed, step, row),
+    each token's uniform u in (0, 1) is 24 bits of a hash of (key, token
+    id), and the noise is -log(-log(u)). `seed` is an int or an integer
+    tensor (0-dim): a traced program takes it as an input."""
+    seed = torch.as_tensor(seed, device=device).to(torch.int64) & _M32
+    key = _mix32(_mix32(seed ^ 0x9E3779B9) ^ (step & _M32))
+    rows = _mix32(key ^ torch.arange(batch, device=seed.device))
+    cols = torch.arange(vocab, device=seed.device)
+    h = _mix32(_mix32(rows[:, None] ^ cols[None, :]))
+    u = ((h >> 8).float() + 0.5) * 2.0 ** -24
+    return -torch.log(-torch.log(u))
+
+
 def sample_logits(logits: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   temperature: float = 1.0, top_k: Optional[int] = None,
                   top_p: Optional[float] = None,
                   min_p: Optional[float] = None,
                   repetition_penalty: float = 1.0,
-                  seen: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  seen: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, V] logits -> [B] int64 token ids. temperature=0 is greedy
     (argmax, first index on ties); otherwise a draw from the filtered
-    distribution with `generator`. `seen` [B, V] bool marks ids already in
-    the row (prompt included) for the repetition penalty."""
+    distribution: with `noise` ([B, V] Gumbel noise, `gumbel_noise`) the
+    Gumbel-max draw argmax(filtered logits + noise), else
+    `torch.multinomial` with `generator`. `seen` [B, V] bool marks ids
+    already in the row (prompt included) for the repetition penalty."""
     if temperature == 0.0:
         return torch.argmax(
             _penalize(logits.float(), repetition_penalty, seen), dim=-1)
-    probs = torch.softmax(
-        filter_logits(logits, temperature, top_k, top_p, min_p,
-                      repetition_penalty, seen), dim=-1)
+    logits = filter_logits(logits, temperature, top_k, top_p, min_p,
+                           repetition_penalty, seen)
+    if noise is not None:
+        return torch.argmax(logits + noise, dim=-1)
+    probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
@@ -175,17 +218,24 @@ def generate(model, prompt, max_new_tokens: int,
              temperature: float = 0.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None, min_p: Optional[float] = None,
              eos_id: Optional[int] = None, pad_id: int = 0,
-             repetition_penalty: float = 1.0, device=None):
+             repetition_penalty: float = 1.0, device=None, seed=None):
     """Generate `max_new_tokens` continuations of `prompt` [B, P].
 
     Returns (tokens [B, P + max_new_tokens], lengths [B]) as int64 tensors:
     post-EOS positions hold `pad_id`; `lengths[b]` counts the prompt and
-    the generated tokens through EOS. Runs on `device` (CUDA by default),
-    which must be the model's."""
+    the generated tokens through EOS. Sampling (temperature > 0) draws
+    with `generator`, or, given `seed` (an int or a 0-dim integer tensor),
+    by Gumbel-max over `gumbel_noise(seed, step, ...)`: what an exported
+    artifact draws (export/generative.py). `prefill_token`, then
+    `decode_token` once a further token, the decode ticks at a per-row
+    position tensor [B] (the two functions an artifact exports). Runs on
+    `device` (CUDA by default), which must be the model's."""
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model is on {model.device}, generate was asked "
                          f"for {device}")
+    if generator is not None and seed is not None:
+        raise ValueError("sample with a generator or a seed, not both")
     with remat_off(model):
         prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
                                  device=device)
@@ -195,37 +245,74 @@ def generate(model, prompt, max_new_tokens: int,
         sample = dict(generator=generator, temperature=temperature,
                       top_k=top_k, top_p=top_p, min_p=min_p,
                       repetition_penalty=repetition_penalty)
-        rows = torch.arange(b, device=device)
         seen = None
         if repetition_penalty != 1.0:
             seen = torch.zeros((b, model.vocab_size), dtype=torch.bool,
                                device=device)
-            seen[rows[:, None], prompt] = True
-        logits = model(prompt, cache=cache)[:, -1]
-        tok = sample_logits(logits, seen=seen, **sample)
-        if seen is not None:
-            seen[rows, tok] = True
-        done = (tok == eos_id) if eos_id is not None else torch.zeros(
-            b, dtype=torch.bool, device=device)
+            seen[torch.arange(b, device=device)[:, None], prompt] = True
+        tok, done = prefill_token(model, prompt, cache, seed, sample, eos_id,
+                                  seen)
+        cache.set_index(torch.full((b,), p, dtype=torch.int64, device=device))
         new = [tok]
-        for _ in range(max_new_tokens - 1):
-            logits = model(tok[:, None], cache=cache)[:, -1]
-            nxt = sample_logits(logits, seen=seen, **sample)
-            if eos_id is not None:
-                nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-                done = done | (nxt == eos_id)
-            if seen is not None:
-                seen[rows, nxt] = True
-            new.append(nxt)
-            tok = nxt
-        new_tokens = torch.stack(new, dim=1)
-        tokens = torch.cat([prompt, new_tokens], dim=1)
-        if eos_id is None:
-            lengths = torch.full((b,), total, dtype=torch.int64,
-                                 device=device)
-        else:
-            # a position counts while no EOS appeared strictly before it
-            is_eos = (new_tokens == eos_id).long()
-            seen_before = torch.cumsum(is_eos, dim=1) - is_eos
-            lengths = p + (seen_before == 0).long().sum(dim=1)
-        return tokens, lengths
+        for step in range(1, max_new_tokens):
+            tok, done = decode_token(model, tok, done, cache, step, seed,
+                                     sample, eos_id, pad_id, seen)
+            new.append(tok)
+        return finish(prompt, torch.stack(new, dim=1), eos_id)
+
+
+def _noise(model, seed, step, b, sample):
+    if seed is None or sample["temperature"] == 0.0:
+        return None
+    return gumbel_noise(seed, step, b, model.vocab_size, model.device)
+
+
+def prefill_token(model, prompt, cache, seed, sample: dict, eos_id,
+                  seen=None):
+    """The prompt through the model into `cache` (index 0: the flash
+    prefill), the head on the last position only (a prompt's other logits,
+    [B, P, V] in fp32, are never read), then the first token: (token [B],
+    done [B] — which rows drew `eos_id`)."""
+    b = prompt.shape[0]
+    logits = model.head(model.hidden(prompt, cache=cache)[:, -1])
+    tok = sample_logits(logits, seen=seen,
+                        noise=_noise(model, seed, 0, b, sample), **sample)
+    if seen is not None:
+        seen[torch.arange(b, device=tok.device), tok] = True
+    done = (tok == eos_id) if eos_id is not None else torch.zeros(
+        b, dtype=torch.bool, device=tok.device)
+    return tok, done
+
+
+def decode_token(model, tok, done, cache, step, seed, sample: dict, eos_id,
+                 pad_id: int, seen=None):
+    """One decode tick: `tok` [B] at the cache's positions, then token
+    number `step` (an int or a 0-dim tensor; it keys `gumbel_noise`);
+    rows already done emit `pad_id`. Returns (token [B], done [B])."""
+    b = tok.shape[0]
+    logits = model(tok[:, None], cache=cache)[:, -1]
+    nxt = sample_logits(logits, seen=seen,
+                        noise=_noise(model, seed, step, b, sample), **sample)
+    if eos_id is not None:
+        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+        done = done | (nxt == eos_id)
+    if seen is not None:
+        seen[torch.arange(b, device=nxt.device), nxt] = True
+    return nxt, done
+
+
+def finish(prompt, new_tokens, eos_id):
+    """(tokens [B, P + N], lengths [B]): the prompt and the new tokens,
+    and how many of them count — the prompt and the generated tokens
+    through EOS."""
+    b, p = prompt.shape
+    tokens = torch.cat([prompt, new_tokens], dim=1)
+    if eos_id is None:
+        lengths = torch.full((b,), tokens.shape[1], dtype=torch.int64,
+                             device=prompt.device)
+    else:
+        # a position counts while no EOS appeared strictly before it
+        is_eos = (new_tokens == eos_id).long()
+        seen_before = torch.cumsum(is_eos, dim=1) - is_eos
+        lengths = p + (seen_before == 0).long().sum(dim=1)
+    return tokens, lengths

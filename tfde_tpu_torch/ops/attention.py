@@ -7,17 +7,17 @@ Two implementations behind one dispatcher:
   Scores accumulate in fp32 from the inputs' values, the softmax runs in
   fp32, the weights are cast to v's dtype before the second product — the
   JAX package's `preferred_element_type=float32` arithmetic.
-- ``flash``: the hand-written CUDA kernels (ops/flash_attention.py) on a
-  CUDA tensor, their plain versions on a CPU tensor; differentiable, its
-  gradient being the CUDA backward pair.
+- ``flash``: the hand-written CUDA kernels (ops/flash_attention.py, as
+  `torch.library` custom ops) on a CUDA tensor, their plain versions on a
+  CPU tensor; differentiable, its gradient being the CUDA backward pair.
 
 ``auto`` picks flash for unmasked attention on a CUDA tensor: every
 causal call (the kernel's wrapper owns every shape and dtype check and
 raises on what it does not take, so a causal CUDA call never falls back
 to the plain version), and every non-causal self-attention call of a
-shape the kernels take (Sq == Sk, head dim 64 or 128, the query heads a
-multiple of the KV heads, fp32 or bf16 — the encoders' BERT and ViT
-calls); any other non-causal shape, and every masked call, takes the
+shape the kernels take (Sq == Sk, head dim 64, 128 or 256, the query
+heads a multiple of the KV heads, fp32 or bf16 — the encoders' BERT and
+ViT calls); any other non-causal shape, and every masked call, takes the
 reference einsum, as the JAX auto-dispatch checks shapes before it picks
 the kernel. The TPU's thresholds (flash only from S >= 2048) do not carry
 over: they were measured on a v5e, and on the H100 the kernel is the path
@@ -132,9 +132,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     impl: 'auto' | 'reference' | 'flash'. 'auto' takes flash for unmasked
     attention on a CUDA tensor, causal or of a shape the kernels take
     (`_flash_eligible`), else the reference einsum; flash raises on shapes
-    the kernels do not take (cross-attention, a head dim above 128; a
-    smaller one other than 64 is zero-padded on a CUDA tensor). Both are differentiable: flash through the
-    kernels' autograd Function (forward kernel, then the backward pair).
+    the kernels do not take (cross-attention, a head dim above 256; any
+    other up to 256 is zero-padded on a CUDA tensor). Both are
+    differentiable: flash through the forward op's autograd formula
+    (forward kernel, then the backward pair).
     'ring' (sequence parallelism) is not ported yet."""
     if impl == "auto":
         impl = "flash" if _flash_eligible(q, k, mask, causal) else "reference"

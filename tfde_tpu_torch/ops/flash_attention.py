@@ -6,26 +6,34 @@ Counterpart of `tfde_tpu/ops/flash_attention.py`. The Pallas forward
 the Pallas backward pair (`_dkv_kernel`, `_dq_kernel`, launched by
 `_bwd_pallas`) becomes the two kernels of `csrc/flash_bwd.cu`. Each is
 built with nvcc for sm_90a into a plain C library and bound with ctypes
-(`utils/build.py`). `flash_forward` and `flash_backward` dispatch on the
-tensor they are given: a CUDA tensor launches the kernels (or raises), a
-CPU tensor takes `flash_forward_reference` / `flash_backward_reference`,
-the plain PyTorch versions of the same functions — which are also what
-`chip_smoke.py` holds the kernels against on the card.
+(`utils/build.py`).
 
-The kernels are compiled for head dims 64 and 128. On a CUDA tensor a
-smaller head dim (Phi-2's 80, Phi-3's 96) is zero-padded to the next of
-them on the way in and the outputs and gradients are cut back
-(`padded_forward`, `padded_backward`): a zero column adds nothing to
+The three kernels are `torch.library` custom ops — `tfde::flash_forward`,
+`tfde::flash_bwd_dkv` and `tfde::flash_bwd_dq` — so that PyTorch's tracers
+see them as single operations: `torch.export` records them in an exported
+program (export/serving.py, export/generative.py), and a fake
+implementation gives each one's output shapes and dtypes without running
+it. Each op's CUDA implementation launches its kernel through the ctypes
+binding (or raises) and adds one to its launch counter; its CPU
+implementation is the plain PyTorch version of the same function
+(`flash_forward_reference`, `flash_backward_reference`), which is also
+what `chip_smoke.py` holds the kernels against on the card.
+`flash_forward` and `flash_backward` are the entry points.
+
+The kernels are compiled for head dims 64, 128 and 256. On a CUDA tensor
+any other head dim up to 256 (Phi-2's 80, Phi-3's 96, 160) is zero-padded
+to the next of them on the way in and the outputs and gradients are cut
+back (`padded_forward`, `padded_backward`): a zero column adds nothing to
 Q K^T and the padded V columns give zero outputs, so this is the
-unpadded function, at the real head dim's scale. A head dim above 128
-raises (`kernel_head_dim`).
+unpadded function, at the real head dim's scale. A head dim above 256
+raises (`kernel_head_dim`; no converted family has one).
 
-`flash_attention` is differentiable: a `torch.autograd.Function` saves
-q, k, v, out and lse from the forward, and its backward is
-`flash_backward`. On CUDA that is the hand-written pair whatever the
-shape the forward takes (GQA included, which the Pallas pair is not);
-the TPU's choice of the blockwise JAX recurrence as its default backward
-(a v5e measurement) does not carry over, and there is no knob.
+`flash_attention` is differentiable: the forward op's autograd formula
+(`torch.library.register_autograd`) saves q, k, v, out and lse, and its
+backward is `flash_backward`. On CUDA that is the hand-written pair
+whatever the shape the forward takes (GQA included, which the Pallas pair
+is not); the TPU's choice of the blockwise JAX recurrence as its default
+backward (a v5e measurement) does not carry over, and there is no knob.
 
 The band helpers (`_tile_in_band`, `_band_tile_pairs`, `bwd_tile_plan`)
 are the JAX package's, as pure Python: the kernels' tile loops run over
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -46,12 +55,12 @@ from tfde_tpu_torch.utils.build import build_library
 _NEG = -1e30
 
 #: head dims the kernel is compiled for
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
-#: where the port's queue names the kernels' missing head dims (256:
-#: Gemma, Gemma-2, Pythia-1B and larger, GPT-J)
-HEAD_DIM_256_ITEM = ("ROADMAP.md, queue 2, item 1: the flash kernels at "
-                     "head dim 256")
+#: where the port's queue names the head dims the kernels do not take
+#: (above 256: no converted family has one)
+HEAD_DIM_ABOVE_256_ITEM = ("ROADMAP.md, queue 2: the flash kernels at head "
+                           "dims above 256")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -212,15 +221,23 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
     einsums). Returns (dq, dk, dv) in the dtypes of q, k, v."""
     _check_args(q, k, v, causal, window, logit_cap)
     _check_backward_args(q, out, lse, do)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _backward_plain(q, k, v, do, lse, _delta(out, do), causal, window,
+                           scale, logit_cap)
+
+
+def _backward_plain(q, k, v, do, lse, delta, causal, window, scale,
+                    logit_cap):
+    """`flash_backward_reference` from delta = rowsum(dO * O) [B, H, S]:
+    what the backward ops take in place of out."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     qf = q.float().reshape(b, s, kv, g, d)
     dof = do.float().reshape(b, s, kv, g, d)
     kf, vf = k.float(), v.float()
-    delta = _delta(out, do).reshape(b, kv, g, s)
+    delta = delta.reshape(b, kv, g, s)
     z = torch.einsum("bqcgd,bkcd->bcgqk", qf, kf) * scale
     t = None
     if logit_cap is not None:
@@ -246,14 +263,14 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a head dim `d` at: the smallest of
-    `KERNEL_HEAD_DIMS` that is not below it (`d` itself for 64 and 128).
-    Raises ValueError above 128."""
+    `KERNEL_HEAD_DIMS` that is not below it (`d` itself for 64, 128 and
+    256). Raises ValueError above 256."""
     for dp in KERNEL_HEAD_DIMS:
         if d <= dp:
             return dp
     raise ValueError(
         f"the CUDA flash kernels take head_dim up to "
-        f"{KERNEL_HEAD_DIMS[-1]}, got {d} ({HEAD_DIM_256_ITEM})")
+        f"{KERNEL_HEAD_DIMS[-1]}, got {d} ({HEAD_DIM_ABOVE_256_ITEM})")
 
 
 def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -339,13 +356,13 @@ def build(source: str = "flash_fwd.cu", force: bool = False):
 
 def _check_launchable(*tensors: torch.Tensor) -> None:
     """What every kernel of this module takes: one CUDA device, float32 or
-    bfloat16 throughout, head_dim 64 or 128 (`flash_forward` and
-    `flash_backward` pad a smaller one), a contiguous head dim and, for
-    bf16, 16-byte aligned rows."""
+    bfloat16 throughout, head_dim 64, 128 or 256 (`flash_forward` and
+    `flash_backward` pad any other up to 256), a contiguous head dim and,
+    for bf16, 16-byte aligned rows."""
     q = tensors[0]
     d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
-        kernel_head_dim(d)  # raises above 128, naming the queue item
+        kernel_head_dim(d)  # raises above 256, naming the queue item
         raise ValueError(
             f"the CUDA flash kernels take head_dim {KERNEL_HEAD_DIMS}, got "
             f"{d}; flash_forward and flash_backward pad it")
@@ -358,8 +375,10 @@ def _check_launchable(*tensors: torch.Tensor) -> None:
                          "CUDA device")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the CUDA flash kernels need a contiguous head dim")
+    # alignment from the storage offset (an allocation's base is aligned;
+    # a fake tensor, as tracers pass, has no data pointer)
     if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            t.storage_offset() % 8 or any(st % 8 for st in t.stride()[:3])
             for t in tensors):
         raise ValueError("the bf16 CUDA flash kernels read 16-byte vectors: "
                          "every tensor needs 16-byte aligned rows")
@@ -400,7 +419,137 @@ def _launch(q, k, v, causal, window, scale, logit_cap):
           *out.stride()[:3], *_opts(causal, window, scale, logit_cap,
                                     q.dtype))
     flash_forward.launches += 1
+    flash_forward.by_head_dim[d] += 1
     return out, lse
+
+
+# ------------------------------------------------------------ custom ops --
+# Each op's CUDA implementation launches its kernel (`_check_launchable`
+# raises on what the kernel does not take; the entry points below check
+# the same before they call an op on a CUDA tensor, so a tracer meets the
+# error too); its CPU implementation is the plain version; its fake
+# implementation gives the outputs' shapes and dtypes to tracers
+# (FakeTensorMode, torch.export). Options are typed for the op schema:
+# `scale` is resolved by the caller.
+
+@torch.library.custom_op("tfde::flash_forward", mutates_args=(),
+                         device_types="cuda")
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: Optional[int], scale: float,
+                logit_cap: Optional[float]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(q, k, v, causal, window, scale, logit_cap)
+
+
+@_forward_op.register_kernel("cpu")
+def _(q, k, v, causal, window, scale, logit_cap):
+    out, lse = flash_forward_reference(q, k, v, causal, window, scale,
+                                       logit_cap)
+    return out.contiguous(), lse.contiguous()
+
+
+@_forward_op.register_fake
+def _(q, k, v, causal, window, scale, logit_cap):
+    b, s, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, s), dtype=torch.float32))
+
+
+def _forward_setup_context(ctx, inputs, output):
+    q, k, v, causal, window, scale, logit_cap = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.opts = (causal, window, scale, logit_cap)
+    ctx.mark_non_differentiable(lse)
+    # lse has no gradient: no zero tensor (one fill kernel a call) for it
+    ctx.set_materialize_grads(False)
+
+
+def _forward_backward(ctx, dout, _dlse):
+    # lse is not differentiable: backward runs only when out has a gradient
+    dq, dk, dv = flash_backward(*ctx.saved_tensors, dout.contiguous(),
+                                *ctx.opts)
+    return dq, dk, dv, None, None, None, None
+
+
+_forward_op.register_autograd(_forward_backward,
+                              setup_context=_forward_setup_context)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal, window, scale, logit_cap):
+    _check_launchable(q, k, v, do)
+    b, s, h, d = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _call("flash_bwd.cu", "tfde_flash_bwd_dkv", q.device,
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          b, s, h, k.shape[2], d,
+          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+          *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+          *_opts(causal, window, scale, logit_cap, q.dtype))
+    flash_backward.dkv_launches += 1
+    flash_backward.dkv_by_head_dim[d] += 1
+    return dk, dv
+
+
+@torch.library.custom_op("tfde::flash_bwd_dkv", mutates_args=(),
+                         device_types="cuda")
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+            causal: bool, window: Optional[int], scale: float,
+            logit_cap: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_dkv(q, k, v, do, lse, delta, causal, window, scale,
+                       logit_cap)
+
+
+@_dkv_op.register_kernel("cpu")
+def _(q, k, v, do, lse, delta, causal, window, scale, logit_cap):
+    _, dk, dv = _backward_plain(q, k, v, do, lse, delta, causal, window,
+                                scale, logit_cap)
+    return dk.contiguous(), dv.contiguous()
+
+
+@_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal, window, scale, logit_cap):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal, window, scale, logit_cap):
+    _check_launchable(q, k, v, do)
+    b, s, h, d = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _call("flash_bwd.cu", "tfde_flash_bwd_dq", q.device,
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+          b, s, h, k.shape[2], d,
+          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+          *do.stride()[:3], *dq.stride()[:3],
+          *_opts(causal, window, scale, logit_cap, q.dtype))
+    flash_backward.dq_launches += 1
+    flash_backward.dq_by_head_dim[d] += 1
+    return dq
+
+
+@torch.library.custom_op("tfde::flash_bwd_dq", mutates_args=(),
+                         device_types="cuda")
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+           causal: bool, window: Optional[int], scale: float,
+           logit_cap: Optional[float]) -> torch.Tensor:
+    return _launch_dq(q, k, v, do, lse, delta, causal, window, scale,
+                      logit_cap)
+
+
+@_dq_op.register_kernel("cpu")
+def _(q, k, v, do, lse, delta, causal, window, scale, logit_cap):
+    return _backward_plain(q, k, v, do, lse, delta, causal, window, scale,
+                           logit_cap)[0].contiguous()
+
+
+@_dq_op.register_fake
+def _(q, k, v, do, lse, delta, causal, window, scale, logit_cap):
+    return q.new_empty(q.shape)
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -413,68 +562,60 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v may carry fewer heads [B, S, Kv, D] (GQA, H % Kv == 0). window:
     sliding band (causal only), row i sees cols (i - window, i]. scale
     defaults to 1/sqrt(D); logit_cap is the Gemma-2 tanh softcap, applied
-    before the mask. A CUDA tensor launches `csrc/flash_fwd.cu` (a head
-    dim below 128 other than 64 zero-padded, `padded_forward`) and adds
-    one to `flash_forward.launches`; a CPU tensor takes
-    `flash_forward_reference`."""
+    before the mask. Runs the op `tfde::flash_forward`: a CUDA tensor
+    launches `csrc/flash_fwd.cu` (any head dim up to 256 other than 64,
+    128 and 256 zero-padded, `padded_forward`) and adds one to
+    `flash_forward.launches` (and to `flash_forward.by_head_dim` at the
+    kernel's head dim); a CPU tensor takes `flash_forward_reference`."""
     _check_args(q, k, v, causal, window, logit_cap)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    scale = float(scale)
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, causal, window, scale,
-                                       logit_cap)
+        return _forward_op(q, k, v, causal, window, scale, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_forward runs on CUDA or the CPU, not "
                          f"{q.device}")
-    return padded_forward(_launch, q, k, v, causal, window, scale,
-                          logit_cap)
+    return padded_forward(_checked_forward_op, q, k, v, causal, window,
+                          scale, logit_cap)
+
+
+def _checked_forward_op(q, k, v, causal, window, scale, logit_cap):
+    _check_launchable(q, k, v)
+    return _forward_op(q, k, v, causal, window, scale, logit_cap)
 
 
 #: launches of the CUDA kernel since the last reset (the count a run reads
-#: to show that its main path went through the kernel)
+#: to show that its main path went through the kernel), and the same
+#: launches by the kernel's head dim (64, 128, 256)
 flash_forward.launches = 0
+flash_forward.by_head_dim = Counter()
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, window=None,
                   scale=None, logit_cap=None):
-    """dK, dV [B, S, Kv, D] from `csrc/flash_bwd.cu`'s dK/dV kernel (CUDA
-    tensors only; `flash_backward` is the entry point). Adds one to
-    `flash_backward.dkv_launches`."""
-    _check_launchable(q, k, v, do)
-    b, s, h, d = q.shape
+    """dK, dV [B, S, Kv, D] from the op `tfde::flash_bwd_dkv`: on CUDA
+    tensors `csrc/flash_bwd.cu`'s dK/dV kernel, which adds one to
+    `flash_backward.dkv_launches` (`flash_backward` is the entry point)."""
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _call("flash_bwd.cu", "tfde_flash_bwd_dkv", q.device,
-          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-          lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          b, s, h, k.shape[2], d,
-          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-          *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-          *_opts(causal, window, scale, logit_cap, q.dtype))
-    flash_backward.dkv_launches += 1
-    return dk, dv
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        _check_launchable(q, k, v, do)
+    return _dkv_op(q, k, v, do, lse, delta, causal, window, float(scale),
+                   logit_cap)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, window=None,
                  scale=None, logit_cap=None):
-    """dQ [B, S, H, D] from `csrc/flash_bwd.cu`'s dQ kernel (CUDA tensors
-    only). Adds one to `flash_backward.dq_launches`."""
-    _check_launchable(q, k, v, do)
-    b, s, h, d = q.shape
+    """dQ [B, S, H, D] from the op `tfde::flash_bwd_dq`: on CUDA tensors
+    `csrc/flash_bwd.cu`'s dQ kernel, which adds one to
+    `flash_backward.dq_launches`."""
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _call("flash_bwd.cu", "tfde_flash_bwd_dq", q.device,
-          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-          b, s, h, k.shape[2], d,
-          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-          *do.stride()[:3], *dq.stride()[:3],
-          *_opts(causal, window, scale, logit_cap, q.dtype))
-    flash_backward.dq_launches += 1
-    return dq
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        _check_launchable(q, k, v, do)
+    return _dq_op(q, k, v, do, lse, delta, causal, window, float(scale),
+                  logit_cap)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -486,11 +627,12 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of `flash_forward`'s out for the output gradient dO,
     from the forward's residuals (q, k, v, out, lse) and its options.
 
-    A CUDA tensor computes delta = rowsum(dO * O) in fp32 and launches the
-    two kernels of `csrc/flash_bwd.cu` (dK/dV, then dQ; a head dim below
-    128 other than 64 zero-padded, `padded_backward`), adding one to
-    `flash_backward.dkv_launches` and `.dq_launches`; a CPU tensor takes
-    `flash_backward_reference`."""
+    A CUDA tensor computes delta = rowsum(dO * O) in fp32 and runs the ops
+    `tfde::flash_bwd_dkv` and `tfde::flash_bwd_dq` (the two kernels of
+    `csrc/flash_bwd.cu`; a head dim other than 64, 128 and 256 zero-padded,
+    `padded_backward`), adding one to `flash_backward.dkv_launches` and
+    `.dq_launches` (and to `.dkv_by_head_dim` / `.dq_by_head_dim` at the
+    kernels' head dim); a CPU tensor takes `flash_backward_reference`."""
     _check_args(q, k, v, causal, window, logit_cap)
     _check_backward_args(q, out, lse, do)
     if scale is None:
@@ -517,38 +659,30 @@ def _launch_backward(q, k, v, out, lse, do, causal, window, scale,
     return dq, dk, dv
 
 
-#: launches of the two CUDA backward kernels since the last reset
+#: launches of the two CUDA backward kernels since the last reset, in
+#: total and by head dim
 flash_backward.dkv_launches = 0
 flash_backward.dq_launches = 0
+flash_backward.dkv_by_head_dim = Counter()
+flash_backward.dq_by_head_dim = Counter()
 
 
-class _FlashAttention(torch.autograd.Function):
-    """`flash_forward`'s out, with `flash_backward` as its gradient (the
-    JAX package's `flash_attention` custom VJP)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, logit_cap):
-        out, lse = flash_forward(q, k, v, causal, window, scale, logit_cap)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = (causal, window, scale, logit_cap)
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        dq, dk, dv = flash_backward(*ctx.saved_tensors, do.contiguous(),
-                                    *ctx.opts)
-        return dq, dk, dv, None, None, None, None
+def reset_launches() -> None:
+    """Set every kernel's launch counters, totals and by head dim, to
+    zero."""
+    flash_forward.launches = 0
+    flash_backward.dkv_launches = 0
+    flash_backward.dq_launches = 0
+    for counts in (flash_forward.by_head_dim, flash_backward.dkv_by_head_dim,
+                   flash_backward.dq_by_head_dim):
+        counts.clear()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, window: Optional[int] = None,
                     scale: Optional[float] = None,
                     logit_cap: Optional[float] = None) -> torch.Tensor:
-    """The output of `flash_forward`, differentiable in q, k and v: when a
-    gradient is wanted the call goes through `_FlashAttention`, whose
-    backward is `flash_backward`."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, scale,
-                                     logit_cap)
-    out, _ = flash_forward(q, k, v, causal, window, scale, logit_cap)
-    return out
+    """The output of `flash_forward`, differentiable in q, k and v through
+    the forward op's autograd formula, whose backward is
+    `flash_backward`."""
+    return flash_forward(q, k, v, causal, window, scale, logit_cap)[0]

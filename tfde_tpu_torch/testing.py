@@ -42,11 +42,16 @@ log = logging.getLogger(__name__)
 _SPAWN_TOKEN = ""
 
 
-#: the two checkpoints served at their published widths, as (family for
+#: the three checkpoints served at their published widths, as (family for
 #: `models.convert.save_converted`, `models.gpt.GPT` fields), from each
 #: model's `config.json`: meta-llama/Llama-3.2-1B (1,235,814,400
-#: parameters, head dim 64) and Qwen/Qwen3-0.6B (596,049,920, head dim
-#: 128 beside hidden 1024)
+#: parameters, head dim 64), Qwen/Qwen3-0.6B (596,049,920, head dim 128
+#: beside hidden 1024) and google/gemma-2-2b (2,614,341,888, head dim 256;
+#: its fields as `models.convert.gemma2_from_hf` sets them from that
+#: config: hidden_activation gelu_pytorch_tanh, rms_norm_eps 1e-6,
+#: rope_theta 10000, max_position_embeddings 8192, sliding_window 4096 on
+#: the even layers, attn_logit_softcapping 50, final_logit_softcapping 30,
+#: query_pre_attn_scalar 256, tied embeddings scaled by sqrt(2304))
 FULL_WIDTH = {
     "Llama-3.2-1B": ("llama", dict(
         vocab_size=128256, hidden_size=2048, depth=16, num_heads=32,
@@ -59,6 +64,14 @@ FULL_WIDTH = {
         num_kv_heads=8, head_dim=128, mlp_dim=3072, max_position=40960,
         position="rope", rope_theta=1000000.0, norm="rms", mlp_act="swiglu",
         use_bias=False, qk_norm=True, tie_embeddings=True, ln_eps=1e-6)),
+    "Gemma-2-2B": ("gemma2", dict(
+        vocab_size=256000, hidden_size=2304, depth=26, num_heads=8,
+        num_kv_heads=4, head_dim=256, mlp_dim=9216, max_position=8192,
+        position="rope", rope_theta=10000.0, norm="rms",
+        norm_style="sandwich", mlp_act="geglu", use_bias=False,
+        tie_embeddings=True, embed_scale=2304 ** 0.5, ln_eps=1e-6,
+        sliding_window=4096, sliding_window_pattern="alternate",
+        attn_scale=256 ** -0.5, attn_logit_cap=50.0, final_logit_cap=30.0)),
 }
 
 _SMALL = dict(vocab_size=256, depth=2, max_position=128)
