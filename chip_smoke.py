@@ -202,10 +202,11 @@ without printing a result:
    artifact in fp32 on the CPU (`HF_TOL`), and the card's fp32 batcher's
    greedy tokens against CPU `generate`; then Llama-3.2-1B and Qwen3-0.6B
    at their published widths (`testing.FULL_WIDTH`, random weights from
-   seed 0, fp32 master weights) written with `save_converted` (seconds,
-   bytes), served by `serve_gpt.main(["--hf-dir", ...])` (16 requests),
-   loaded again (seconds) and served in bf16 behind a ContinuousBatcher
-   as in the serve phase (16 requests of 16-960 prompt tokens x 32; the
+   seed 0, fp32 master weights), Qwen3-0.6B written with `save_converted`
+   (seconds, bytes), served by `serve_gpt.main(["--hf-dir", ...])` (16
+   requests) and loaded again (seconds), Llama-3.2-1B built on the card
+   from seed 0 without that round trip; each served in bf16 behind a
+   ContinuousBatcher as in the serve phase (16 requests of 16-960 prompt tokens x 32; the
    counters zeroed just before: one forward launch a layer a prefill
    wave; tokens/s, mean TTFT, ms per output token, peak memory), one
    wave's first-token logits flash vs reference (held in fp32,
@@ -223,7 +224,29 @@ without printing a result:
    the two above; its fp32 artifact would be ~10.5 GB): the batcher's
    D-256 forward launches exactly 26 a prefill wave, the fp32 and bf16
    logit holds and the fp32 tokens. Every artifact lies under build/ and
-   is removed at the end.
+   is removed at the end;
+16. prefix_paged — the prefix-KV cache and paged KV in the batcher:
+   Llama-3.2-1B at its published widths (random weights from seed 0,
+   built on the card) behind a ContinuousBatcher (batch 8, max_len 1024,
+   scan depth 4) answering 24 requests x 32 new tokens, each a shared
+   512-token system prompt + 16-256 tokens, four of them repeating an
+   earlier request's whole prompt; in fp32 (a) dense, (b) dense with the
+   prefix cache, (c) paged with the trie, (d) paged with the trie, the
+   pool cut to two max-length rows (131 blocks) and the trie to 40
+   blocks, ``TFDE_KV_DEFRAG_THRESHOLD=0.1``: every request's greedy
+   tokens equal across (a)-(d) and the first four's to `generate` (a
+   mismatch prints the top-2 logit margin where the runs part); the
+   counters zeroed just before each run: flash forward launches exactly
+   16 a cold wave ((a) and (b)), 0 in (c) and (d); (b) and (c) admit
+   requests warm with >= 512 reused tokens each, (d) evicts from the trie
+   and defragments the pool at a stall; after (c)'s first warm wave every
+   row's table gathered into position order equals (b)'s dense cache over
+   its committed cells (`PP_GATHER_TOL`); then (a)-(c) in bf16 (token
+   differences counted). Each run prints tok/s, TTFT cold and warm
+   (whole, and after the queue), ms per output token, prefill and decode
+   seconds, peak memory, the trie's and the pool's counts.
+
+Every phase prints its seconds.
 
 The last two lines are the kernels JSON line (the three kernels, then
 the same three at head dim 256: launches from the Gemma-2-2B serve and
@@ -3259,7 +3282,6 @@ def phase_gpt_lm(fa, dev):
     14)."""
     from tfde_tpu_torch.data.datasets import synthetic_tokens
 
-    t0 = time.perf_counter()
     _gl_parity(fa, dev)
     argv = ["--rope", "--kv-heads", str(GL_KV), "--sliding-window",
             str(GL_WINDOW), "--remat", "--max-steps", str(GL_STEPS),
@@ -3298,7 +3320,6 @@ def phase_gpt_lm(fa, dev):
         _gl_generate(fa, dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"gpt_lm phase: {time.perf_counter() - t0:.1f} s")
     return kernels
 
 
@@ -3459,7 +3480,7 @@ def _hf_full(fa, dev, root, name, artifact=True):
               f"(fp32 master weights from seed 0) in {build_s:.2f} s and cast "
               f"to bf16; the artifact round trip is skipped for this model "
               f"(save_converted and serve_gpt --hf-dir are held on "
-              f"Llama-3.2-1B and Qwen3-0.6B; its fp32 artifact would be "
+              f"Qwen3-0.6B; its fp32 artifact would be "
               f"{4 * n_params / 1e9:.1f} GB)")
 
     srv = ContinuousBatcher(model, batch_size=8, max_len=1024, scan_depth=4,
@@ -3599,25 +3620,337 @@ def phase_hf_serve(fa, dev):
     Every artifact lies under build/ and is removed at the end."""
     import shutil
 
-    t0 = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         f"hf_serve_{os.getpid()}")
     shutil.rmtree(root, ignore_errors=True)
     try:
         _hf_parity(fa, dev, root)
-        for name in ("Llama-3.2-1B", "Qwen3-0.6B"):
-            _hf_full(fa, dev, root, name)
+        _hf_full(fa, dev, root, "Llama-3.2-1B", artifact=False)
+        _hf_full(fa, dev, root, "Qwen3-0.6B")
         gemma = _hf_full(fa, dev, root, "Gemma-2-2B", artifact=False)
         _hf_prefill_kernels(fa, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"hf_serve phase: {time.perf_counter() - t0:.1f} s")
     return gemma
+
+
+#: prefix_paged: Llama-3.2-1B at its published widths behind the batcher
+#: (batch 8, max_len 1024, scan depth 4), 24 requests x 32 new tokens, each
+#: a shared 512-token system prompt from seed 0 + a suffix of 16-256
+#: tokens; requests 8, 13, 18 and 23 repeat the whole prompt of requests
+#: 0, 2, 4 and 6
+PP_BATCH, PP_MAX_LEN, PP_DEPTH, PP_NEW = 8, 1024, 4, 32
+PP_SYSTEM, PP_SUFFIX, PP_REQUESTS = 512, (16, 256), 24
+PP_REPEATS = {8: 0, 13: 2, 18: 4, 23: 6}
+#: run (d)'s pool: two max-length rows and the null block (nmax =
+#: ceil(1025 / 16) = 65), and the defrag threshold of that run alone. Its
+#: trie holds at most PP_TRIE_BLOCKS blocks (the system prompt's 32 + 8):
+#: under the capacity gate (a request's whole lifetime against the free
+#: blocks plus the trie's childless leaves) the allocations of this
+#: traffic never starve, so only the budget makes the trie evict
+PP_SMALL_POOL, PP_DEFRAG, PP_TRIE_BLOCKS = 2 * 65 + 1, "0.1", 40
+#: each row's paged table gathered into position order against run (b)'s
+#: dense cache over its committed cells, fp32, relative norm, each layer:
+#: the two runs compute the same K/V through other programs (a cold wave
+#: of [8, 1024] on the flash kernel against [8, 64] chunks on the einsum),
+#: and fp32 rounding across Llama-3.2-1B's 16 layers reaches 8.8e-6 (my
+#: chip run, PR 14; 7.8e-6 between flash and the einsum on its logits, PR
+#: 12); a wrong block is off by O(1)
+PP_GATHER_TOL = 1e-4
+
+
+def _pp_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, PP_SYSTEM)
+    prompts = []
+    for i in range(PP_REQUESTS):
+        if i in PP_REPEATS:
+            prompts.append(prompts[PP_REPEATS[i]].copy())
+            continue
+        n = int(rng.integers(PP_SUFFIX[0], PP_SUFFIX[1] + 1))
+        prompts.append(np.concatenate([system, rng.integers(0, vocab, n)]))
+    return prompts
+
+
+def _pp_run(fa, dev, model, prompts, label, at_warm=None, **kw):
+    """Serve `prompts` x PP_NEW through ContinuousBatcher(**kw), the launch
+    counters zeroed just before and read just after. `at_warm(srv, step)`
+    runs once, after the first step that admitted a request from the
+    prefix cache; its seconds are left out of the run's. Prints the run's
+    measurements and returns them with the tokens."""
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    srv = ContinuousBatcher(model, batch_size=PP_BATCH, max_len=PP_MAX_LEN,
+                            scan_depth=PP_DEPTH, device=dev, **kw)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, PP_NEW) for p in prompts]
+    done, steps, paused = {}, 0, 0.0
+    while not srv.idle:
+        done.update(srv.step())
+        steps += 1
+        if at_warm is not None and any(srv.reused_tokens().values()):
+            tp = time.perf_counter()
+            at_warm(srv, steps)
+            at_warm = None
+            paused += time.perf_counter() - tp
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0 - paused
+    launches = fa.flash_forward.launches
+    if sorted(done) != sorted(rids):
+        raise AssertionError(f"prefix_paged {label}: not every request "
+                             f"finished")
+    tokens = [done[r] for r in rids]
+    for rid, toks in zip(rids, tokens):
+        if (len(toks) != PP_NEW or toks.min() < 0
+                or toks.max() >= model.vocab_size):
+            raise AssertionError(f"prefix_paged {label}: request {rid} "
+                                 f"returned {toks!r}")
+    stats, waves = srv.stats(), srv.wave_counts()
+    ttft, reused, queue = srv.ttft_ms(), srv.reused_tokens(), srv.queue_ms()
+    warm = [r for r in rids if reused[r] > 0]
+    cold = [r for r in rids if reused[r] == 0]
+    n_tok = sum(len(t) for t in tokens)
+    trie = (srv.prefix_cache.stats() if srv.prefix_cache is not None
+            else None)
+    pool = srv.block_pool.stats() if srv.block_pool is not None else None
+
+    def mean(ms, rs, less=None):
+        if not rs:
+            return float("nan")
+        return sum(ms[r] - (less[r] if less else 0.0) for r in rs) / len(rs)
+
+    out = dict(tokens=tokens, launches=launches, waves=waves, trie=trie,
+               warm=warm, reused=reused, defrags=srv.defrag_passes,
+               stalls=srv.capacity_stalls, pool=pool, tok_s=n_tok / dt,
+               ms_token=dt * 1e3 / n_tok, ttft_cold=mean(ttft, cold),
+               ttft_warm=mean(ttft, warm),
+               wave_cold=mean(ttft, cold, queue),
+               wave_warm=mean(ttft, warm, queue), stats=stats,
+               peak=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    print(f"prefix_paged {label}: {len(done)}/{len(rids)} requests, {n_tok} "
+          f"tokens in {dt:.3f} s ({out['tok_s']:.1f} tok/s), "
+          f"{out['ms_token']:.2f} ms per output token; mean TTFT cold "
+          f"{out['ttft_cold']:.1f} ms ({len(cold)} requests), warm "
+          f"{out['ttft_warm']:.1f} ms ({len(warm)}), of which in the "
+          f"admission wave (after the queue) cold {out['wave_cold']:.1f}, "
+          f"warm {out['wave_warm']:.1f} ms; prefill "
+          f"{stats['prefill_s']:.3f} s over {stats['prefill_waves']} waves "
+          f"{json.dumps(waves)}, decode {stats['decode_s']:.3f} s over "
+          f"{stats['rounds']} ticks; peak {out['peak']:.2f} GiB")
+    print(f"prefix_paged {label}: trie {json.dumps(trie)}; reused tokens a "
+          f"warm request min {min((reused[r] for r in warm), default=0)}; "
+          f"pool {json.dumps(pool)}, defrag passes {srv.defrag_passes}, "
+          f"capacity stalls {srv.capacity_stalls}; flash_fwd launches "
+          f"{launches} over {waves.get('cold', 0)} cold waves x {model.depth} "
+          f"layers")
+    if launches != model.depth * waves.get("cold", 0):
+        raise AssertionError(f"prefix_paged {label}: {launches} flash "
+                             f"launches, not {model.depth} a cold wave")
+    return out
+
+
+def _pp_margin(model, prompt, want, got, dev) -> str:
+    """Where two greedy token lists part: the step and the top-2 logit
+    margin of `want`'s run there."""
+    i = int(np.argmax(np.asarray(want) != np.asarray(got)))
+    ids = torch.as_tensor(np.concatenate([prompt, want[:i]])[None],
+                          device=dev)
+    with torch.no_grad():
+        top = model(ids)[0, -1].topk(2).values
+    return (f"step {i}: {int(want[i])} vs {int(got[i])}, top-2 margin "
+            f"{float(top[0] - top[1]):.3e}")
+
+
+def _pp_fp32(fa, dev, family_fields, prompts):
+    """Runs (a)-(d) in fp32 with the held checks; returns the runs."""
+    from tfde_tpu_torch.inference.decode import generate
+    from tfde_tpu_torch.models.gpt import GPT
+
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    model = GPT(**family_fields, dtype=torch.float32, device=dev, seed=0)
+    # untimed: the card's first programs (cuBLAS's fp32 kernels at these
+    # shapes, the flash kernel's first launch) before run (a)
+    srv = ContinuousBatcher(model, batch_size=PP_BATCH, max_len=PP_MAX_LEN,
+                            scan_depth=PP_DEPTH, device=dev)
+    for p in prompts[:PP_BATCH]:
+        srv.submit(p, 2)
+    srv.run()
+    snap = {}
+
+    def live_rows(srv) -> dict:
+        """{request id: (row, committed cells)} of the occupied rows."""
+        return {rid: (r, int(srv._committed[r]))
+                for r, rid in enumerate(srv._req) if rid is not None}
+
+    def dense_at_warm(srv, step):
+        cache = srv._cache
+        snap.update(step=step, rows=live_rows(srv),
+                    keys=[k.clone() for k in cache.keys],
+                    values=[v.clone() for v in cache.values])
+
+    def paged_at_warm(srv, step):
+        # the two layouts group a wave's rows differently: rows match by
+        # request
+        cache, rows = srv._cache, live_rows(srv)
+        if step != snap.get("step") or {
+                rid: c for rid, (_, c) in rows.items()} != {
+                rid: c for rid, (_, c) in snap["rows"].items()}:
+            raise AssertionError(
+                f"prefix_paged: the first warm admission came at step "
+                f"{step} with {rows} paged, at {snap.get('step')} with "
+                f"{snap.get('rows')} dense")
+        b = cache.table.shape[0]
+        by_layer = []
+        for layer in range(model.depth):
+            rel = 0.0
+            for pool, slab in ((cache.keys[layer], snap["keys"][layer]),
+                               (cache.values[layer], snap["values"][layer])):
+                got = pool[cache.table].reshape(b, -1, *pool.shape[2:])
+                g = torch.cat([got[r, :c] for r, c in rows.values()])
+                w = torch.cat([slab[snap["rows"][rid][0], :c]
+                               for rid, (_, c) in rows.items()])
+                rel = max(rel, _rel(g, w))
+            by_layer.append(rel)
+        layer_k = cache.keys[0]
+        snap.update(gather=by_layer,
+                    gather_ms=_time_ms(lambda: layer_k[cache.table], dev),
+                    cells=sum(c for _, c in rows.values()))
+
+    runs = {}
+    runs["a"] = _pp_run(fa, dev, model, prompts, "fp32 (a) dense",
+                        paged=False, prefix_cache=False)
+    runs["b"] = _pp_run(fa, dev, model, prompts, "fp32 (b) dense + prefix "
+                        "cache", at_warm=dense_at_warm, paged=False,
+                        prefix_cache=True)
+    runs["c"] = _pp_run(fa, dev, model, prompts, "fp32 (c) paged + trie",
+                        at_warm=paged_at_warm, paged=True, prefix_cache=True)
+    block_bytes = 2 * model.depth * 16 * model.kv_heads * model.head_dim * 4
+    os.environ["TFDE_KV_DEFRAG_THRESHOLD"] = PP_DEFRAG
+    try:
+        runs["d"] = _pp_run(fa, dev, model, prompts,
+                            f"fp32 (d) paged + trie of {PP_TRIE_BLOCKS} "
+                            f"blocks, pool {PP_SMALL_POOL} blocks, defrag "
+                            f"threshold {PP_DEFRAG}", paged=True,
+                            prefix_cache=PP_TRIE_BLOCKS * block_bytes,
+                            pool_blocks=PP_SMALL_POOL)
+    finally:
+        del os.environ["TFDE_KV_DEFRAG_THRESHOLD"]
+    by_layer = snap["gather"]
+    tick_ms = runs["c"]["stats"]["decode_s"] * 1e3 / runs["c"]["stats"][
+        "rounds"]
+    print(f"prefix_paged fp32 gather: after the first warm wave (step "
+          f"{snap['step']}), every row's table gathered into position order "
+          f"vs run (b)'s dense cache over {snap['cells']} committed cells a "
+          f"layer, worst rel of k and v by layer "
+          f"[{', '.join(f'{r:.2e}' for r in by_layer)}] (tol "
+          f"{PP_GATHER_TOL:g}); one layer's k gather "
+          f"{snap['gather_ms']:.4f} ms, x {2 * model.depth} a tick = "
+          f"{2 * model.depth * snap['gather_ms']:.3f} ms of run (c)'s "
+          f"{tick_ms:.3f} ms a decode tick")
+    want = runs["a"]["tokens"]
+    for key in "bcd":
+        bad = [i for i, (w, g) in enumerate(zip(want, runs[key]["tokens"]))
+               if not np.array_equal(w, g)]
+        for i in bad[:3]:
+            print(f"prefix_paged fp32 ({key}) request {i} differs from (a) at "
+                  f"{_pp_margin(model, prompts[i], want[i], runs[key]['tokens'][i], dev)}")
+        print(f"prefix_paged fp32 ({key}): greedy tokens equal to (a)'s for "
+              f"{len(want) - len(bad)}/{len(want)} requests (held)")
+        if bad:
+            raise AssertionError(f"prefix_paged: run ({key})'s greedy tokens "
+                                 f"differ from run (a)'s")
+    same = 0
+    for i in range(4):
+        ref = generate(model, prompts[i][None], PP_NEW, device=dev)[0]
+        ref = ref[0, prompts[i].size:].cpu().numpy()
+        if np.array_equal(ref, want[i]):
+            same += 1
+        else:
+            print(f"prefix_paged fp32: request {i} differs from generate at "
+                  f"{_pp_margin(model, prompts[i], ref, want[i], dev)}")
+    print(f"prefix_paged fp32: the first four requests' greedy tokens == "
+          f"generate on the card: {same}/4 (held)")
+    if same != 4:
+        raise AssertionError("prefix_paged: the batcher's greedy tokens "
+                             "differ from generate's")
+    for key in "bc":
+        t = runs[key]["trie"]
+        if not (t["hits"] > 0 and runs[key]["warm"] and min(
+                runs[key]["reused"][r] for r in runs[key]["warm"])
+                >= PP_SYSTEM):
+            raise AssertionError(f"prefix_paged: run ({key}) reused fewer "
+                                 f"than {PP_SYSTEM} tokens a warm request")
+    if not max(by_layer) <= PP_GATHER_TOL:
+        raise AssertionError("prefix_paged: the paged gather disagrees with "
+                             "the dense cache")
+    if not (runs["d"]["trie"]["evictions"] >= 1 and runs["d"]["defrags"] >= 1):
+        raise AssertionError("prefix_paged: run (d) neither evicted nor "
+                             "defragmented")
+    del model
+    return runs
+
+
+def phase_prefix_paged(fa, dev):
+    """The prefix-KV cache and paged KV in the batcher (docstring, phase
+    16)."""
+    import gc
+
+    from tfde_tpu_torch.models.gpt import GPT
+    from tfde_tpu_torch.testing import FULL_WIDTH
+
+    print(f"prefix_paged on {_card()}")
+    fields = FULL_WIDTH["Llama-3.2-1B"][1]
+    prompts = _pp_prompts(fields["vocab_size"])
+    print(f"prefix_paged: Llama-3.2-1B (published widths, random weights "
+          f"from seed 0), batch {PP_BATCH}, max_len {PP_MAX_LEN}, scan depth "
+          f"{PP_DEPTH}; {PP_REQUESTS} requests x {PP_NEW} of a {PP_SYSTEM}"
+          f"-token system prompt + {PP_SUFFIX[0]}-{PP_SUFFIX[1]} tokens, "
+          f"prompt lengths {[int(p.size) for p in prompts]}, requests "
+          f"{sorted(PP_REPEATS)} repeating {list(PP_REPEATS.values())}")
+    fp32 = _pp_fp32(fa, dev, fields, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT(**fields, device=dev, seed=0).cast_compute_weights_()
+    bf16 = {}
+    for key, label, kw in (
+            ("a", "bf16 (a) dense", dict(paged=False, prefix_cache=False)),
+            ("b", "bf16 (b) dense + prefix cache",
+             dict(paged=False, prefix_cache=True)),
+            ("c", "bf16 (c) paged + trie", dict(paged=True,
+                                                prefix_cache=True))):
+        bf16[key] = _pp_run(fa, dev, model, prompts, label, **kw)
+    for key in "bc":
+        diff = sum(not np.array_equal(w, g) for w, g in zip(
+            bf16["a"]["tokens"], bf16[key]["tokens"]))
+        print(f"prefix_paged bf16 ({key}): {diff}/{PP_REQUESTS} requests' "
+              f"greedy tokens differ from bf16 (a)'s (counted: bf16 is not "
+              f"batch-invariant, and warm and paged rows take the einsum)")
+    for key in "bc":
+        if not bf16[key]["trie"]["hits"]:
+            raise AssertionError(f"prefix_paged: bf16 run ({key}) had no "
+                                 f"prefix hits")
+    print(f"prefix_paged summary (fp32 / bf16): ms per output token dense "
+          f"{fp32['a']['ms_token']:.2f} / {bf16['a']['ms_token']:.2f}, "
+          f"prefix cache {fp32['b']['ms_token']:.2f} / "
+          f"{bf16['b']['ms_token']:.2f}, paged {fp32['c']['ms_token']:.2f} / "
+          f"{bf16['c']['ms_token']:.2f}; run (b)'s TTFT warm vs cold "
+          f"{fp32['b']['ttft_warm']:.1f} vs {fp32['b']['ttft_cold']:.1f} ms / "
+          f"{bf16['b']['ttft_warm']:.1f} vs {bf16['b']['ttft_cold']:.1f} ms, "
+          f"in the admission wave {fp32['b']['wave_warm']:.1f} vs "
+          f"{fp32['b']['wave_cold']:.1f} ms / {bf16['b']['wave_warm']:.1f} vs "
+          f"{bf16['b']['wave_cold']:.1f} ms")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
           "lifecycle", "export", "resnet",
-          "bert", "vit", "gpt_lm", "hf_serve")
+          "bert", "vit", "gpt_lm", "hf_serve", "prefix_paged")
 
 
 def main(argv=None) -> int:
@@ -3646,28 +3979,30 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build(fa)
-    timing = phase_kernels(fa, dev) if "kernels" in phases else None
-    if "parity" in phases:
-        phase_parity(dev)
-    d256_train = (phase_train_parity(fa, dev) if "train_parity" in phases
-                  else None)
-    if "serve" in phases:
-        phase_serve(fa, dev)
-    launches = phase_train(fa, dev) if "train" in phases else None
-    dp_ms = phase_dp(dev) if "dp" in phases else None
-    if "lifecycle" in phases:
-        phase_lifecycle(fa, dev, dp_ms)
-    if "export" in phases:
-        phase_export(fa, dev, dp_ms)
-    if "resnet" in phases:
-        phase_resnet(fa, dev)
-    if "bert" in phases:
-        phase_bert(fa, dev)
-    if "vit" in phases:
-        phase_vit(fa, dev)
-    if "gpt_lm" in phases:
-        phase_gpt_lm(fa, dev)
-    d256_serve = phase_hf_serve(fa, dev) if "hf_serve" in phases else None
+
+    def run(name, fn, *args):
+        """Phase `name` if it was asked for, with its seconds printed."""
+        if name not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timing = run("kernels", phase_kernels, fa, dev)
+    run("parity", phase_parity, dev)
+    d256_train = run("train_parity", phase_train_parity, fa, dev)
+    run("serve", phase_serve, fa, dev)
+    launches = run("train", phase_train, fa, dev)
+    dp_ms = run("dp", phase_dp, dev)
+    run("lifecycle", phase_lifecycle, fa, dev, dp_ms)
+    run("export", phase_export, fa, dev, dp_ms)
+    run("resnet", phase_resnet, fa, dev)
+    run("bert", phase_bert, fa, dev)
+    run("vit", phase_vit, fa, dev)
+    run("gpt_lm", phase_gpt_lm, fa, dev)
+    d256_serve = run("hf_serve", phase_hf_serve, fa, dev)
+    run("prefix_paged", phase_prefix_paged, fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

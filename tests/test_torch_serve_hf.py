@@ -119,7 +119,8 @@ def test_remat_artifact_serves(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num-draft", "2"], ["--prefix-cache", "on"], ["--serve", "0"],
+    # --prefix-cache is ported: a spec it cannot read is the error
+    ["--num-draft", "2"], ["--prefix-cache", "bogus"], ["--serve", "0"],
     ["--tokenizer", "tok"], ["--prompt", "hi"], ["--fake-devices", "1"]])
 def test_unported_serving_flags_are_argparse_errors(flag):
     with pytest.raises(SystemExit):

@@ -5,6 +5,9 @@
   compute dtype and one `index` shared by every layer and the position
   table (the JAX `cache_index`/`position_index` leaves always move
   together). `set_index` is the JAX `_set_index_counters` surgery.
+  `PagedKVCache` is the paged layout (inference/paged.py): per-layer
+  pools [num_blocks, block, Kv, D] and one [B, nmax] block table
+  (`init_cache(..., paged_blocks=, kv_block=)`).
 - `sample_logits`: repetition penalty, then greedy or temperature with
   the top-k, top-p and min-p filters (`filter_logits`), then a draw from
   an explicit `torch.Generator`, or, given `gumbel_noise`, the Gumbel-max
@@ -70,6 +73,23 @@ class KVCache:
             big[rows] = small.to(big.dtype)
 
 
+class PagedKVCache(KVCache):
+    """The paged layout: per-layer K/V pools [num_blocks, block, Kv, D]
+    shared by every row, one [B, nmax] int64 block table on the device
+    (row r's positions [s*block, (s+1)*block) live in pool block
+    `table[r, s]`; unallocated slots hold the null block 0) and the
+    fed-token count, an int or a [B] tensor. nmax = ceil((max_len + 1) /
+    block): the decode scan writes one past a frozen row's committed
+    count. The model writes and gathers through the table
+    (models/transformer.MultiHeadAttention._paged_attention)."""
+
+    def __init__(self, keys: list, values: list, table: torch.Tensor,
+                 block: int, index: Union[int, torch.Tensor] = 0):
+        super().__init__(keys, values, index)
+        self.table = table
+        self.block = int(block)
+
+
 def validate_budget(model, prompt_len: int, max_new_tokens: int) -> int:
     """prompt_len + max_new_tokens, checked against the learned position
     table's length (a rotary model has no table: its budget is bounded
@@ -86,10 +106,28 @@ def validate_budget(model, prompt_len: int, max_new_tokens: int) -> int:
     return total
 
 
-def init_cache(model, batch_size: int, max_len: int) -> KVCache:
+def init_cache(model, batch_size: int, max_len: int,
+               paged_blocks: Optional[int] = None,
+               kv_block: Optional[int] = None) -> KVCache:
     """Zero-filled cache for a [batch_size, max_len] generation budget on
     the model's device, index 0: [batch_size, max_len, KV heads, D] a
-    layer."""
+    layer; with `paged_blocks`, a `PagedKVCache` of that many
+    `kv_block`-token blocks a layer (default block 16, TFDE_KV_BLOCK's
+    default) and a zero [batch_size, ceil((max_len + 1) / kv_block)]
+    table."""
+    if paged_blocks is not None:
+        block = 16 if kv_block is None else int(kv_block)
+        if paged_blocks < 2 or block < 1:
+            raise ValueError(f"paged_blocks must be >= 2 and kv_block >= 1, "
+                             f"got {paged_blocks} and {block}")
+        shape = (int(paged_blocks), block, model.kv_heads, model.head_dim)
+        pools = [torch.zeros(shape, dtype=model.dtype, device=model.device)
+                 for _ in range(2 * model.depth)]
+        nmax = -(-(max_len + 1) // block)
+        table = torch.zeros((batch_size, nmax), dtype=torch.int64,
+                            device=model.device)
+        return PagedKVCache(pools[:model.depth], pools[model.depth:], table,
+                            block, 0)
     shape = (batch_size, max_len, model.kv_heads, model.head_dim)
 
     def slab():

@@ -222,7 +222,13 @@ class GPT(nn.Module):
                 idx = cache.index
                 positions = (idx + positions if isinstance(idx, int)
                              else idx[:, None] + positions)
-            x = x + self.wpe(positions).to(self.dtype)
+            # a position past the table embeds NaN, as JAX's `take`
+            # fills it (a paged prefill pad-feeds rows past their
+            # committed count; the paged cache sanitizes what they write)
+            n = self.wpe.num_embeddings
+            pe = self.wpe(positions.clamp(max=n - 1)).masked_fill(
+                (positions >= n)[..., None], float("nan"))
+            x = x + pe.to(self.dtype)
         x = self.decoder(x, cache, mask=mask)
         if cache is not None:
             cache.advance(s)

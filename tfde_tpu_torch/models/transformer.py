@@ -30,7 +30,8 @@ The KV cache is an explicit object (inference/decode.KVCache) passed down
 the stack with the layer number, where flax keeps it in the "cache"
 collection; its `index` is a Python int (one shared position — `generate`
 and the admission prefill) or a [B] tensor (per-row positions — the
-batcher's decode ticks).
+batcher's decode ticks). A paged cache (`decode.PagedKVCache`: pools and
+a block table) takes the paged branch (`_paged_attention`).
 """
 
 from __future__ import annotations
@@ -305,7 +306,11 @@ class MultiHeadAttention(nn.Module):
         past S are masked out, so the function is plain causal (windowed)
         self-attention over this call's own q/k/v — it goes through the
         dispatcher, and on a CUDA tensor to the flash kernel. Every other
-        call (per-row decode ticks) is the masked einsum over the cache."""
+        call (per-row decode ticks) is the masked einsum over the cache.
+        A paged cache (one carrying a block `table`) takes
+        `_paged_attention`."""
+        if getattr(cache, "table", None) is not None:
+            return self._paged_attention(q, k, v, cache, layer)
         keys, values = cache.keys[layer], cache.values[layer]
         sq = q.shape[1]
         max_len = keys.shape[1]
@@ -340,6 +345,53 @@ class MultiHeadAttention(nn.Module):
             valid = valid & (ago < self.window)
         return attn_lib.grouped_attention(q, keys, values,
                                           mask=valid[:, None], **opts)
+
+    def _paged_attention(self, q, k, v, cache, layer: int) -> torch.Tensor:
+        """Paged decode attention (JAX `_paged_attention`): write this
+        call's K/V into the layer's pool [num_blocks, block, Kv, D] at
+        (table[r, pos // block], pos % block), gather each row's table
+        back into position order ([B, nmax*block, Kv, D]: column j IS
+        position j) and attend under the dense mask `j <= index + i` (and
+        the window) with the masked einsum. `cache.index` is an int or a
+        [B] tensor.
+
+        Writes past the table go to the null block 0, and the written K/V
+        pass through nan_to_num (the identity on finite values): a row
+        pad-fed past its committed count can carry non-finite activations
+        (a learned position past the table embeds NaN), and a masked
+        column's zero weight would still take 0 * NaN. Duplicate writes
+        land only in block 0, which no mask reads, so their order does
+        not matter; shared trie blocks are never written (the trie holds
+        complete prompt blocks and a warm row writes from its
+        block-aligned prefix length on)."""
+        pool_k, pool_v = cache.keys[layer], cache.values[layer]
+        block, table = cache.block, cache.table
+        b, sq = q.shape[:2]
+        nmax = table.shape[1]
+        idx = cache.index
+        q, k = self._rotate(q, k, idx)
+        steps = torch.arange(sq, device=q.device)
+        if isinstance(idx, int):
+            pos = (idx + steps)[None].expand(b, sq)
+        else:
+            pos = idx[:, None] + steps  # [B, sq]
+        slot = pos // block
+        rows = torch.arange(b, device=q.device)[:, None]
+        blk = torch.where(slot < nmax, table[rows, slot.clamp(0, nmax - 1)],
+                          torch.zeros_like(slot))
+        off = pos % block
+        pool_k[blk, off] = torch.nan_to_num(k.to(pool_k.dtype))
+        pool_v[blk, off] = torch.nan_to_num(v.to(pool_v.dtype))
+        k_all = pool_k[table].reshape(b, nmax * block, *pool_k.shape[2:])
+        v_all = pool_v[table].reshape(b, nmax * block, *pool_v.shape[2:])
+        cols = torch.arange(nmax * block, device=q.device)
+        ago = pos[:, :, None] - cols  # [B, sq, nmax*block]
+        valid = ago >= 0
+        if self.window is not None:
+            valid = valid & (ago < self.window)
+        return attn_lib.grouped_attention(
+            q, k_all, v_all, mask=valid[:, None], scale=self.attn_scale,
+            logit_cap=self.attn_logit_cap)
 
 
 class Mlp(nn.Module):

@@ -10,9 +10,15 @@ config) with random weights made from `--seed`. Runs on CUDA by default:
     python -m tfde_tpu_torch.serve_gpt --hf-dir DIR --requests 16
     python -m tfde_tpu_torch.serve_gpt --requests 16
     python -m tfde_tpu_torch.serve_gpt --tiny --device cpu --requests 6
+    python -m tfde_tpu_torch.serve_gpt --prefix-cache on --shared-prefix 512
+    TFDE_PAGED_KV=1 python -m tfde_tpu_torch.serve_gpt --prefix-cache on
 
 Request i's prompt is `rng.integers(0, vocab, rng.integers(2, 9))` from
-`np.random.default_rng(--seed)`, drawn in order.
+`np.random.default_rng(--seed)`, drawn in order, after a system prompt of
+`--shared-prefix` tokens drawn first (default none). `--prefix-cache`
+(on, off or a byte budget; default the ``TFDE_PREFIX_CACHE`` knob) lets
+requests that share a cached prompt prefix prefill only the rest;
+``TFDE_PAGED_KV=1`` serves from the paged block pool (inference/paged.py).
 """
 
 from __future__ import annotations
@@ -30,6 +36,18 @@ from tfde_tpu_torch.models.gpt import GPT2Small, gpt_tiny_test
 from tfde_tpu_torch.utils.devices import resolve_device
 
 log = logging.getLogger("serve_gpt")
+
+
+def _prefix_spec(text: str):
+    """--prefix-cache: 'on', 'off' or an integer byte budget."""
+    v = text.strip().lower()
+    if v in ("on", "off"):
+        return v
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"{text!r} is not on, off or a byte budget") from None
 
 
 def main(argv=None):
@@ -53,6 +71,16 @@ def main(argv=None):
                         help="decode ticks per host round-trip (adapts "
                              "down near row completions; 1 = a host sync "
                              "every token)")
+    parser.add_argument("--prefix-cache", type=_prefix_spec, default=None,
+                        metavar="SPEC",
+                        help="prefix-KV cache: 'on', 'off', or a byte "
+                             "budget (default: the TFDE_PREFIX_CACHE knob); "
+                             "requests sharing a cached prompt prefix "
+                             "prefill only the uncached suffix")
+    parser.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                        help="start every synthetic prompt with the same "
+                             "N-token system prompt (what the prefix cache "
+                             "reuses)")
     parser.add_argument("--hf-dir", type=str, default=None,
                         help="serve a conversion artifact (params.npz + "
                              "model_config.json from `python -m "
@@ -89,14 +117,16 @@ def main(argv=None):
         min_p=args.min_p, repetition_penalty=args.repetition_penalty,
         eos_id=args.eos_id, scan_depth=args.scan_depth,
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        device=device)
+        prefix_cache=args.prefix_cache, device=device)
     rng = np.random.default_rng(args.seed)
+    system = rng.integers(0, model.vocab_size, args.shared_prefix)
     lengths = {}
     for _ in range(args.requests):
         plen = int(rng.integers(2, 9))
-        rid = srv.submit(rng.integers(0, model.vocab_size, plen),
-                         args.max_new_tokens)
-        lengths[rid] = plen
+        prompt = np.concatenate(
+            [system, rng.integers(0, model.vocab_size, plen)])
+        rid = srv.submit(prompt, args.max_new_tokens)
+        lengths[rid] = prompt.size
     t0 = time.perf_counter()
     done = srv.run()
     if device.type == "cuda":
@@ -110,6 +140,11 @@ def main(argv=None):
              "%d, %s)", len(done), total, dt, total / max(dt, 1e-9),
              args.batch_size, device)
     log.info("serving stats: %s", srv.stats())
+    if srv.prefix_cache is not None:
+        log.info("prefix cache: %s", srv.prefix_cache.stats())
+    if srv.block_pool is not None:
+        log.info("paged KV pool: %s, defrag passes %d",
+                 srv.block_pool.stats(), srv.defrag_passes)
     return done
 
 
