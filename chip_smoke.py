@@ -244,7 +244,29 @@ without printing a result:
    its committed cells (`PP_GATHER_TOL`); then (a)-(c) in bf16 (token
    differences counted). Each run prints tok/s, TTFT cold and warm
    (whole, and after the queue), ms per output token, prefill and decode
-   seconds, peak memory, the trie's and the pool's counts.
+   seconds, ms per tick, peak memory, the trie's and the pool's counts
+   and the KV ledger (`kv_stats()`).
+   Then int8 KV (``kv_quant='int8'``) at the same traffic: (e) dense,
+   (f) paged with the trie, (g) paged with the trie, the pool cut to the
+   bytes of (d)'s 131 fp32 blocks (493 int8 blocks) and the trie to (d)'s
+   bytes, in fp32, and bf16 (e) dense. Held: each run's flash launches
+   equal its fp twin's ((a), (c), (d), bf16 (a)), 16 a cold wave in the
+   dense runs: the cold wave prefills on the kernel over the dequantized
+   K/V; (e)'s layer-0 int8 payload and scales equal bit for bit
+   `kv_quantize` on the card of (a)'s fp32 layer-0 cache over the prompt
+   cells of the rows resident at the end; the greedy-match rate against
+   the twin printed, not held (JAX accepts >= 0.98; random weights' top-2
+   margins are smaller than the int8 logit error), and in fp32 every
+   request parting from its twin only where the int8 function explains
+   it: the twin's top-2 margin at most twice the int8 logit error there,
+   and the run's token the int8 function's top one (`PP_MATCH_FLOOR`);
+   once every row is busy (with a prefix cache: once a warm row is
+   busy), `kv/used_bytes` within 1% of the live cells' bytes counted
+   from the cache tensors (every run, fp and int8); (g) holds 4D / (D + 4) = 3.76x (d)'s blocks in no more bytes and
+   stalls fewer times. On idle dense batchers: the slabs' bytes (int8 /
+   fp32 = 68/256, int8 / bf16 = 68/128) and, under
+   ``TFDE_CAPACITY_BUDGET_BYTES=134217728``, headroom 2 rows / 2,048
+   tokens in fp32 and 7 rows / 7,710 tokens in int8.
 
 Every phase prints its seconds.
 
@@ -3657,6 +3679,27 @@ PP_SMALL_POOL, PP_DEFRAG, PP_TRIE_BLOCKS = 2 * 65 + 1, "0.1", 40
 #: chip run, PR 14; 7.8e-6 between flash and the einsum on its logits, PR
 #: 12); a wrong block is off by O(1)
 PP_GATHER_TOL = 1e-4
+#: int8 KV. JAX's acceptance of an int8 run is a greedy match >= 0.98
+#: against fp (tests/test_kv_quant.py `_match_rate`), on its tiny CPU
+#: model, where the int8 logit error (~0.01) is below the top-2 margins.
+#: Llama-3.2-1B's random weights give near-flat logits: where the runs
+#: part, the fp twin's top-2 margin is 5e-3-3e-2 and the int8 logit error
+#: (max over the 128,256 logits) 0.09-0.12, so 0.37 of the fp32 tokens
+#: matched (NVIDIA H100 80GB HBM3, 700 W). The rate is printed, not
+#: held; each fp32 request is held instead to part from its twin only
+#: where the int8 function explains it, at the first differing step, on
+#: the twin's tokens: the twin's top-2 margin is at most twice the int8
+#: logit error
+#: (+ PP_FLIP_SLACK for the batched programs' fp32 rounding), and the
+#: int8 run took the int8 function's top token (the sequence prefilled
+#: into an int8 cache), unless that function's own top-2 margin is below
+#: PP_FLIP_SLACK x 10 (a tie, counted).
+PP_MATCH_FLOOR = 0.98
+PP_FLIP_SLACK = 1e-4
+#: the headroom budget of the idle batchers: two fp32 max-length rows of
+#: Llama-3.2-1B (16 layers x 8 KV heads x D 64: 65,536 bytes a cell in
+#: fp32, 17,408 in int8)
+PP_BUDGET = 134_217_728
 
 
 def _pp_prompts(vocab: int) -> list:
@@ -3672,13 +3715,19 @@ def _pp_prompts(vocab: int) -> list:
     return prompts
 
 
-def _pp_run(fa, dev, model, prompts, label, at_warm=None, **kw):
+def _pp_run(fa, dev, model, prompts, label, at_warm=None, keep_layer0=False,
+            **kw):
     """Serve `prompts` x PP_NEW through ContinuousBatcher(**kw), the launch
     counters zeroed just before and read just after. `at_warm(srv, step)`
     runs once, after the first step that admitted a request from the
-    prefix cache; its seconds are left out of the run's. Prints the run's
-    measurements and returns them with the tokens."""
+    prefix cache; the ledger's used bytes are held against the live cells'
+    bytes once, after the first step with every row busy (with a prefix
+    cache: with a warm row); the seconds of both are left out of the
+    run's. `keep_layer0` keeps copies of layer 0's cache planes at the
+    end and the last request of each row. Prints the run's measurements
+    and returns them with the tokens."""
     from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.testing import live_kv_bytes
 
     srv = ContinuousBatcher(model, batch_size=PP_BATCH, max_len=PP_MAX_LEN,
                             scan_depth=PP_DEPTH, device=dev, **kw)
@@ -3687,14 +3736,24 @@ def _pp_run(fa, dev, model, prompts, label, at_warm=None, **kw):
     _zero_counts(fa)
     t0 = time.perf_counter()
     rids = [srv.submit(p, PP_NEW) for p in prompts]
-    done, steps, paused = {}, 0, 0.0
+    done, steps, paused, ledger, last = {}, 0, 0.0, None, {}
     while not srv.idle:
         done.update(srv.step())
         steps += 1
+        last.update((r, rid) for r, rid in enumerate(srv._req)
+                    if rid is not None)
         if at_warm is not None and any(srv.reused_tokens().values()):
             tp = time.perf_counter()
             at_warm(srv, steps)
             at_warm = None
+            paused += time.perf_counter() - tp
+        if ledger is None and (
+                srv.free_rows == 0 if srv.prefix_cache is None
+                else any(srv.reused_tokens().get(rid) for rid in srv._req)):
+            tp = time.perf_counter()
+            torch.cuda.synchronize(dev)
+            kv = srv.kv_stats()
+            ledger = (steps, kv["used_bytes"], live_kv_bytes(srv))
             paused += time.perf_counter() - tp
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0 - paused
@@ -3729,7 +3788,15 @@ def _pp_run(fa, dev, model, prompts, label, at_warm=None, **kw):
                ttft_warm=mean(ttft, warm),
                wave_cold=mean(ttft, cold, queue),
                wave_warm=mean(ttft, warm, queue), stats=stats,
-               peak=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+               tick_ms=stats["decode_s"] * 1e3 / max(stats["rounds"], 1),
+               peak=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               kv=srv.kv_stats(), ledger=ledger,
+               blocks=(srv.block_pool.num_blocks
+                       if srv.block_pool is not None else None))
+    if keep_layer0:
+        out["layer0"] = {name: t.clone() for (layer, name), t
+                         in srv._cache.planes().items() if layer == 0}
+        out["rows_last"] = {r: rids.index(rid) for r, rid in last.items()}
     print(f"prefix_paged {label}: {len(done)}/{len(rids)} requests, {n_tok} "
           f"tokens in {dt:.3f} s ({out['tok_s']:.1f} tok/s), "
           f"{out['ms_token']:.2f} ms per output token; mean TTFT cold "
@@ -3739,13 +3806,25 @@ def _pp_run(fa, dev, model, prompts, label, at_warm=None, **kw):
           f"warm {out['wave_warm']:.1f} ms; prefill "
           f"{stats['prefill_s']:.3f} s over {stats['prefill_waves']} waves "
           f"{json.dumps(waves)}, decode {stats['decode_s']:.3f} s over "
-          f"{stats['rounds']} ticks; peak {out['peak']:.2f} GiB")
+          f"{stats['rounds']} ticks ({out['tick_ms']:.2f} ms a tick); peak "
+          f"{out['peak']:.2f} GiB")
     print(f"prefix_paged {label}: trie {json.dumps(trie)}; reused tokens a "
           f"warm request min {min((reused[r] for r in warm), default=0)}; "
           f"pool {json.dumps(pool)}, defrag passes {srv.defrag_passes}, "
           f"capacity stalls {srv.capacity_stalls}; flash_fwd launches "
           f"{launches} over {waves.get('cold', 0)} cold waves x {model.depth} "
           f"layers")
+    print(f"prefix_paged {label}: kv_stats at the end {json.dumps(out['kv'])}")
+    if ledger is None:
+        raise AssertionError(f"prefix_paged {label}: no step had every row "
+                             f"busy")
+    step, used, live = ledger
+    print(f"prefix_paged {label}: after step {step} kv/used_bytes {used:.0f} "
+          f"vs the live cells' tensor bytes {live} (rel "
+          f"{abs(used - live) / live:.2e}; held at 1%)")
+    if not abs(used - live) <= 0.01 * live:
+        raise AssertionError(f"prefix_paged {label}: kv/used_bytes {used} is "
+                             f"not within 1% of the live cells' {live} bytes")
     if launches != model.depth * waves.get("cold", 0):
         raise AssertionError(f"prefix_paged {label}: {launches} flash "
                              f"launches, not {model.depth} a cold wave")
@@ -3822,7 +3901,7 @@ def _pp_fp32(fa, dev, family_fields, prompts):
 
     runs = {}
     runs["a"] = _pp_run(fa, dev, model, prompts, "fp32 (a) dense",
-                        paged=False, prefix_cache=False)
+                        keep_layer0=True, paged=False, prefix_cache=False)
     runs["b"] = _pp_run(fa, dev, model, prompts, "fp32 (b) dense + prefix "
                         "cache", at_warm=dense_at_warm, paged=False,
                         prefix_cache=True)
@@ -3890,8 +3969,192 @@ def _pp_fp32(fa, dev, family_fields, prompts):
     if not (runs["d"]["trie"]["evictions"] >= 1 and runs["d"]["defrags"] >= 1):
         raise AssertionError("prefix_paged: run (d) neither evicted nor "
                              "defragmented")
+    _pp_int8_fp32(fa, dev, model, prompts, runs, block_bytes)
     del model
     return runs
+
+
+def _pp_match(got, ref) -> float:
+    """The share of greedy tokens equal position by position over the
+    request set (JAX tests/test_kv_quant.py `_match_rate`)."""
+    hit = tot = 0
+    for g, r in zip(got, ref):
+        tot += max(len(g), len(r))
+        hit += sum(1 for a, b in zip(g, r) if a == b)
+    return hit / max(tot, 1)
+
+
+def _pp_flip(model, prompt, want, got, dev) -> tuple:
+    """At the first step where `got` (an int8 run) parts from `want` (its
+    fp twin): (step, the twin's top-2 logit margin there, the max abs
+    logit error of int8 KV there, whether the int8 function's top token is
+    `got`'s, that function's top-2 margin), computed on the twin's tokens:
+    the fp model without a cache, and the same sequence prefilled into an
+    int8 cache."""
+    from tfde_tpu_torch.inference.decode import init_cache
+
+    i = int(np.argmax(np.asarray(want) != np.asarray(got)))
+    ids = torch.as_tensor(np.concatenate([prompt, want[:i]])[None],
+                          device=dev)
+    with torch.no_grad():
+        fp = model.head(model.hidden(ids)[:, -1])[0]
+        cache = init_cache(model, 1, ids.shape[1], kv_quant="int8")
+        q8 = model.head(model.hidden(ids, cache=cache)[:, -1])[0]
+    top, top8 = fp.topk(2), q8.topk(2)
+    return (i, float(top.values[0] - top.values[1]),
+            float((fp - q8).abs().max()),
+            int(top8.indices[0]) == int(got[i]),
+            float(top8.values[0] - top8.values[1]))
+
+
+def _pp_twin(model, prompts, key, run, twin, dev, floor=None) -> float:
+    """Hold an int8 run against its fp twin: the same flash launches, and
+    (with `floor`) every request matching its twin token for token or
+    parting where the int8 function explains it (PP_MATCH_FLOOR's note);
+    returns the greedy-match rate."""
+    rate = _pp_match(run["tokens"], twin["tokens"])
+    bad = [i for i, (g, w) in enumerate(zip(run["tokens"], twin["tokens"]))
+           if not np.array_equal(g, w)]
+    flips = [(i,) + _pp_flip(model, prompts[i], twin["tokens"][i],
+                             run["tokens"][i], dev)
+             for i in (bad if floor is not None else bad[:3])]
+    for i, step, margin, err, follows, margin8 in flips[:6]:
+        print(f"prefix_paged {key} request {i} parts from its fp twin at "
+              f"step {step}: the twin's top-2 margin {margin:.3e}, the int8 "
+              f"logit error there {err:.3e}; the int8 function's top token "
+              f"{'is' if follows else 'is NOT'} the run's (its top-2 margin "
+              f"{margin8:.3e})")
+    worst = max((f[3] for f in flips), default=0.0)
+    ties = sum(not f[4] and f[5] < 10 * PP_FLIP_SLACK for f in flips)
+    print(f"prefix_paged {key}: greedy match {rate:.4f} against its fp twin "
+          f"({len(bad)}/{len(prompts)} requests differ; JAX accepts >= "
+          f"{PP_MATCH_FLOOR} where the margins exceed the int8 error: not "
+          f"held here); the largest int8 logit error where they part "
+          f"{worst:.3e}, int8 ties {ties}"
+          f"{'' if floor is None else ' (held: every parting explained, PP_MATCH_FLOOR)'}; flash "
+          f"launches {run['launches']} vs {twin['launches']}; "
+          f"{run['tick_ms']:.2f} vs {twin['tick_ms']:.2f} ms a tick "
+          f"({run['tick_ms'] / twin['tick_ms'] - 1:+.1%}), peak "
+          f"{run['peak']:.2f} vs {twin['peak']:.2f} GiB, KV allocated "
+          f"{run['kv']['allocated_bytes']:.0f} vs "
+          f"{twin['kv']['allocated_bytes']:.0f} bytes")
+    if run["launches"] != twin["launches"]:
+        raise AssertionError(f"prefix_paged {key}: {run['launches']} flash "
+                             f"launches, its fp twin {twin['launches']}")
+    for i, step, margin, err, follows, margin8 in (
+            flips if floor is not None else []):
+        if not (margin <= 2 * err + PP_FLIP_SLACK
+                and (follows or margin8 < 10 * PP_FLIP_SLACK)):
+            raise AssertionError(
+                f"prefix_paged {key}: request {i} parts from its fp twin at "
+                f"step {step} where the int8 function does not explain it "
+                f"(margin {margin:.3e}, int8 error {err:.3e}, the int8 "
+                f"function's top token the run's: {follows})")
+    return rate
+
+
+def _pp_int8_fp32(fa, dev, model, prompts, runs, block_bytes):
+    """Runs (e)-(g) in fp32 with int8 KV, held against (a), (c), (d); the
+    headroom of idle batchers under PP_BUDGET."""
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.ops.quant import kv_quantize
+
+    runs["e"] = _pp_run(fa, dev, model, prompts, "fp32 (e) dense, int8 KV",
+                        keep_layer0=True, paged=False, prefix_cache=False,
+                        kv_quant="int8")
+    runs["f"] = _pp_run(fa, dev, model, prompts, "fp32 (f) paged + trie, "
+                        "int8 KV", paged=True, prefix_cache=True,
+                        kv_quant="int8")
+    cell_q8 = 2 * model.depth * model.kv_heads * (model.head_dim + 4)
+    pool_q8 = PP_SMALL_POOL * block_bytes // (16 * cell_q8)
+    os.environ["TFDE_KV_DEFRAG_THRESHOLD"] = PP_DEFRAG
+    try:
+        runs["g"] = _pp_run(fa, dev, model, prompts,
+                            f"fp32 (g) paged + trie of {PP_TRIE_BLOCKS} fp32 "
+                            f"blocks' bytes, pool {pool_q8} int8 blocks (the "
+                            f"bytes of {PP_SMALL_POOL} fp32 blocks), int8 KV",
+                            paged=True,
+                            prefix_cache=PP_TRIE_BLOCKS * block_bytes,
+                            pool_blocks=pool_q8, kv_quant="int8")
+    finally:
+        del os.environ["TFDE_KV_DEFRAG_THRESHOLD"]
+    # (e)'s layer-0 cache against the quantizer of (a)'s: layer 0's K/V
+    # depend on no earlier layer and both runs schedule the same waves
+    a, e = runs["a"], runs["e"]
+    if a["rows_last"] != e["rows_last"]:
+        raise AssertionError("prefix_paged: (a) and (e) ended with other "
+                             "requests in their rows")
+    cells = 0
+    for r, i in e["rows_last"].items():
+        n = prompts[i].size
+        for name in "kv":
+            q, scale = kv_quantize(a["layer0"][name][r, :n])
+            if not (torch.equal(e["layer0"][name][r, :n], q) and torch.equal(
+                    e["layer0"][f"{name}_scale"][r, :n], scale)):
+                raise AssertionError(
+                    f"prefix_paged: (e)'s layer-0 {name} of row {r} is not "
+                    f"kv_quantize of (a)'s")
+        cells += n
+    print(f"prefix_paged fp32 (e): layer 0's int8 k and v payloads and "
+          f"scales equal kv_quantize of (a)'s fp32 layer 0 bit for bit over "
+          f"the {cells} prompt cells of the {len(e['rows_last'])} rows "
+          f"resident at the end (held)")
+    del a["layer0"], e["layer0"]
+    for key, twin in (("e", "a"), ("f", "c"), ("g", "d")):
+        _pp_twin(model, prompts, f"fp32 ({key})", runs[key], runs[twin], dev,
+                 floor=PP_MATCH_FLOOR)
+    d, g = runs["d"], runs["g"]
+    bytes_d = PP_SMALL_POOL * block_bytes
+    bytes_g = pool_q8 * 16 * cell_q8
+    print(f"prefix_paged (g) vs (d): {g['blocks']} int8 blocks in {bytes_g} "
+          f"bytes against {d['blocks']} fp32 blocks in {bytes_d} bytes "
+          f"({g['blocks'] / d['blocks']:.3f}x the blocks); capacity stalls "
+          f"{g['stalls']} vs {d['stalls']}, trie evictions "
+          f"{g['trie']['evictions']} vs {d['trie']['evictions']}, defrags "
+          f"{g['defrags']} vs {d['defrags']}; {g['tok_s']:.1f} vs "
+          f"{d['tok_s']:.1f} tok/s (held: >= 0.99 x 4D / (D + 4) = "
+          f"{0.99 * 4 * model.head_dim / (model.head_dim + 4):.3f}x the "
+          f"blocks in no more bytes, fewer stalls)")
+    if not (bytes_g <= bytes_d and g["stalls"] < d["stalls"]
+            and g["blocks"] >= 0.99 * 4 * model.head_dim
+            / (model.head_dim + 4) * d["blocks"]):
+        raise AssertionError("prefix_paged: (g) does not hold more blocks in "
+                             "(d)'s bytes, or stalls as often")
+    ratio = e["kv"]["allocated_bytes"] / a["kv"]["allocated_bytes"]
+    want = (model.head_dim + 4) / (4 * model.head_dim)
+    print(f"prefix_paged: dense KV slab {a['kv']['allocated_bytes']:.0f} "
+          f"bytes fp32, {e['kv']['allocated_bytes']:.0f} int8 (ratio "
+          f"{ratio:.6f}, (D + 4) / 4D = {want:.6f}; held)")
+    if ratio != want:
+        raise AssertionError("prefix_paged: the int8 slab's bytes are not "
+                             "(D + 4) / 4D of the fp32 slab's")
+    os.environ["TFDE_CAPACITY_BUDGET_BYTES"] = str(PP_BUDGET)
+    try:
+        head = {}
+        for q in ("fp", "int8"):
+            srv = ContinuousBatcher(model, batch_size=PP_BATCH,
+                                    max_len=PP_MAX_LEN, device=dev,
+                                    kv_quant=q)
+            head[q] = srv.kv_stats()
+            del srv
+    finally:
+        del os.environ["TFDE_CAPACITY_BUDGET_BYTES"]
+    cell_fp = 2 * model.depth * model.kv_heads * model.head_dim * 4
+    # CapacityModel caps both at the idle batcher's free rows
+    want = {q: (min(PP_BATCH, PP_BUDGET // (cell * PP_MAX_LEN)),
+                min(PP_BATCH * PP_MAX_LEN, PP_BUDGET // cell))
+            for q, cell in (("fp", cell_fp), ("int8", cell_q8))}
+    got = {q: (h["headroom_rows"], h["headroom_tokens"])
+           for q, h in head.items()}
+    print(f"prefix_paged: idle dense batchers under "
+          f"TFDE_CAPACITY_BUDGET_BYTES={PP_BUDGET}: headroom (rows, tokens) "
+          f"fp32 {got['fp']}, int8 {got['int8']} "
+          f"({got['int8'][1] / got['fp'][1]:.4f}x the tokens; held at "
+          f"{want})")
+    if got != want:
+        raise AssertionError("prefix_paged: the headroom under the budget "
+                             "is not the cells' arithmetic")
+    torch.cuda.empty_cache()
 
 
 def phase_prefix_paged(fa, dev):
@@ -3921,8 +4184,20 @@ def phase_prefix_paged(fa, dev):
             ("b", "bf16 (b) dense + prefix cache",
              dict(paged=False, prefix_cache=True)),
             ("c", "bf16 (c) paged + trie", dict(paged=True,
-                                                prefix_cache=True))):
+                                                prefix_cache=True)),
+            ("e", "bf16 (e) dense, int8 KV",
+             dict(paged=False, prefix_cache=False, kv_quant="int8"))):
         bf16[key] = _pp_run(fa, dev, model, prompts, label, **kw)
+    _pp_twin(model, prompts, "bf16 (e)", bf16["e"], bf16["a"], dev)
+    ratio = (bf16["e"]["kv"]["allocated_bytes"]
+             / bf16["a"]["kv"]["allocated_bytes"])
+    want = (model.head_dim + 4) / (2 * model.head_dim)
+    print(f"prefix_paged: dense KV slab {bf16['a']['kv']['allocated_bytes']:.0f}"
+          f" bytes bf16, {bf16['e']['kv']['allocated_bytes']:.0f} int8 (ratio "
+          f"{ratio:.6f}, (D + 4) / 2D = {want:.6f}; held)")
+    if ratio != want:
+        raise AssertionError("prefix_paged: the int8 slab's bytes are not "
+                             "(D + 4) / 2D of the bf16 slab's")
     for key in "bc":
         diff = sum(not np.array_equal(w, g) for w, g in zip(
             bf16["a"]["tokens"], bf16[key]["tokens"]))
@@ -3935,6 +4210,10 @@ def phase_prefix_paged(fa, dev):
                                  f"prefix hits")
     print(f"prefix_paged summary (fp32 / bf16): ms per output token dense "
           f"{fp32['a']['ms_token']:.2f} / {bf16['a']['ms_token']:.2f}, "
+          f"dense int8 KV {fp32['e']['ms_token']:.2f} / "
+          f"{bf16['e']['ms_token']:.2f}, paged int8 KV "
+          f"{fp32['f']['ms_token']:.2f}, cut pool fp / int8 "
+          f"{fp32['d']['ms_token']:.2f} / {fp32['g']['ms_token']:.2f}, "
           f"prefix cache {fp32['b']['ms_token']:.2f} / "
           f"{bf16['b']['ms_token']:.2f}, paged {fp32['c']['ms_token']:.2f} / "
           f"{bf16['c']['ms_token']:.2f}; run (b)'s TTFT warm vs cold "

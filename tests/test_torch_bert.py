@@ -31,6 +31,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from tfde_tpu.data import datasets as jdatasets
 from tfde_tpu.data import mlm as jmlm
@@ -46,6 +47,9 @@ from tfde_tpu_torch.models.flax_weights import from_flax_params
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from examples import bert_mlm as jbert_mlm  # noqa: E402
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
 
 TINY = dict(vocab_size=97, hidden_size=32, depth=2, num_heads=4, mlp_dim=64,
             max_position=64, dropout_rate=0.0)
@@ -140,6 +144,17 @@ def test_classifier_logits_and_the_graft_match_jax():
         bert.classifier_params_from_mlm(clf, {"embeddings.x": 0})
 
 
+class _OnMeta(TorchFunctionMode):
+    """Every tensor a factory makes lands on the meta device whatever
+    device it names: a full-width model's shapes without its storage."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if kwargs.get("device") is not None:
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)
+
+
 def test_bert_base_parameter_count():
     # the JAX test's analytic count (tests/test_bert.py)
     V, H, P, T, L, F = 30522, 768, 512, 2, 12, 3072
@@ -147,8 +162,9 @@ def test_bert_base_parameter_count():
     per_layer = (3 * (H * H + H) + H * H + H + 2 * (2 * H) + H * F + F
                  + F * H + H)
     head = H * H + H + 2 * H + V
-    with torch.device("meta"):
+    with _OnMeta():
         model = bert.BertBase(device="cpu")
+    assert all(p.is_meta for p in model.parameters())
     assert sum(p.numel() for p in model.parameters()) == (
         emb + L * per_layer + head) == 109_514_298
 

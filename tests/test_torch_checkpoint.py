@@ -37,6 +37,9 @@ from tfde_tpu_torch.runtime.mesh import LocalMesh
 from tfde_tpu_torch.training.optimizers import adamw, sgd
 from tfde_tpu_torch.training.step import init_state, make_train_step
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 (_X, _Y), _ = mnist(flatten=True, n_train=96, n_test=8)
 
 

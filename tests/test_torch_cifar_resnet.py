@@ -25,6 +25,10 @@ from examples import cifar10_resnet as jexample
 from tfde_tpu.data import datasets as jdatasets
 from tfde_tpu_torch import cifar10_resnet, native
 from tfde_tpu_torch.data import datasets
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 
 def test_synthetic_cifar10_equals_the_jax_package():

@@ -23,6 +23,9 @@ from tfde_tpu.runtime import cluster as jcluster
 from tfde_tpu_torch import testing
 from tfde_tpu_torch.runtime import cluster
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 CLUSTER = {
     "master": ["host0:2222"],
     "worker": ["host1:2222", "host2:2222"],

@@ -26,6 +26,10 @@ from tfde_tpu_torch.data import datasets
 from tfde_tpu_torch.models import cnn
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.ops import metrics
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ATOL = 2e-5
 

@@ -27,6 +27,10 @@ torch = pytest.importorskip("torch")
 from tfde_tpu.models import convert as jconvert  # noqa: E402
 from tfde_tpu_torch.models import convert  # noqa: E402
 from tfde_tpu_torch.models.flax_weights import to_flax_params  # noqa: E402
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 T = transformers
 V = 101

@@ -39,6 +39,10 @@ from tfde_tpu_torch.models.gpt import GPT
 from tfde_tpu_torch.models.transformer import TransformerBlock
 from tfde_tpu_torch.ops import flash_attention as fa
 from tfde_tpu_torch.testing import FIELD_GROUPS, FULL_WIDTH
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 TOL = 1e-5
 

@@ -33,6 +33,9 @@ from tfde_tpu_torch.runtime.mesh import LocalMesh
 from tfde_tpu_torch.training.optimizers import sgd
 from tfde_tpu_torch.training.step import init_state, make_train_step
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 
 def _batches(n=4, rows=6):
     rng = np.random.default_rng(0)

@@ -28,6 +28,10 @@ from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.transformer import (
     Encoder, TransformerBlock, init_flax_)
 from tfde_tpu_torch.ops import attention as tattn
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 DEPTH, HEADS, HEAD_DIM, MLP, B, S = 2, 4, 8, 64, 3, 12
 

@@ -31,6 +31,9 @@ from tfde_tpu_torch.data.datasets import mnist
 from tfde_tpu_torch.export import load_serving
 from tfde_tpu_torch.models.cnn import BatchNormCNN
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 ACC_ATOL = 1e-4
 
 

@@ -56,6 +56,10 @@ from tfde_tpu_torch.training import (
     Estimator, EvalSpec, RunConfig, TrainSpec, train_and_evaluate)
 from tfde_tpu_torch.training.optimizers import sgd
 from tfde_tpu_torch.utils.summary import model_summary
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 #: served probabilities against the live model on the CPU: the same
 #: operations, traced

@@ -31,6 +31,10 @@ from tfde_tpu.ops import flash_attention as jfa
 from tfde_tpu_torch.ops import attention as tattn
 from tfde_tpu_torch.ops import flash_attention as tfa
 from tfde_tpu_torch.utils import build as tbuild
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "tfde_tpu_torch", "csrc")

@@ -18,6 +18,10 @@ import pytest
 from tfde_tpu_torch.ops import flash_attention as tfa
 
 from test_torch_flash_backward import _k_tile_range, _q_tile_range
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 #: (rows, cols) of the block one warpgroup computes: the forward's 64 query
 #: rows x 128 keys, the dK/dV kernel's 64 queries x 64 keys (D 64; also the

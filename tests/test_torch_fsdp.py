@@ -43,6 +43,9 @@ from tfde_tpu_torch import testing
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.parallel.strategies import FSDPStrategy
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 STEPS, BATCH = 3, 16
 SCHEDULE = (1e-3, 1, 3)  # peak lr, warmup steps, decay steps
 WD = 0.05

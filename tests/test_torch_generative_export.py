@@ -41,6 +41,10 @@ from tfde_tpu_torch.inference.decode import generate, gumbel_noise
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import gpt_tiny_test
 from tfde_tpu_torch.ops import flash_attention as tfa
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 OPS = {"flash_forward": torch.ops.tfde.flash_forward.default,
        "flash_bwd_dkv": torch.ops.tfde.flash_bwd_dkv.default,

@@ -19,6 +19,10 @@ import pytest
 from examples import gpt_lm as j_gpt_lm
 from tfde_tpu_torch import gpt_lm
 from tfde_tpu_torch.models.flax_weights import from_flax_params
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 COMMON = ["--tiny", "--seq-len", "32", "--batch-size", "8", "--max-steps",
           "4", "--warmup-steps", "2", "--train-examples", "64"]

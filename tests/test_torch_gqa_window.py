@@ -30,6 +30,10 @@ from tfde_tpu_torch.inference.server import ContinuousBatcher
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import gpt_tiny_test
 from tfde_tpu_torch.models.transformer import Encoder
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 CONFIGS = {
     "rope": dict(position="rope", rope_theta=500.0,

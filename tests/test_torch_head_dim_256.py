@@ -26,6 +26,10 @@ from tfde_tpu.ops import flash_attention as jfa
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import GPT
 from tfde_tpu_torch.ops import flash_attention as tfa
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 D, S, TILE, TOL = 256, 64, 32, 1e-5
 

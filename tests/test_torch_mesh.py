@@ -21,6 +21,9 @@ from tfde_tpu_torch.models.cnn import PlainCNN
 from tfde_tpu_torch.parallel import strategies
 from tfde_tpu_torch.runtime import mesh
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 #: (shape, devices) cases of MeshSpec(shape).resolve(devices)
 SPEC_CASES = {
     "fill": ({"data": -1, "tensor": 2}, 8),

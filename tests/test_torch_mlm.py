@@ -13,6 +13,10 @@ from tfde_tpu.data import datasets as jdatasets
 from tfde_tpu.data import mlm as jmlm
 from tfde_tpu_torch import bert_mlm
 from tfde_tpu_torch.data import datasets, mlm
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 #: (vocab_size, mask_id, num_special, mask_rate, shape)
 CASES = {

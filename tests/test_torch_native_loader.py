@@ -34,6 +34,10 @@ from tfde_tpu_torch.data.device import device_prefetch
 from tfde_tpu_torch.data.pipeline import AutoShardPolicy
 from tfde_tpu_torch.parallel.strategies import MultiWorkerMirroredStrategy
 from tfde_tpu_torch.runtime.mesh import LocalMesh
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,10 @@ from tfde_tpu_torch.inference import paged as tpaged
 from tfde_tpu_torch.inference import server as tserver
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import gpt_tiny_test
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 #: tests/test_paged.py:44-51: two waves through three rows, a row reused
 #: mid-flight, a duplicate 19-token prompt (its first block is complete,
@@ -407,12 +411,15 @@ def test_paged_refuses_what_it_cannot_serve(lm, monkeypatch):
             tm, paged=True, prefix_cache=tserver._resolve_prefix(True), **kw)
     with pytest.raises(ValueError, match="pool_blocks"):
         tserver.ContinuousBatcher(tm, paged=False, pool_blocks=9, **kw)
-    for bad in (dict(role="decode"), dict(admission_ctl=object()),
-                dict(kv_quant="int8")):
+    for bad in (dict(role="decode"), dict(admission_ctl=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             tserver.ContinuousBatcher(tm, **bad, **kw)
-    monkeypatch.setenv("TFDE_KV_QUANT", "int8")
-    with pytest.raises(NotImplementedError, match="int8 KV"):
+    # int8 KV is ported (tests/test_torch_kv_quant.py); a format the port
+    # does not have raises, by argument or by knob
+    with pytest.raises(ValueError, match="kv_quant"):
+        tserver.ContinuousBatcher(tm, kv_quant="int4", **kw)
+    monkeypatch.setenv("TFDE_KV_QUANT", "int4")
+    with pytest.raises(ValueError, match="TFDE_KV_QUANT"):
         tserver.ContinuousBatcher(tm, **kw)
     monkeypatch.delenv("TFDE_KV_QUANT")
     srv = tserver.ContinuousBatcher(tm, **kw)

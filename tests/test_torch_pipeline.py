@@ -23,6 +23,10 @@ from tfde_tpu.data import datasets as jdatasets
 from tfde_tpu.data.pipeline import Dataset as JDataset
 from tfde_tpu_torch.data import Dataset
 from tfde_tpu_torch.data.pipeline import AutoShardPolicy, _VectorBatched
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 
 def _mnist(n_train, flatten):

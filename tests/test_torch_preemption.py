@@ -21,8 +21,14 @@ import sys
 import threading
 import time
 
+import pytest
+
 from tfde_tpu_torch.checkpoint.manager import CheckpointManager
 from tfde_tpu_torch.resilience.preemption import PreemptionGuard
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

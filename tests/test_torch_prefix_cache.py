@@ -30,6 +30,10 @@ from tfde_tpu_torch.inference import server as tserver
 from tfde_tpu_torch.inference.decode import KVCache
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import gpt_tiny_test
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 #: the JAX paged tests' stream (tests/test_paged.py:44-51)
 PROMPTS = [np.arange(3, 10) % 97, np.arange(5, 11) % 97,

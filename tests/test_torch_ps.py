@@ -60,6 +60,9 @@ from tfde_tpu_torch.runtime.mesh import LocalMesh
 from tfde_tpu_torch.training.optimizers import sgd
 from tfde_tpu_torch.training.step import init_state, make_train_step
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 STEPS, BATCH = 5, 64
 MIRRORED_ATOL = 1e-7
 #: (model, optimizer) -> (reference, atol): "jax" the JAX fp32 PS run,

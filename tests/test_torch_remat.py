@@ -23,6 +23,10 @@ from tfde_tpu_torch.models.bert import Bert
 from tfde_tpu_torch.models.gpt import gpt_tiny_test, next_token_loss
 from tfde_tpu_torch.models.vit import vit_tiny_test
 from tfde_tpu_torch.ops.losses import sparse_categorical_crossentropy
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 REMATS = [True, "full", "dots"]
 GPT_KW = dict(position="rope", num_kv_heads=2, sliding_window=6)

@@ -56,6 +56,9 @@ from tfde_tpu_torch.models import resnet
 from tfde_tpu_torch.models.cnn import GlobalBatchNorm
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 FP32_REL, BF16_REL = 1e-5, 1e-2
 FP64_ATOL = 1e-6
 #: how far the JAX fp32 run ends from its fp64 run (max abs over the

@@ -11,6 +11,10 @@ import torch
 
 from tfde_tpu.ops import rotary as jrotary
 from tfde_tpu_torch.ops import rotary
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 SCALINGS = [
     None,

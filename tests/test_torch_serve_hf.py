@@ -23,6 +23,10 @@ from tfde_tpu_torch.inference.server import ContinuousBatcher  # noqa: E402
 from tfde_tpu_torch.models import convert  # noqa: E402
 from tfde_tpu_torch.models.gpt import GPT  # noqa: E402
 from tfde_tpu_torch.testing import FIELD_GROUPS  # noqa: E402
+from tfde_tpu_torch.testing import one_thread  # noqa: E402
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 T = transformers
 NEW = 6

@@ -25,6 +25,10 @@ from tfde_tpu_torch.inference import server as tserver
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import gpt_tiny_test
 from tfde_tpu_torch.utils.devices import resolve_device
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 
 @pytest.fixture(scope="module")

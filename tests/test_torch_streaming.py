@@ -24,6 +24,10 @@ from tfde_tpu_torch import native
 from tfde_tpu_torch.data.pipeline import AutoShardPolicy
 from tfde_tpu_torch.data.streaming import StreamingTFRecordLoader, shard_files
 from tfde_tpu_torch.data.tfrecord import write_tfrecord
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 
 def _write_shards(tmp_path, n_files, rows_per_file, dim=4):

@@ -16,6 +16,10 @@ from tfde_tpu_torch.data.packing import packed_next_token_loss
 from tfde_tpu_torch.models.gpt import gpt_tiny_test
 from tfde_tpu_torch.training.optimizers import adamw
 from tfde_tpu_torch.training.step import init_state, make_custom_train_step
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 pytest.importorskip("transformers")
 

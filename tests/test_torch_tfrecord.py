@@ -23,6 +23,10 @@ from tfde_tpu_torch import native
 from tfde_tpu_torch.data.tfrecord import (
     TFRecordWriter, read_tfrecord, tfrecord_dataset, write_tfrecord)
 from tfde_tpu_torch.observability import tensorboard as tb
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 RECORDS = [b"", b"x", b"hello world", bytes(range(256)) * 33]
 

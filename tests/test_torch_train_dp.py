@@ -54,6 +54,9 @@ from tfde_tpu_torch.training import optimizers as optim
 from tfde_tpu_torch.training.step import (
     init_state, make_train_step, pad_batch_for_mesh)
 
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(testing.one_thread)
+
 ATOL = 2e-5
 PARAM_ATOL = 5e-5  # the JAX fp32 run's own error: see the docstring
 FP64_ATOL = 1e-6

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from tfde_tpu.data import datasets as jdatasets
 from tfde_tpu.models import vit as jvit
@@ -31,6 +32,10 @@ from tfde_tpu_torch.models.flax_weights import from_flax_params
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from examples import imagenet_vit as jimagenet_vit  # noqa: E402
+from tfde_tpu_torch.testing import one_thread
+
+#: one intra-op torch thread for the module (`testing.one_thread`)
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 BF16_TOL = 1e-2
 
@@ -87,10 +92,22 @@ def test_vit_bf16_logits_match_jax():
     assert _rel(got, want32) <= 1.5 * _rel(want, want32)
 
 
+class _OnMeta(TorchFunctionMode):
+    """Every tensor a factory makes lands on the meta device whatever
+    device it names: a full-width model's shapes without its storage."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if kwargs.get("device") is not None:
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)
+
+
 def test_vit_b16_parameter_count():
     # the canonical ViT-B/16 with a 1000-class head (tests/test_vit.py)
-    with torch.device("meta"):
+    with _OnMeta():
         model = vit.ViT_B16(num_classes=1000, device="cpu")
+    assert all(p.is_meta for p in model.parameters())
     assert sum(p.numel() for p in model.parameters()) == 86_567_656
     assert model.pos_embed.shape == (1, 197, 768)
 

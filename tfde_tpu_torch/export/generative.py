@@ -57,7 +57,7 @@ from tfde_tpu_torch.export.serving import (
     _host_vars, _load_program, _resolve, _write_artifact)
 from tfde_tpu_torch.inference.decode import (
     KVCache, decode_token, finish, init_cache, prefill_token, remat_off,
-    validate_budget)
+    resolve_kv_quant, validate_budget)
 from tfde_tpu_torch.utils.devices import resolve_device
 
 log = logging.getLogger(__name__)
@@ -123,6 +123,10 @@ def export_generate(model: nn.Module, directory: str, prompt_len: int,
     batch_size, P = prompt_len and N = max_new_tokens fixed (export one
     artifact per serving bucket)."""
     validate_budget(model, prompt_len, max_new_tokens)
+    if resolve_kv_quant(model) is not None:
+        raise NotImplementedError(
+            "export_generate of a model with kv_quant='int8': the exported "
+            "tick carries no scale planes (ROADMAP queue 1 item 5)")
     sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                     min_p=min_p, eos_id=eos_id, pad_id=pad_id)
     traced = copy.deepcopy(model).eval()

@@ -7,7 +7,10 @@
   together). `set_index` is the JAX `_set_index_counters` surgery.
   `PagedKVCache` is the paged layout (inference/paged.py): per-layer
   pools [num_blocks, block, Kv, D] and one [B, nmax] block table
-  (`init_cache(..., paged_blocks=, kv_block=)`).
+  (`init_cache(..., paged_blocks=, kv_block=)`). With
+  `init_cache(..., kv_quant='int8')` either layout holds int8 payloads
+  and fp32 scale planes (`key_scales`/`value_scales`: [B, max_len, Kv]
+  or [num_blocks, block, Kv] a layer; ops/quant.kv_quantize).
 - `sample_logits`: repetition penalty, then greedy or temperature with
   the top-k, top-p and min-p filters (`filter_logits`), then a draw from
   an explicit `torch.Generator`, or, given `gumbel_noise`, the Gumbel-max
@@ -47,13 +50,40 @@ class KVCache:
     admission prefill, the JAX scalar-index branch) or an int tensor [B]
     (per-row positions: the batcher's decode ticks, the per-row branch).
     The model writes this call's K/V at `index` in place and `advance`s
-    it by the call's length."""
+    it by the call's length. An int8 cache (`quantized`) carries fp32
+    scale planes beside its int8 payloads, one a layer and k/v (the JAX
+    `cached_key_scale`/`cached_value_scale` leaves); an fp cache has
+    None there."""
 
     def __init__(self, keys: list, values: list,
-                 index: Union[int, torch.Tensor] = 0):
+                 index: Union[int, torch.Tensor] = 0,
+                 key_scales: Optional[list] = None,
+                 value_scales: Optional[list] = None):
+        if (key_scales is None) != (value_scales is None):
+            raise ValueError("an int8 cache needs both scale planes")
         self.keys = keys
         self.values = values
         self.index = index
+        self.key_scales = key_scales
+        self.value_scales = value_scales
+
+    @property
+    def quantized(self) -> bool:
+        """True for an int8 cache (payload + scale planes)."""
+        return self.key_scales is not None
+
+    def planes(self) -> dict:
+        """Every K/V tensor of the cache by (layer, name): 'k' and 'v',
+        and for an int8 cache 'k_scale' and 'v_scale' (the index and a
+        paged block table are not planes)."""
+        out = {}
+        for layer in range(len(self.keys)):
+            out[(layer, "k")] = self.keys[layer]
+            out[(layer, "v")] = self.values[layer]
+            if self.quantized:
+                out[(layer, "k_scale")] = self.key_scales[layer]
+                out[(layer, "v_scale")] = self.value_scales[layer]
+        return out
 
     def set_index(self, value: Union[int, torch.Tensor]) -> None:
         """Set the fed-token count of every layer (and of the position
@@ -68,9 +98,16 @@ class KVCache:
         The index passes through (the decode loop sets it from the host's
         committed counts). Duplicate rows in a ladder-padded wave carry
         identical values, so the result does not depend on write order."""
-        for big, small in zip(self.keys + self.values,
-                              rows_cache.keys + rows_cache.values):
-            big[rows] = small.to(big.dtype)
+        if rows_cache.quantized != self.quantized:
+            raise ValueError("scatter_rows between an int8 and an fp cache: "
+                             "a cast would truncate the payload")
+        mine, theirs = self.planes(), rows_cache.planes()
+        for name, big in mine.items():
+            small = theirs[name]
+            if small.dtype != big.dtype:
+                raise ValueError(f"scatter_rows: plane {name} is "
+                                 f"{small.dtype}, the cache's {big.dtype}")
+            big[rows] = small
 
 
 class PagedKVCache(KVCache):
@@ -84,8 +121,10 @@ class PagedKVCache(KVCache):
     (models/transformer.MultiHeadAttention._paged_attention)."""
 
     def __init__(self, keys: list, values: list, table: torch.Tensor,
-                 block: int, index: Union[int, torch.Tensor] = 0):
-        super().__init__(keys, values, index)
+                 block: int, index: Union[int, torch.Tensor] = 0,
+                 key_scales: Optional[list] = None,
+                 value_scales: Optional[list] = None):
+        super().__init__(keys, values, index, key_scales, value_scales)
         self.table = table
         self.block = int(block)
 
@@ -106,35 +145,70 @@ def validate_budget(model, prompt_len: int, max_new_tokens: int) -> int:
     return total
 
 
+def resolve_kv_quant(model, kv_quant: Optional[str] = None,
+                     rolling: bool = False) -> Optional[str]:
+    """The cache's storage format, as JAX `_decode_clone` resolves it:
+    None or 'fp' keep the model's own `kv_quant` (None: full precision),
+    'int8' quantizes; any other value raises ValueError, and so does
+    int8 with a rolling cache (no scale plane for the modular slot
+    rewrite). Returns None or 'int8'."""
+    if kv_quant in (None, "fp"):
+        kv_quant = getattr(model, "kv_quant", None)
+    if kv_quant is None:
+        return None
+    if kv_quant != "int8":
+        raise ValueError(
+            f"kv_quant must be None, 'fp' or 'int8', got {kv_quant!r}")
+    if rolling:
+        raise ValueError(
+            "kv_quant='int8' and rolling are mutually exclusive cache "
+            "layouts (no scale plane for the modular slot rewrite)")
+    return "int8"
+
+
 def init_cache(model, batch_size: int, max_len: int,
                paged_blocks: Optional[int] = None,
-               kv_block: Optional[int] = None) -> KVCache:
+               kv_block: Optional[int] = None,
+               kv_quant: Optional[str] = None,
+               rolling: bool = False) -> KVCache:
     """Zero-filled cache for a [batch_size, max_len] generation budget on
     the model's device, index 0: [batch_size, max_len, KV heads, D] a
     layer; with `paged_blocks`, a `PagedKVCache` of that many
     `kv_block`-token blocks a layer (default block 16, TFDE_KV_BLOCK's
     default) and a zero [batch_size, ceil((max_len + 1) / kv_block)]
-    table."""
+    table. `kv_quant='int8'` (`resolve_kv_quant`) makes the payloads
+    int8 and adds zero fp32 scale planes ([batch_size, max_len, Kv] or
+    [paged_blocks, block, Kv]; zeros dequantize to the fp cache's exact
+    0.0). The rolling (window-bounded) cache is not ported: `rolling=True`
+    raises, after refusing int8 with it as JAX does."""
+    quant = resolve_kv_quant(model, kv_quant, rolling)
+    if rolling:
+        raise NotImplementedError(
+            "the rolling cache is not ported (ROADMAP queue 1 item 5)")
+    dtype = torch.int8 if quant else model.dtype
     if paged_blocks is not None:
         block = 16 if kv_block is None else int(kv_block)
         if paged_blocks < 2 or block < 1:
             raise ValueError(f"paged_blocks must be >= 2 and kv_block >= 1, "
                              f"got {paged_blocks} and {block}")
         shape = (int(paged_blocks), block, model.kv_heads, model.head_dim)
-        pools = [torch.zeros(shape, dtype=model.dtype, device=model.device)
-                 for _ in range(2 * model.depth)]
+    else:
+        shape = (batch_size, max_len, model.kv_heads, model.head_dim)
+
+    def planes(plane_shape, plane_dtype):
+        return [torch.zeros(plane_shape, dtype=plane_dtype,
+                            device=model.device)
+                for _ in range(model.depth)]
+
+    keys, values = planes(shape, dtype), planes(shape, dtype)
+    scales = ((planes(shape[:3], torch.float32),
+               planes(shape[:3], torch.float32)) if quant else (None, None))
+    if paged_blocks is not None:
         nmax = -(-(max_len + 1) // block)
         table = torch.zeros((batch_size, nmax), dtype=torch.int64,
                             device=model.device)
-        return PagedKVCache(pools[:model.depth], pools[model.depth:], table,
-                            block, 0)
-    shape = (batch_size, max_len, model.kv_heads, model.head_dim)
-
-    def slab():
-        return torch.zeros(shape, dtype=model.dtype, device=model.device)
-
-    return KVCache([slab() for _ in range(model.depth)],
-                   [slab() for _ in range(model.depth)], 0)
+        return PagedKVCache(keys, values, table, block, 0, *scales)
+    return KVCache(keys, values, 0, *scales)
 
 
 @contextlib.contextmanager

@@ -45,6 +45,7 @@ from tfde_tpu_torch.inference.prefix_cache import (
     block_key,
     lru_leaf,
     match,
+    publish_stats,
     stats_dict,
 )
 
@@ -65,9 +66,9 @@ def set_block_tables(cache, tables) -> None:
 
 
 def pool_bytes(cache) -> int:
-    """Pool K/V bytes of a paged cache (the table and index excluded)."""
-    return sum(t.numel() * t.element_size()
-               for t in cache.keys + cache.values)
+    """Pool K/V bytes of a paged cache, the int8 scale pools included (the
+    table and index excluded)."""
+    return sum(t.numel() * t.element_size() for t in cache.planes().values())
 
 
 class PoolExhausted(RuntimeError):
@@ -226,14 +227,16 @@ class BlockPool:
 def apply_defrag(cache, tables: np.ndarray, plan: dict) -> np.ndarray:
     """Apply a `BlockPool.defrag` plan: permute every pool's rows into
     their new ids on the device, in place, and return the remapped host
-    tables. One gather a pool (a maintenance action, not a hot path)."""
+    tables. The int8 scale pools ride the same block ids as their
+    payload and move with it. One gather a pool (a maintenance action,
+    not a hot path)."""
     if not plan:
         return tables
     perm = np.arange(cache.keys[0].shape[0])  # new id -> the old id it takes
     for old, new in plan.items():
         perm[new] = old
     perm = torch.as_tensor(perm, device=cache.keys[0].device)
-    for pool in cache.keys + cache.values:
+    for pool in cache.planes().values():
         pool.copy_(pool[perm])
     return np.asarray([[plan.get(int(b), int(b)) for b in row]
                        for row in tables], np.int32)
@@ -318,6 +321,7 @@ class PagedPrefixCache:
         segs = match(self._root, tokens, self._block)
         if not segs:
             self._misses += 1
+            self._publish()
             return 0, None
         for s in segs:
             self._clock += 1
@@ -330,6 +334,7 @@ class PagedPrefixCache:
         self._hits += 1
         self._reused_tokens += n * self._block
         self._bytes_saved += int(n * self._block_bytes)
+        self._publish()
         return n * self._block, ids
 
     def release(self, ids) -> None:
@@ -366,6 +371,7 @@ class PagedPrefixCache:
             child.last_used = self._clock
             child.op = self._op
             node = child
+        self._publish()
         return created
 
     def remap(self, plan: dict) -> int:
@@ -414,7 +420,24 @@ class PagedPrefixCache:
             freed += 1
             self._segments -= 1
             self._evictions += 1
+        if freed:
+            self._publish()
         return freed
+
+    def _publish(self) -> None:
+        """The gauges (`prefix_cache.publish_stats`), counted in blocks."""
+        ref = evictable = 0
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if node.op == self._op:
+                ref += 1
+            elif not node.children:
+                evictable += 1
+        publish_stats(self.stats(),
+                      ref / self._segments if self._segments else 0.0,
+                      int(evictable * self._block_bytes))
 
 
 def resolve_paged(spec, pool: BlockPool, block_bytes: float

@@ -21,10 +21,17 @@ suffix (`ContinuousBatcher._warm_wave`).
   overrun.
 - One cache binds to ONE model and its weights: segments are raw K/V.
 
-Segments are keyed `(layer, 'k' | 'v')` over the port's `KVCache` lists
-(the JAX trie keys them by cache-collection leaf name). `stats()` returns
+Segments are keyed by the port's `KVCache.planes()` names, `(layer, 'k'
+| 'v')` and for an int8 cache `(layer, 'k_scale' | 'v_scale')` (the JAX
+trie keys them by cache-collection leaf name); a segment's bytes, and the
+budget and `stats()["bytes"]`, count every plane, as the JAX trie counts
+every cache leaf. `stats()` returns
 the numbers the JAX gauges publish: hits, misses, hit rate, reused
-tokens, bytes, bytes saved, segments, evictions.
+tokens, bytes, bytes saved, segments, evictions. Every lookup and insert
+publishes them as the JAX trie does, as ``serving/prefix_*`` gauges,
+beside the trie's share of the KV ledger (``kv/trie_blocks``,
+``kv/trie_bytes``, ``kv/trie_referenced_frac``,
+``kv/trie_evictable_bytes``) in observability/metrics.py's registry.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from tfde_tpu_torch import knobs
+from tfde_tpu_torch.observability import metrics
 
 DEFAULT_BYTE_BUDGET = 256 * 1024 * 1024
 #: the trie's chunk and the paged pool's block (TFDE_KV_BLOCK, default 16)
@@ -59,6 +67,21 @@ def stats_dict(hits: int, misses: int, reused_tokens: int, nbytes: int,
         "segments": segments,
         "evictions": evictions,
     }
+
+
+def publish_stats(stats: dict, ref: float, evictable: float) -> None:
+    """The trie's gauges in the default registry: `stats` (`stats_dict`)
+    as ``serving/prefix_*``, then ``kv/trie_*`` with `ref` (the share of
+    the trie the current operation touched) and `evictable` (the bytes
+    eviction could reclaim now)."""
+    g = metrics.default_registry().gauge
+    for key in ("hits", "misses", "hit_rate", "reused_tokens", "bytes",
+                "bytes_saved", "segments", "evictions"):
+        g(f"serving/prefix_{key}").set(stats[key])
+    g("kv/trie_blocks").set(stats["segments"])
+    g("kv/trie_bytes").set(stats["bytes"])
+    g("kv/trie_referenced_frac").set(ref)
+    g("kv/trie_evictable_bytes").set(evictable)
 
 
 def match(root, tokens: np.ndarray, block: int) -> list:
@@ -100,7 +123,7 @@ class _Node:
         self.key = key              # tuple of `block` token ids
         self.parent = parent
         self.children: dict = {}
-        self.seg: Optional[dict] = None   # (layer, 'k'|'v') -> [block, Kv, D]
+        self.seg: Optional[dict] = None   # (layer, plane) -> [block, ...]
         self.nbytes = 0
         self.last_used = 0
         self.op = 0                 # protection stamp (current operation)
@@ -155,13 +178,14 @@ class PrefixCache:
     def lookup(self, tokens):
         """Longest cached prefix usable for prompt `tokens`: ``(L, kv)``
         with L a block multiple that leaves at least one suffix token and
-        kv = {(layer, 'k'|'v'): [L, Kv, D] tensor}, or ``(0, None)`` on a
+        kv = {(layer, plane): [L, ...] tensor}, or ``(0, None)`` on a
         miss. Touches the matched path for LRU."""
         tokens = np.asarray(tokens).reshape(-1)
         self._op += 1
         segs = match(self._root, tokens, self._block)
         if not segs:
             self._misses += 1
+            self._publish()
             return 0, None
         for s in segs:
             self._clock += 1
@@ -173,6 +197,7 @@ class PrefixCache:
         self._hits += 1
         self._reused_tokens += len(segs) * self._block
         self._bytes_saved += sum(s.nbytes for s in segs)
+        self._publish()
         return len(segs) * self._block, kv
 
     def insert(self, tokens, row_cache, row: int) -> int:
@@ -209,18 +234,31 @@ class PrefixCache:
             child.last_used = self._clock
             child.op = self._op
             node = child
+        self._publish()
         return created
 
+    def _publish(self) -> None:
+        """The gauges (`publish_stats`): the referenced share and the
+        evictable bytes from one walk of the trie."""
+        ref = evictable = 0
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if node.op == self._op:
+                ref += node.nbytes
+            elif not node.children:
+                evictable += node.nbytes
+        publish_stats(self.stats(),
+                      ref / self._bytes if self._bytes else 0.0, evictable)
+
     def _slice_block(self, row_cache, row: int, b: int) -> dict:
-        """Copies of block `b` of row `row`, one a layer and k/v: a view
-        would keep the whole row cache alive."""
+        """Copies of block `b` of row `row`, one a cache plane (k and v a
+        layer, and an int8 cache's k_scale and v_scale): a view would
+        keep the whole row cache alive."""
         cells = slice(b * self._block, (b + 1) * self._block)
-        seg = {}
-        for layer, (k, v) in enumerate(zip(row_cache.keys,
-                                           row_cache.values)):
-            seg[(layer, "k")] = k[row, cells].clone()
-            seg[(layer, "v")] = v[row, cells].clone()
-        return seg
+        return {name: t[row, cells].clone()
+                for name, t in row_cache.planes().items()}
 
     def _evict(self, need: int) -> bool:
         """Free >= `need` bytes by removing LRU leaf segments; nodes of

@@ -45,16 +45,34 @@ Two cache layouts beside that dense slab, as in JAX:
 `cancel(rid)` drops a queued request or frees its row (a paged row's
 blocks return to the pool).
 
+int8 KV (`kv_quant='int8'`, or ``TFDE_KV_QUANT=int8``): every cache the
+batcher builds (the slab or the pool, the wave's row caches, the trie's
+segments) holds int8 payloads and fp32 scale planes
+(`decode.init_cache(..., kv_quant=)`); the model quantizes on write and
+dequantizes on read (models/transformer.py), and a cold wave still
+prefills on the flash kernel, over the dequantized K/V.
+
+The KV capacity ledger (observability/capacity.py), wired once the slab
+or pool exists: `kv_stats()` reports occupancy (allocated and used
+bytes, waste, rows, the pool's blocks), the dtype census and the
+headroom under ``TFDE_CAPACITY_BUDGET_BYTES``, and refreshes the
+``kv/*`` gauges (after every step too); every admitted request notes its
+pad-ladder cells. `usage` meters every request's prompt and generated
+tokens and KV residency from submit to completion or cancel, into
+``usage/*`` counters and the ``TFDE_USAGE_LOG`` journal
+(`arm_usage_log`).
+
 `stats()` counts dispatches and syncs in the JAX batcher's units: one per
 device program the JAX batcher would run (row template, prefill, scatter,
 seen update, state upload, block-table upload, prefill chunk, decode
 round) and one per blocking fetch.
 
-Not ported yet (ROADMAP queue 1 item 5): int8 KV (`kv_quant`), the
-prefill/decode role split and primed hand-off (`role`, `prime`,
-`submit_primed`), admission control (`admission_ctl`) and the capacity
-ledger, spans/trace/flight recorder, and the speculative batcher. The
-arguments and methods the JAX batcher has for them raise here.
+Not ported yet (ROADMAP queue 1 item 5): the prefill/decode role split
+and primed hand-off (`role`, `prime`, `submit_primed`), admission
+control (`admission_ctl`, which would gate on `kv_stats()`; so no
+request is shed yet), spans/trace/flight recorder, and the speculative
+batcher. The arguments and methods the JAX batcher has for them raise
+here.
 """
 
 from __future__ import annotations
@@ -72,6 +90,7 @@ from tfde_tpu_torch.inference.decode import (
     KVCache,
     init_cache,
     remat_off,
+    resolve_kv_quant,
     sample_logits,
     validate_budget,
 )
@@ -79,6 +98,8 @@ from tfde_tpu_torch.inference.prefix_cache import (
     DEFAULT_BLOCK,
     resolve as _resolve_prefix,
 )
+from tfde_tpu_torch.observability import capacity as _capacity
+from tfde_tpu_torch.observability import metrics
 from tfde_tpu_torch.utils.devices import resolve_device
 
 #: priority classes, highest first — index order IS drain order
@@ -218,9 +239,10 @@ class _PriorityDeque:
 
 class _BatcherBase:
     """The request queue, per-row host bookkeeping (`_take_token`),
-    `cancel`, and wave admission (`_admit` plans groups with `_plan_wave`
+    `cancel`, wave admission (`_admit` plans groups with `_plan_wave`
     and runs each with `_run_group`; the subclass supplies the waves and
-    the capacity hooks)."""
+    the capacity hooks), the usage meter and the capacity ledger (the
+    subclass wires it with `_init_capacity` once its cache exists)."""
 
     def __init__(self, model, batch_size: int, max_len: int, eos_id,
                  pad_id: int, prompt_buckets, device):
@@ -259,6 +281,12 @@ class _BatcherBase:
         self._short = False    # a wave gave requests back (paged)
         self._prefill_s = 0.0  # host seconds in prefill waves (each ends
         self._decode_s = 0.0   # in a sync) and in decode rounds
+        # KV capacity: the ledger and headroom model once the subclass's
+        # cache exists (`_init_capacity`); the usage meter from the start
+        # (its JSONL log arms from TFDE_USAGE_LOG or `arm_usage_log`)
+        self._ledger = None
+        self._cap_model = None
+        self._usage = _capacity.UsageMeter()
 
     @property
     def idle(self) -> bool:
@@ -287,6 +315,32 @@ class _BatcherBase:
         the flash kernel's wave), 'warm' (a dense suffix prefill after a
         prefix hit), 'paged' (the chunked paged prefill)."""
         return dict(self._wave_kinds)
+
+    @property
+    def usage(self) -> "_capacity.UsageMeter":
+        """The per-request usage meter (`totals()`, `log_path`)."""
+        return self._usage
+
+    def arm_usage_log(self, model_dir=None) -> None:
+        """Late-bind the usage JSONL log (``TFDE_USAGE_LOG=on`` needs a
+        model_dir to anchor the file)."""
+        self._usage.arm(model_dir)
+
+    def _init_capacity(self, cache) -> None:
+        """The occupancy ledger and headroom model of the dense slab
+        `cache` ([B, max_len] cells a layer)."""
+        self._ledger = _capacity.CapacityLedger.from_cache(
+            cache, self._b, self._max_len)
+        self._cap_model = _capacity.CapacityModel(self._ledger)
+
+    def kv_stats(self) -> dict:
+        """KV occupancy, the dtype census and headroom (rows, tokens);
+        refreshes the kv/* gauges. Empty until the cache is wired."""
+        if self._ledger is None:
+            return {}
+        s = self._ledger.observe(self._committed, self._req)
+        s.update(self._cap_model.headroom(s))
+        return s
 
     @property
     def capacity_stalls(self) -> int:
@@ -318,6 +372,7 @@ class _BatcherBase:
         self._queue.append((rid, prompt, int(max_new_tokens)), priority=pr)
         self._priority[rid] = pr
         self._submitted_at[rid] = time.perf_counter()
+        self._usage.begin(rid, int(prompt.size), pr)
         return rid
 
     def run(self) -> list:
@@ -335,9 +390,12 @@ class _BatcherBase:
         self._submitted_at.pop(rid, None)
         self._priority.pop(rid, None)
         if self._queue.remove_rid(rid):
+            self._usage.finish(rid, 0, outcome="cancelled")
             return True
         for r in range(self._b):
             if self._req[r] == rid:
+                self._usage.finish(rid, len(self._out[r]),
+                                   outcome="cancelled")
                 self._release_row(r)
                 self._req[r] = None
                 self._out[r] = []
@@ -384,6 +442,16 @@ class _BatcherBase:
         """Prompt tokens of `item` that its admission took from a cache."""
         return 0
 
+    def _admission_cells(self, kind: str, key, item) -> tuple:
+        """(allocated cells, real tokens) of one admitted request's
+        prefill, the ledger's pad-waste unit: the bucket and the prompt
+        (a warm group's suffix bucket and suffix). The paged batcher
+        counts blocks."""
+        prompt = item[1]
+        if kind == "warm":
+            return int(key[1]), int(prompt.size) - int(key[0])
+        return int(key), int(prompt.size)
+
     def _take_token(self, r: int, t: int) -> list:
         """Record a sampled token for row r; frees the row on completion."""
         self._out[r].append(t)
@@ -394,6 +462,7 @@ class _BatcherBase:
             rid = self._req[r]
             done = (rid, np.asarray(self._out[r], np.int32))
             self._priority.pop(rid, None)
+            self._usage.finish(rid, len(self._out[r]), outcome="ok")
             self._release_row(r)
             self._req[r] = None
             self._out[r] = []
@@ -482,6 +551,10 @@ class _BatcherBase:
                     self._budget[r] = budget
                     self._committed[r] = prompt.size
                     self._reused[rid] = self._prefix_len(kind, key, item)
+                    if self._ledger is not None:
+                        alloc, used = self._admission_cells(kind, key, item)
+                        self._ledger.note_admission(kind, alloc, used)
+                    self._usage.admitted(rid)
                     t_sub = self._submitted_at.pop(rid, None)
                     if t_sub is not None:
                         self._queue_ms[rid] = (t0 - t_sub) * 1e3
@@ -511,9 +584,11 @@ class ContinuousBatcher(_BatcherBase):
     raises), False the dense slab, None defers to ``TFDE_PAGED_KV``.
     pool_blocks: the pool's size in blocks, null block included (default
     `batch_size * nmax + 1`, nmax = ceil((max_len + 1) / TFDE_KV_BLOCK));
-    fewer than nmax + 1 raises. role, admission_ctl and kv_quant are the
-    JAX batcher's and are not ported: anything but their defaults
-    raises.
+    fewer than nmax + 1 raises. kv_quant: 'int8' stores every cache in
+    int8 with fp32 scale planes, 'fp' keeps the model's own format (full
+    precision by default), None defers to ``TFDE_KV_QUANT`` (fp or int8;
+    any other value raises). role and admission_ctl are the JAX
+    batcher's and are not ported: anything but their defaults raises.
 
     Usage::
 
@@ -551,12 +626,10 @@ class ContinuousBatcher(_BatcherBase):
             raise NotImplementedError(
                 "admission_ctl: admission control is not ported (ROADMAP "
                 "queue 1 item 5)")
-        kvq = (knobs.env_str("TFDE_KV_QUANT", "fp") if kv_quant is None
-               else str(kv_quant))
-        if kvq.strip().lower() != "fp":
-            raise NotImplementedError(
-                f"kv_quant={kvq!r} (or TFDE_KV_QUANT): int8 KV is not "
-                f"ported (ROADMAP queue 1 item 5)")
+        # one resolution covers every cache this batcher builds: the slab
+        # or pool, the wave's row caches and the trie's segments
+        self._kv_quant = resolve_kv_quant(
+            model, knobs.kv_quant_spec() if kv_quant is None else kv_quant)
         super().__init__(model, batch_size, max_len, eos_id, pad_id,
                          prompt_buckets, device)
         self._sampling = dict(
@@ -589,10 +662,14 @@ class ContinuousBatcher(_BatcherBase):
                     f"pool_blocks={nblocks} cannot hold even one "
                     f"max-length row ({self._nmax} blocks + null)")
             self._cache = init_cache(model, batch_size, self._max_len,
-                                     paged_blocks=nblocks, kv_block=block)
+                                     paged_blocks=nblocks, kv_block=block,
+                                     kv_quant=self._kv_quant)
             self._pool = _paged.BlockPool(nblocks, block)
             self._tables = np.zeros((batch_size, self._nmax), np.int32)
             self._row_blocks: list = [[] for _ in range(batch_size)]
+            # each row's prefix cells shared with the trie (the ledger
+            # counts a shared cell once)
+            self._shared_cells = np.zeros(batch_size, np.int64)
             self._tables_dirty = False
             block_bytes = _paged.pool_bytes(self._cache) / float(nblocks)
             self._prefix = _paged.resolve_paged(prefix_cache, self._pool,
@@ -604,10 +681,12 @@ class ContinuousBatcher(_BatcherBase):
                 raise ValueError("pool_blocks sizes the paged pool; pass "
                                  "paged=True with it")
             self._pool = None
-            self._cache = init_cache(model, batch_size, self._max_len)
+            self._cache = init_cache(model, batch_size, self._max_len,
+                                     kv_quant=self._kv_quant)
             self._prefix = _resolve_prefix(prefix_cache)
         self._cache.set_index(torch.zeros(batch_size, dtype=torch.int64,
                                           device=self._device))
+        self._init_capacity(self._cache)
         # device-resident loop state (tok/idx/budget/done); rebuilt from
         # host bookkeeping whenever admission desyncs it
         self._dev = None
@@ -620,6 +699,11 @@ class ContinuousBatcher(_BatcherBase):
     @property
     def paged(self) -> bool:
         return self._paged
+
+    @property
+    def kv_quant(self) -> Optional[str]:
+        """The caches' storage format: None (full precision) or 'int8'."""
+        return self._kv_quant
 
     @property
     def block_pool(self):
@@ -664,9 +748,12 @@ class ContinuousBatcher(_BatcherBase):
         """Admit into free rows, run one decode round (up to `scan_depth`
         ticks); returns [(request_id, tokens 1-D np.int32), ...] that
         finished now. A remat-trained model serves with remat off
-        (`decode.remat_off`)."""
+        (`decode.remat_off`). The kv/* gauges are refreshed after every
+        step (`kv_stats`), as the JAX batcher publishes them."""
         with remat_off(self._model):
-            return self._step()
+            finished = self._step()
+        self.kv_stats()
+        return finished
 
     def _step(self) -> list:
         finished = self._admit()
@@ -805,7 +892,8 @@ class ContinuousBatcher(_BatcherBase):
 
     @torch.no_grad()
     def _prefill_wave(self, prompts, last, rows, plens, n) -> np.ndarray:
-        row_cache = init_cache(self._model, prompts.shape[0], self._max_len)
+        row_cache = init_cache(self._model, prompts.shape[0], self._max_len,
+                               kv_quant=self._kv_quant)
         self._dispatches += 1  # the fresh zero row cache
         tok, row_seen = self._first_tokens(row_cache, prompts, last, prompts,
                                            plens)
@@ -895,13 +983,16 @@ class ContinuousBatcher(_BatcherBase):
                 fullp[i, :prompt.size] = prompt
             plens[i] = prompt.size
             kv_rows.append(kv)
-        row_cache = init_cache(self._model, rp, self._max_len)
+        row_cache = init_cache(self._model, rp, self._max_len,
+                               kv_quant=self._kv_quant)
         self._dispatches += 1  # the fresh zero row cache
-        for layer in range(len(row_cache.keys)):
-            for name, slab in (("k", row_cache.keys[layer]),
-                               ("v", row_cache.values[layer])):
-                slab[:, :pre_len] = torch.stack(
-                    [kv[(layer, name)] for kv in kv_rows]).to(slab.dtype)
+        for name, slab in row_cache.planes().items():
+            seg = torch.stack([kv[name] for kv in kv_rows])
+            if seg.dtype != slab.dtype:
+                raise ValueError(
+                    f"prefix segment {name} is {seg.dtype}, this batcher's "
+                    f"cache {slab.dtype}: one trie serves one cache layout")
+            slab[:, :pre_len] = seg
         row_cache.set_index(int(pre_len))
         tok, row_seen = self._first_tokens(row_cache, suffixes, last, fullp,
                                            plens)
@@ -917,9 +1008,39 @@ class ContinuousBatcher(_BatcherBase):
             self._pool.free(self._row_blocks[r])
             self._row_blocks[r] = []
         self._tables[r, :] = 0
+        self._shared_cells[r] = 0
         # the device table still points at the freed blocks: re-uploaded
         # before the next program (the freed-row junk-write hazard)
         self._tables_dirty = True
+
+    def _init_capacity(self, cache) -> None:
+        if not self._paged:
+            return super()._init_capacity(cache)
+        self._ledger = _capacity.PagedCapacityLedger(
+            self._b, self._max_len, _paged.pool_bytes(cache),
+            self._pool.num_blocks, self._kv_block, self._paged_snapshot,
+            census=_capacity.kv_dtype_census(cache))
+        self._cap_model = _capacity.PagedCapacityModel(self._ledger)
+
+    def _paged_snapshot(self) -> dict:
+        """The paged ledger's view of the pool: its stats, the trie's
+        blocks and the cells rows share with the trie."""
+        snap = self._pool.stats()
+        snap["trie_blocks"] = (self._prefix.segments
+                               if self._prefix is not None else 0)
+        snap["shared_cells"] = int(self._shared_cells.sum())
+        return snap
+
+    def _admission_cells(self, kind: str, key, item) -> tuple:
+        if kind != "paged":
+            return super()._admission_cells(kind, key, item)
+        # the fresh blocks the prompt took (past the shared prefix), in
+        # cells, against the prompt tokens they hold: intra-block slack
+        prompt, pre = item[1], int(item[3][0])
+        block = self._kv_block
+        alloc = (_paged.blocks_for(int(prompt.size), block)
+                 - pre // block) * block
+        return alloc, int(prompt.size) - pre
 
     def _admission_cost(self, item) -> int:
         if not self._paged:
@@ -969,6 +1090,7 @@ class ContinuousBatcher(_BatcherBase):
             self._prefix.remap(plan)
         self._tables_dirty = True
         self._defrags += 1
+        metrics.default_registry().counter("kv/pool_defrags").incr()
 
     def _plan_paged_wave(self, wave) -> list:
         """Paged planning: cold and warm admissions form ONE 'paged' group
@@ -1049,6 +1171,7 @@ class ContinuousBatcher(_BatcherBase):
             held = self._row_blocks[r]
             self._tables[r, :len(held)] = held
             self._tables[r, len(held):] = 0
+            self._shared_cells[r] = pre_len
             starts[i] = pre_len
             plens[i] = prompt.size
         _paged.set_block_tables(self._cache, self._tables)

@@ -1,16 +1,19 @@
 """Environment knobs — the readers of `tfde_tpu/knobs.py` that the port
-needs (`env_str`, `env_int`, `env_float`, `env_flag`) and the
-`TFDE_PREFIX_CACHE` spec reader (`prefix_cache_spec`), copied so that the
-port never imports the JAX package. The port reads only `TFDE_*` names
+needs (`env_str`, `env_int`, `env_float`, `env_flag`), the
+`TFDE_PREFIX_CACHE` spec reader (`prefix_cache_spec`) and the readers of
+the KV layout and capacity knobs (`kv_quant_spec`, `env_count`), copied
+or written so that the port never imports the JAX package. The port reads only `TFDE_*` names
 the JAX package registers, each with the meaning it has there; the
 registry and its unknown-name warning stay with the JAX package.
 
 `env_str` and `env_int` behave as in JAX (a bad integer warns and yields
-the default). `env_float`, `env_flag` and `prefix_cache_spec` raise on a
-value they cannot read where the JAX readers warn and fall back: they
-choose a serving layout (`TFDE_PAGED_KV`, `TFDE_PREFIX_CACHE`) or a
-maintenance threshold (`TFDE_KV_DEFRAG_THRESHOLD`), and a misspelled
-value must not serve another layout quietly.
+the default). `env_float`, `env_flag`, `env_count`, `prefix_cache_spec`
+and `kv_quant_spec` raise on a value they cannot read where the JAX
+readers warn and fall back: they choose a serving layout
+(`TFDE_PAGED_KV`, `TFDE_PREFIX_CACHE`, `TFDE_KV_QUANT`), a maintenance
+threshold (`TFDE_KV_DEFRAG_THRESHOLD`) or a byte bound
+(`TFDE_CAPACITY_*`), and a misspelled value must not serve another
+layout, or report another headroom, quietly.
 
 Knobs of the serving layouts, with their JAX defaults:
 
@@ -20,7 +23,20 @@ Knobs of the serving layouts, with their JAX defaults:
 - ``TFDE_KV_BLOCK``: block size in tokens of the trie and the pool (16);
 - ``TFDE_PAGED_PREFILL_CHUNK``: the paged prefill's chunk width (64);
 - ``TFDE_KV_DEFRAG_THRESHOLD``: the pool fragmentation above which an
-  admission stall defragments the pool (0.5; 0 disables).
+  admission stall defragments the pool (0.5; 0 disables);
+- ``TFDE_KV_QUANT``: the KV storage format of every ContinuousBatcher,
+  fp (default) or int8 (int8 payload + fp32 scale planes in the slab,
+  the pool and the tries).
+
+Knobs of the capacity ledger and the usage meter
+(observability/capacity.py), with their JAX defaults:
+
+- ``TFDE_CAPACITY_BUDGET_BYTES``: the KV byte budget the headroom model
+  folds against (0: the slab's own free rows);
+- ``TFDE_USAGE_LOG``: the per-request usage JSONL: off (default), on
+  (``<model_dir>/metrics/usage_<host>.jsonl``) or a path;
+- ``TFDE_CAPACITY_USAGE_LOG_BYTES``: the byte bound of one usage log
+  (8 MiB).
 """
 
 from __future__ import annotations
@@ -111,3 +127,33 @@ def prefix_cache_spec(name: str = "TFDE_PREFIX_CACHE"):
     except ValueError:
         raise ValueError(f"{name}={raw!r} is not a recognized value "
                          f"(off/on/<int byte budget>)") from None
+
+
+def env_count(name: str, default: int = 0) -> int:
+    """Non-negative integer knob (a byte count); anything else raises
+    ValueError."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        value = int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer") from None
+    if value < 0:
+        raise ValueError(f"{name}={raw!r} must be >= 0")
+    return value
+
+
+KV_QUANT_CHOICES = ("fp", "int8")
+
+
+def kv_quant_spec(name: str = "TFDE_KV_QUANT") -> str:
+    """The KV storage format from the environment: 'fp' (unset, empty or
+    fp) or 'int8', case-insensitive; anything else raises ValueError."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return "fp"
+    v = raw.strip().lower()
+    if v not in KV_QUANT_CHOICES:
+        raise ValueError(f"{name}={raw!r} is not one of {KV_QUANT_CHOICES}")
+    return v

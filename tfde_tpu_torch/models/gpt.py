@@ -13,7 +13,9 @@ the final norm, and the head: tied, `x @ wte.T` in the compute dtype with
 fp32 logits (flax `Embed.attend`), or an untied `lm_head` Dense (with a
 bias under `head_bias`), then `final_logit_cap`'s fp32 softcap; sequence
 packing (`segment_ids`) and the training objective `next_token_loss`.
-Every other field of the JAX `GPT` raises NotImplementedError when set
+`kv_quant` (None or 'int8') is the storage format of the caches the
+model decodes with by default (`inference/decode.init_cache`); the
+layers read the format from the cache they are given. Every other field of the JAX `GPT` raises NotImplementedError when set
 away from its default (`_UNPORTED`), so a configuration the port does not
 implement is never served as a different model. `config` holds the JAX
 fields the model was built with (`models/convert.save_converted` writes
@@ -48,7 +50,6 @@ _UNPORTED = {
     "rolling_cache": False,
     "paged_blocks": None,
     "kv_block": 16,
-    "kv_quant": None,
     "quant": None,
 }
 
@@ -81,6 +82,7 @@ class GPT(nn.Module):
                  attn_scale: Optional[float] = None,
                  attn_logit_cap: Optional[float] = None,
                  final_logit_cap: Optional[float] = None,
+                 kv_quant: Optional[str] = None,
                  device=None, seed: int = 0, **fields):
         super().__init__()
         for name, value in fields.items():
@@ -93,6 +95,9 @@ class GPT(nn.Module):
         if head_dim is None and hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} must divide by "
                              f"num_heads {num_heads} (or pass head_dim)")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_quant must be None or 'int8', got {kv_quant!r}")
         if position not in ("learned", "rope"):
             raise ValueError(
                 f"position must be 'learned' or 'rope', got {position!r}")
@@ -116,7 +121,8 @@ class GPT(nn.Module):
             qkv_bias=qkv_bias, qk_norm=qk_norm, norm_style=norm_style,
             head_bias=head_bias, embed_scale=embed_scale, head_dim=head_dim,
             tie_embeddings=tie_embeddings, attn_scale=attn_scale,
-            attn_logit_cap=attn_logit_cap, final_logit_cap=final_logit_cap)
+            attn_logit_cap=attn_logit_cap, final_logit_cap=final_logit_cap,
+            kv_quant=kv_quant)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.depth = depth
@@ -130,6 +136,7 @@ class GPT(nn.Module):
         self.sliding_window = sliding_window
         self.embed_scale = embed_scale
         self.final_logit_cap = final_logit_cap
+        self.kv_quant = kv_quant
         self.wte = nn.Embedding(vocab_size, hidden_size, device=device)
         self.wpe = (nn.Embedding(max_position, hidden_size, device=device)
                     if position == "learned" else None)

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import (
 
 from tfde_tpu_torch.models.cnn import _init_flax_, dropout
 from tfde_tpu_torch.ops import attention as attn_lib
+from tfde_tpu_torch.ops.quant import kv_dequantize, kv_quantize
 from tfde_tpu_torch.ops.rotary import apply_rotary
 
 #: JAX `TransformerBlock`/`Encoder` fields outside the port, with the
@@ -308,26 +309,42 @@ class MultiHeadAttention(nn.Module):
         dispatcher, and on a CUDA tensor to the flash kernel. Every other
         call (per-row decode ticks) is the masked einsum over the cache.
         A paged cache (one carrying a block `table`) takes
-        `_paged_attention`."""
+        `_paged_attention`.
+
+        An int8 cache (`cache.quantized`) stores `kv_quantize` of this
+        call's K/V (payload and scale planes at the same cells) and
+        attends over `kv_dequantize` of the whole slab, as JAX does: the
+        call's own tokens round-trip through the int8 format too, so the
+        flash prefill at index 0 takes the dequantized K/V."""
         if getattr(cache, "table", None) is not None:
             return self._paged_attention(q, k, v, cache, layer)
-        keys, values = cache.keys[layer], cache.values[layer]
+        quant = cache.quantized
+        planes = [cache.keys[layer], cache.values[layer]]
+        if quant:
+            planes += [cache.key_scales[layer], cache.value_scales[layer]]
         sq = q.shape[1]
-        max_len = keys.shape[1]
+        max_len = planes[0].shape[1]
         if sq > max_len:
             raise ValueError(
                 f"input length {sq} exceeds the cache budget {max_len}; "
                 f"re-init the cache with a larger max_len")
         idx = cache.index
         q, k = self._rotate(q, k, idx)
-        k_w, v_w = k.to(keys.dtype), v.to(values.dtype)
+        if quant:
+            (k_q, k_s), (v_q, v_s) = kv_quantize(k), kv_quantize(v)
+            writes = [k_q, v_q, k_s, v_s]
+            k_w = kv_dequantize(k_q, k_s, k.dtype)
+            v_w = kv_dequantize(v_q, v_s, v.dtype)
+        else:
+            k_w, v_w = k.to(planes[0].dtype), v.to(planes[1].dtype)
+            writes = [k_w, v_w]
         cols = torch.arange(max_len, device=q.device)
         steps = torch.arange(sq, device=q.device)
         opts = dict(scale=self.attn_scale, logit_cap=self.attn_logit_cap)
         if isinstance(idx, int):
             start = min(max(idx, 0), max_len - sq)
-            keys[:, start:start + sq] = k_w
-            values[:, start:start + sq] = v_w
+            for plane, new in zip(planes, writes):
+                plane[:, start:start + sq] = new
             if idx == 0:
                 return attn_lib.attention(q, k_w, v_w, causal=True,
                                           impl=self.attn_impl,
@@ -336,13 +353,17 @@ class MultiHeadAttention(nn.Module):
         else:
             start = idx.clamp(0, max_len - sq)
             rows = torch.arange(q.shape[0], device=q.device)[:, None]
-            keys[rows, start[:, None] + steps] = k_w
-            values[rows, start[:, None] + steps] = v_w
+            for plane, new in zip(planes, writes):
+                plane[rows, start[:, None] + steps] = new
             pos = idx[:, None] + steps  # [B, sq]
         ago = pos[:, :, None] - cols  # [B | 1, sq, max_len]
         valid = ago >= 0
         if self.window is not None:
             valid = valid & (ago < self.window)
+        keys, values = planes[:2]
+        if quant:
+            keys = kv_dequantize(keys, planes[2], k.dtype)
+            values = kv_dequantize(values, planes[3], v.dtype)
         return attn_lib.grouped_attention(q, keys, values,
                                           mask=valid[:, None], **opts)
 
@@ -363,7 +384,10 @@ class MultiHeadAttention(nn.Module):
         land only in block 0, which no mask reads, so their order does
         not matter; shared trie blocks are never written (the trie holds
         complete prompt blocks and a warm row writes from its
-        block-aligned prefix length on)."""
+        block-aligned prefix length on). An int8 cache writes
+        `kv_quantize` of the K/V (which zeroes non-finite values itself)
+        into the payload and scale pools at the same cells and gathers
+        both through the table into `kv_dequantize`."""
         pool_k, pool_v = cache.keys[layer], cache.values[layer]
         block, table = cache.block, cache.table
         b, sq = q.shape[:2]
@@ -380,10 +404,20 @@ class MultiHeadAttention(nn.Module):
         blk = torch.where(slot < nmax, table[rows, slot.clamp(0, nmax - 1)],
                           torch.zeros_like(slot))
         off = pos % block
-        pool_k[blk, off] = torch.nan_to_num(k.to(pool_k.dtype))
-        pool_v[blk, off] = torch.nan_to_num(v.to(pool_v.dtype))
-        k_all = pool_k[table].reshape(b, nmax * block, *pool_k.shape[2:])
-        v_all = pool_v[table].reshape(b, nmax * block, *pool_v.shape[2:])
+        if cache.quantized:
+            pool_ks = cache.key_scales[layer]
+            pool_vs = cache.value_scales[layer]
+            (k_q, k_s), (v_q, v_s) = kv_quantize(k), kv_quantize(v)
+            pool_k[blk, off], pool_ks[blk, off] = k_q, k_s
+            pool_v[blk, off], pool_vs[blk, off] = v_q, v_s
+            k_all = kv_dequantize(pool_k[table], pool_ks[table], k.dtype)
+            v_all = kv_dequantize(pool_v[table], pool_vs[table], v.dtype)
+        else:
+            pool_k[blk, off] = torch.nan_to_num(k.to(pool_k.dtype))
+            pool_v[blk, off] = torch.nan_to_num(v.to(pool_v.dtype))
+            k_all, v_all = pool_k[table], pool_v[table]
+        k_all = k_all.reshape(b, nmax * block, *pool_k.shape[2:])
+        v_all = v_all.reshape(b, nmax * block, *pool_v.shape[2:])
         cols = torch.arange(nmax * block, device=q.device)
         ago = pos[:, :, None] - cols  # [B, sq, nmax*block]
         valid = ago >= 0

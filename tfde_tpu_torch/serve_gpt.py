@@ -18,7 +18,10 @@ Request i's prompt is `rng.integers(0, vocab, rng.integers(2, 9))` from
 `--shared-prefix` tokens drawn first (default none). `--prefix-cache`
 (on, off or a byte budget; default the ``TFDE_PREFIX_CACHE`` knob) lets
 requests that share a cached prompt prefix prefill only the rest;
-``TFDE_PAGED_KV=1`` serves from the paged block pool (inference/paged.py).
+``TFDE_PAGED_KV=1`` serves from the paged block pool (inference/paged.py);
+``TFDE_KV_QUANT=int8`` stores every cache in int8 with fp32 scale planes.
+The log ends with the KV ledger (`kv_stats()`: allocated and used bytes,
+waste, headroom rows) beside the trie's and the pool's stats.
 """
 
 from __future__ import annotations
@@ -140,6 +143,11 @@ def main(argv=None):
              "%d, %s)", len(done), total, dt, total / max(dt, 1e-9),
              args.batch_size, device)
     log.info("serving stats: %s", srv.stats())
+    kv = srv.kv_stats()
+    log.info("KV ledger (%s): allocated %d bytes, used %d bytes, waste "
+             "%.3f, headroom %d rows / %d tokens", kv["kv_dtype"],
+             kv["allocated_bytes"], kv["used_bytes"], kv["waste_frac"],
+             kv["headroom_rows"], kv["headroom_tokens"])
     if srv.prefix_cache is not None:
         log.info("prefix cache: %s", srv.prefix_cache.stats())
     if srv.block_pool is not None:

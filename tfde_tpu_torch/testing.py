@@ -14,6 +14,14 @@ picked free. Every group is destroyed in a `finally`.
 configurations that the CPU tests and `chip_smoke.py`'s hf_serve phase
 share.
 
+`live_kv_bytes` counts a batcher's live KV cells from its tensors, the
+figure its KV ledger must report.
+
+`torch_threads(n)` runs a block with n intra-op torch threads: the CPU
+tests run with one (`ONE_THREAD`), since pytest's workers share the
+host's cores and torch's default of one thread a core oversubscribes
+them; `DEFAULT_THREADS` is torch's own count, taken at import.
+
 `recipe` is the verify recipe through the Estimator, and
 ``python -m tfde_tpu_torch.testing MODEL_DIR OUT_JSON --max-steps N``
 (`recipe_main`; on CUDA unless ``--device cpu``) runs it in a process of
@@ -23,6 +31,7 @@ interrupt by SIGTERM.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import multiprocessing as mp
 import os
@@ -36,6 +45,62 @@ import torch
 import torch.distributed as dist
 
 log = logging.getLogger(__name__)
+
+#: torch's intra-op thread count before anything set it
+DEFAULT_THREADS = torch.get_num_threads()
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block with `n` intra-op torch threads, then restore the
+    count it found."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def live_kv_bytes(srv) -> int:
+    """The bytes of the KV cells a `ContinuousBatcher`'s ledger counts as
+    used, counted from its cache tensors (every plane: int8 payloads and
+    scales alike): dense, each active row's committed cells; paged, each
+    active row's cells past its trie-shared prefix, through its table,
+    plus the trie's blocks (the JAX paged ledger's rule, which counts a
+    cold row's trie-adopted blocks twice)."""
+    cache = srv._cache
+    planes = list(cache.planes().values())
+    device = cache.keys[0].device
+    total = 0
+    for r, rid in enumerate(srv._req):
+        if rid is None:
+            continue
+        c = int(srv._committed[r])
+        if not srv.paged:
+            total += sum(p[r, :c].numel() * p.element_size() for p in planes)
+            continue
+        pos = torch.arange(int(srv._shared_cells[r]), c, device=device)
+        blk = cache.table[r, pos // cache.block]
+        total += sum(p[blk, pos % cache.block].numel() * p.element_size()
+                     for p in planes)
+    if srv.paged and srv.prefix_cache is not None:
+        bids, stack = [], list(srv.prefix_cache._root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            bids.append(node.bid)
+        ids = torch.as_tensor(bids, dtype=torch.int64, device=device)
+        total += sum(p[ids].numel() * p.element_size() for p in planes)
+    return total
+
+
+def one_thread():
+    """The CPU tests' module fixture (``pytest.fixture(autouse=True,
+    scope="module")(testing.one_thread)``): the module's tests run with
+    one intra-op torch thread."""
+    with torch_threads(1):
+        yield
 
 #: this spawn's token (`run_ranks`), which makes every store path a
 #: spawn's own
