@@ -266,7 +266,30 @@ without printing a result:
    stalls fewer times. On idle dense batchers: the slabs' bytes (int8 /
    fp32 = 68/256, int8 / bf16 = 68/128) and, under
    ``TFDE_CAPACITY_BUDGET_BYTES=134217728``, headroom 2 rows / 2,048
-   tokens in fp32 and 7 rows / 7,710 tokens in int8.
+   tokens in fp32 and 7 rows / 7,710 tokens in int8;
+17. admission — admission control and the prefill/decode role split:
+   Llama-3.2-1B at its published widths (random weights from seed 0,
+   built on the card), 16 primed + 8 plain requests of 100-900 prompt
+   tokens x 16 new. In fp32, for fp and int8 KV: a prefill replica
+   (`role='prefill'`, batch 1) primes the 16 (each `prime()` must launch
+   the forward once a layer, 16 times; ms a request, payload bytes a
+   prompt token held at 65,536 fp32 / 17,408 int8), each payload crosses
+   `primed_to_json` / `primed_from_json` (bit for bit; bytes, encode and
+   decode ms), every prompt runs alone on a 'both' batcher (batch 1),
+   whose slab row after the cold admission must equal the shipped planes
+   bit for bit; then a decode replica (`role='decode'`, batch 8, max_len
+   1024, scan depth 4) admits the 16 primed beside the 8 plain, dense and
+   paged: every request's greedy tokens equal its solo run, each primed
+   wave launches no forward and each cold wave 16; waves by kind (ms),
+   TTFT primed vs plain, `drain_rate_tps` against the tokens/s of the
+   same rounds. In bf16: the same priming (32,768 bytes a token), the
+   dense decode replica, and the primed waves' ms against the same
+   requests' cold waves. Then every admission scenario of the JAX tests
+   (`testing.ADMISSION_SCENARIOS`) on the bf16 model, a QueueFull's
+   Retry-After against the seconds its backlog took to drain, and the
+   KV-headroom gate under ``TFDE_CAPACITY_BUDGET_BYTES`` of three bf16
+   rows (floor one row): each submit rejected exactly when the
+   headroom before it is below the floor, int8 KV admitting more rows.
 
 Every phase prints its seconds.
 
@@ -4227,9 +4250,377 @@ def phase_prefix_paged(fa, dev):
     torch.cuda.empty_cache()
 
 
+#: admission: Llama-3.2-1B at its published widths behind the role split.
+#: A prefill replica (batch 1) primes AD_PRIMED requests, a decode replica
+#: (batch AD_BATCH, max_len 1024, scan depth 4) admits them beside
+#: AD_PLAIN plain submits, AD_NEW new tokens each; prompts of
+#: AD_PROMPT[0]-AD_PROMPT[1] tokens from seed 0
+AD_BATCH, AD_MAX_LEN, AD_DEPTH, AD_NEW = 8, 1024, 4, 16
+AD_PRIMED, AD_PLAIN, AD_PROMPT = 16, 8, (100, 900)
+#: the four layouts of the hand-off: (paged, kv_quant)
+AD_LAYOUTS = {"dense": (False, "fp"), "paged": (True, "fp"),
+              "dense int8": (False, "int8"), "paged int8": (True, "int8")}
+#: predicted payload bytes a prompt token (16 layers x 8 KV heads x D 64,
+#: k and v): fp32 65,536, bf16 32,768, int8 16,384 + its fp32 scales 1,024
+AD_TOKEN_BYTES = {"fp32": 65_536, "bf16": 32_768, "int8": 17_408}
+#: the headroom gate: a budget of AD_GATE_ROWS bf16 max-length rows, the
+#: floor one row, requests of AD_GATE_PROMPT tokens x AD_GATE_NEW (active
+#: while the batch fills: one decode round of <= 4 ticks a submit)
+AD_GATE_ROWS, AD_GATE_PROMPT, AD_GATE_NEW = 3, 600, 64
+
+
+def _ad_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, int(rng.integers(AD_PROMPT[0],
+                                                    AD_PROMPT[1] + 1)))
+            for _ in range(AD_PRIMED + AD_PLAIN)]
+
+
+def _ad_watch_waves(srv, fa, dev):
+    """Record every admission group of `srv`: (kind, requests, ms, flash
+    launches). A synchronize closes each group for its time (the primed
+    wave itself never syncs)."""
+    waves = []
+    run_group = srv._run_group
+
+    def timed(kind, key, group, rows):
+        torch.cuda.synchronize(dev)
+        n0, t0 = fa.flash_forward.launches, time.perf_counter()
+        out = run_group(kind, key, group, rows)
+        torch.cuda.synchronize(dev)
+        waves.append((kind, len(group), (time.perf_counter() - t0) * 1e3,
+                      fa.flash_forward.launches - n0))
+        return out
+
+    srv._run_group = timed
+    return waves
+
+
+def _ad_prime(fa, dev, model, prompts, kv_quant, label):
+    """Prime `prompts` on a prefill replica; each prime must launch the
+    forward once a layer. Returns the payloads and the ms of each."""
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    pre = ContinuousBatcher(model, batch_size=1, max_len=AD_MAX_LEN,
+                            role="prefill", kv_quant=kv_quant, device=dev)
+    pre.prime(prompts[0], 2)  # untimed: the programs' first launch
+    primed, ms = [], []
+    for p in prompts:
+        _zero_counts(fa)
+        t0 = time.perf_counter()
+        primed.append(pre.prime(p, AD_NEW))  # ends in its one fetch
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if fa.flash_forward.launches != model.depth:
+            raise AssertionError(
+                f"admission {label}: prime() launched the forward "
+                f"{fa.flash_forward.launches} times, not {model.depth}")
+    tok = sum(int(p.size) for p in prompts)
+    nbytes = [sum(t.numel() * t.element_size() for t in pr.kv.values())
+              for pr in primed]
+    print(f"admission {label}: prime() of {len(prompts)} requests "
+          f"({tok} prompt tokens): ms a request median "
+          f"{float(np.median(ms)):.3f}, range {min(ms):.3f}-{max(ms):.3f}; "
+          f"flash_fwd {model.depth} launches a prime; payload "
+          f"{sum(nbytes) / len(nbytes):.0f} bytes a request, "
+          f"{sum(nbytes) / tok:.1f} a prompt token")
+    return primed, ms, sum(nbytes) / tok
+
+
+def _ad_wire(primed, label):
+    """Every payload across the JSON wire and back; the planes must come
+    back bit for bit. Returns the decoded payloads."""
+    from tfde_tpu_torch.inference.router import (primed_from_json,
+                                                 primed_to_json)
+
+    enc, dec, size, back = 0.0, 0.0, 0, []
+    for pr in primed:
+        t0 = time.perf_counter()
+        text = json.dumps(primed_to_json(pr))
+        t1 = time.perf_counter()
+        got = primed_from_json(json.loads(text))
+        t2 = time.perf_counter()
+        enc, dec, size = enc + t1 - t0, dec + t2 - t1, size + len(text)
+        if got.first_token != pr.first_token or set(got.kv) != set(pr.kv) \
+                or not all(torch.equal(got.kv[n], t)
+                           for n, t in pr.kv.items()):
+            raise AssertionError(f"admission {label}: a payload changed on "
+                                 f"the wire")
+        back.append(got)
+    n = len(primed)
+    print(f"admission {label}: JSON wire {size / n:.0f} bytes a request, "
+          f"encode {enc * 1e3 / n:.2f} ms, decode {dec * 1e3 / n:.2f} ms a "
+          f"request")
+    return back
+
+
+def _ad_decode(fa, dev, model, primed, plain, paged, kv_quant, label):
+    """The decode replica: the primed payloads and the plain prompts,
+    interleaved two primed to one plain, AD_NEW tokens each. Returns the
+    tokens (primed first, then plain), the waves and the TTFTs."""
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    srv = ContinuousBatcher(model, batch_size=AD_BATCH, max_len=AD_MAX_LEN,
+                            scan_depth=AD_DEPTH, role="decode",
+                            paged=paged, kv_quant=kv_quant, device=dev)
+    waves = _ad_watch_waves(srv, fa, dev)
+    torch.cuda.synchronize(dev)
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    p_ids, c_ids = [], []
+    for i, pr in enumerate(primed):
+        p_ids.append(srv.submit_primed(pr))
+        if i % 2 and len(c_ids) < len(plain):
+            c_ids.append(srv.submit(plain[len(c_ids)], AD_NEW))
+    c_ids += [srv.submit(p, AD_NEW) for p in plain[len(c_ids):]]
+    done = dict(srv.run())
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    for kind, n, _ms, launches in waves:
+        want = model.depth if kind == "cold" else 0
+        if launches != want:
+            raise AssertionError(f"admission {label}: a {kind} wave of {n} "
+                                 f"launched the forward {launches} times")
+    ttft = srv.ttft_ms()
+    stats = srv.stats()
+    emitted = stats["generated"] - len(done)  # less each first token
+    tok_s = emitted / stats["decode_s"]
+    out = dict(tokens=[done[r] for r in p_ids + c_ids], waves=waves,
+               ttft_primed=float(np.mean([ttft[r] for r in p_ids])),
+               ttft_plain=float(np.mean([ttft[r] for r in c_ids])),
+               drain=srv.admission.drain_rate_tps, tok_s=tok_s)
+    by = {}
+    for kind, n, ms, _l in waves:
+        k = by.setdefault(kind, [0, 0, 0.0])
+        k[0], k[1], k[2] = k[0] + 1, k[1] + n, k[2] + ms
+    print(f"admission {label}: decode replica, {len(done)} requests in "
+          f"{dt:.3f} s, waves " + ", ".join(
+              f"{k} {v[0]} ({v[1]} requests, {v[2]:.2f} ms, "
+              f"{v[2] / v[1]:.3f} ms a request)" for k, v in by.items())
+          + f"; mean TTFT primed {out['ttft_primed']:.1f} ms, plain "
+          f"{out['ttft_plain']:.1f} ms; drain_rate_tps {out['drain']:.1f} "
+          f"against {tok_s:.1f} tok/s over the same rounds "
+          f"({emitted} tokens in {stats['decode_s']:.3f} s of decode "
+          f"rounds)")
+    return out
+
+
+def _ad_solo(dev, model, prompts, primed, kv_quant, label):
+    """Each prompt alone on a 'both' batcher (batch 1): its greedy tokens,
+    and the slab row its cold admission writes against the payload that
+    prime() shipped (bit for bit, over the prompt's cells)."""
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    srv = ContinuousBatcher(model, batch_size=1, max_len=AD_MAX_LEN,
+                            scan_depth=AD_DEPTH, kv_quant=kv_quant,
+                            device=dev)
+    tokens, cells = [], 0
+    for i, p in enumerate(prompts):
+        rid = srv.submit(p, AD_NEW)
+        done = dict(srv.step())
+        if i < len(primed):
+            for name, t in primed[i].kv.items():
+                row = srv._cache.planes()[name][0, :p.size].cpu()
+                if not torch.equal(row, t):
+                    raise AssertionError(
+                        f"admission {label}: request {i}'s shipped plane "
+                        f"{name} differs from its solo admission's row")
+            cells += int(p.size)
+        done.update(srv.run())
+        tokens.append(done[rid])
+    print(f"admission {label}: shipped planes bit-equal to the solo cold "
+          f"admissions' slab rows over {cells} prompt cells x "
+          f"{len(primed[0].kv)} planes")
+    return tokens
+
+
+def _ad_split(fa, dev, fields, prompts):
+    """The role split in fp32 (held exactly) and bf16 (timed)."""
+    import gc
+
+    from tfde_tpu_torch.models.gpt import GPT
+
+    model = GPT(**fields, dtype=torch.float32, device=dev, seed=0)
+    primed_p, plain = prompts[:AD_PRIMED], prompts[AD_PRIMED:]
+    for kvq in ("fp", "int8"):
+        fmt = "fp32" if kvq == "fp" else "int8"
+        primed, _ms, per_tok = _ad_prime(fa, dev, model, primed_p, kvq,
+                                         f"fp32 {fmt} KV")
+        if per_tok != AD_TOKEN_BYTES[fmt]:
+            raise AssertionError(f"admission: {per_tok} payload bytes a "
+                                 f"token, not {AD_TOKEN_BYTES[fmt]}")
+        wire = _ad_wire(primed, f"fp32 {fmt} KV")
+        solo = _ad_solo(dev, model, prompts, primed, kvq, f"fp32 {fmt} KV")
+        for name, (paged, q) in AD_LAYOUTS.items():
+            if q != kvq:
+                continue
+            run = _ad_decode(fa, dev, model, wire, plain, paged, q,
+                             f"fp32 {name}")
+            diff = [i for i, (a, b) in enumerate(zip(run["tokens"], solo))
+                    if not np.array_equal(a, b)]
+            if diff:
+                raise AssertionError(f"admission fp32 {name}: requests "
+                                     f"{diff} differ from their solo runs")
+            print(f"admission fp32 {name}: all {len(solo)} requests' greedy "
+                  f"tokens equal their solo runs ({AD_PRIMED} primed)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT(**fields, device=dev, seed=0).cast_compute_weights_()
+    primed, _ms, per_tok = _ad_prime(fa, dev, model, primed_p, "fp",
+                                     "bf16")
+    if per_tok != AD_TOKEN_BYTES["bf16"]:
+        raise AssertionError(f"admission: {per_tok} bf16 payload bytes a "
+                             f"token, not {AD_TOKEN_BYTES['bf16']}")
+    wire = _ad_wire(primed, "bf16")
+    split = _ad_decode(fa, dev, model, wire, plain, False, "fp", "bf16 dense")
+    # the same requests all submitted plainly: the primed groups' prompts
+    # prefill in cold waves of the same buckets
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    srv = ContinuousBatcher(model, batch_size=AD_BATCH, max_len=AD_MAX_LEN,
+                            scan_depth=AD_DEPTH, device=dev)
+    waves = _ad_watch_waves(srv, fa, dev)
+    for p in primed_p:
+        srv.submit(p, AD_NEW)
+    srv.run()
+    primed_ms = sum(ms for k, _n, ms, _l in split["waves"] if k == "primed")
+    cold_ms = sum(ms for _k, _n, ms, _l in waves)
+    print(f"admission bf16: the {AD_PRIMED} primed requests' waves "
+          f"{primed_ms:.2f} ms against {cold_ms:.2f} ms for the same "
+          f"requests in cold waves ({len(waves)} waves)")
+    return model
+
+
+def _ad_backlog(dev, model, vocab):
+    """A QueueFull's Retry-After against the seconds its backlog took to
+    drain: a full batch with a queue behind it under a queued-token cap."""
+    from tfde_tpu_torch.inference import admission
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    rng = np.random.default_rng(1)
+    cap = 2 * AD_BATCH * 32
+    srv = ContinuousBatcher(
+        model, batch_size=AD_BATCH, max_len=AD_MAX_LEN, scan_depth=AD_DEPTH,
+        device=dev,
+        admission_ctl=admission.AdmissionController(max_queued_tokens=cap))
+    for _ in range(2 * AD_BATCH):
+        srv.submit(rng.integers(0, vocab, 64), 32)
+    for _ in range(3):
+        srv.step()  # the drain rate settles
+    while srv.queued_tokens + 32 <= cap:
+        srv.submit(rng.integers(0, vocab, 64), 32)
+    try:
+        srv.submit(rng.integers(0, vocab, 64), 32)
+        raise AssertionError("admission: the token cap admitted past it")
+    except admission.QueueFull as e:
+        if e.reason != "queued_tokens":
+            raise AssertionError(f"admission: rejected as {e.reason}")
+        retry, backlog = e.retry_after_s, e.queued_tokens + 32
+    t0, gen0 = time.perf_counter(), srv.stats()["generated"]
+    while srv.stats()["generated"] - gen0 < backlog and not srv.idle:
+        srv.step()
+    took = time.perf_counter() - t0
+    srv.run()
+    print(f"admission: a QueueFull under max_queued_tokens {cap} at "
+          f"drain_rate_tps {srv.admission.drain_rate_tps:.1f} said "
+          f"Retry-After {retry:.3f} s; its backlog of {backlog} tokens "
+          f"took {took:.3f} s to drain")
+
+
+def _ad_headroom(dev, model, vocab):
+    """The KV-headroom gate under a budget of AD_GATE_ROWS bf16 rows: each
+    submit is rejected exactly when kv_stats()'s headroom_rows just before
+    it is below the floor; int8 KV admits more rows in the same bytes."""
+    from tfde_tpu_torch.inference import admission
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.testing import env_set
+
+    row = AD_MAX_LEN * AD_TOKEN_BYTES["bf16"]
+    budget = AD_GATE_ROWS * row
+    rng = np.random.default_rng(2)
+    admitted = {}
+    for kvq in ("fp", "int8"):
+        with env_set(TFDE_CAPACITY_BUDGET_BYTES=str(budget)):
+            srv = ContinuousBatcher(
+                model, batch_size=AD_BATCH, max_len=AD_MAX_LEN,
+                scan_depth=AD_DEPTH, kv_quant=kvq, device=dev,
+                admission_ctl=admission.AdmissionController(
+                    min_headroom_rows=1))
+        n, trail = 0, []
+        while True:
+            head = srv.kv_stats()["headroom_rows"]
+            try:
+                srv.submit(rng.integers(0, vocab, AD_GATE_PROMPT),
+                           AD_GATE_NEW)
+                rejected = None
+            except admission.QueueFull as e:
+                rejected = e
+            trail.append(head)
+            if (rejected is not None) != (head < 1):
+                raise AssertionError(
+                    f"admission headroom {kvq}: headroom {head} rows, "
+                    f"{'rejected' if rejected else 'admitted'}")
+            if rejected is not None:
+                if (rejected.reason != "kv_headroom"
+                        or rejected.kv["headroom_rows"] != head):
+                    raise AssertionError(f"admission headroom {kvq}: "
+                                         f"{rejected.as_json()}")
+                break
+            n += 1
+            srv.step()
+            if srv.free_rows + n != AD_BATCH:
+                raise AssertionError(f"admission headroom {kvq}: a request "
+                                     f"finished while the batch filled")
+        srv.run()
+        admitted[kvq] = n
+        print(f"admission headroom ({'int8' if kvq == 'int8' else 'bf16'} "
+              f"KV, budget {budget} bytes = {AD_GATE_ROWS} bf16 rows, floor "
+              f"1 row): headroom_rows before each submit {trail}; admitted "
+              f"{n}, the next rejected as kv_headroom")
+    if not admitted["int8"] > admitted["fp"]:
+        raise AssertionError(f"admission headroom: int8 admitted "
+                             f"{admitted['int8']}, bf16 {admitted['fp']}")
+
+
+def phase_admission(fa, dev):
+    """Admission control and the prefill/decode role split (docstring,
+    phase 17)."""
+    import gc
+
+    from tfde_tpu_torch import testing
+    from tfde_tpu_torch.inference import admission
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.observability import metrics
+
+    print(f"admission on {_card()}")
+    fields = testing.FULL_WIDTH["Llama-3.2-1B"][1]
+    vocab = fields["vocab_size"]
+    prompts = _ad_prompts(vocab)
+    print(f"admission: Llama-3.2-1B (published widths, random weights from "
+          f"seed 0); prefill replica batch 1, decode replica batch "
+          f"{AD_BATCH}, max_len {AD_MAX_LEN}, scan depth {AD_DEPTH}; "
+          f"{AD_PRIMED} primed + {AD_PLAIN} plain requests x {AD_NEW} new "
+          f"tokens, prompt lengths {[int(p.size) for p in prompts]}")
+    model = _ad_split(fa, dev, fields, prompts)
+    reg = metrics.default_registry()
+    for name in testing.ADMISSION_SCENARIOS:
+        out = testing.admission_scenario(
+            name, lambda **kw: ContinuousBatcher(model, scan_depth=AD_DEPTH,
+                                                 device=dev, **kw),
+            admission, reg, prompts[0][:4])
+        print(f"admission scenario {name}: held; "
+              f"{json.dumps({k: v for k, v in out.items() if k != 'tokens'})}")
+    _ad_backlog(dev, model, vocab)
+    _ad_headroom(dev, model, vocab)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
           "lifecycle", "export", "resnet",
-          "bert", "vit", "gpt_lm", "hf_serve", "prefix_paged")
+          "bert", "vit", "gpt_lm", "hf_serve", "prefix_paged",
+          "admission")
 
 
 def main(argv=None) -> int:
@@ -4282,6 +4673,7 @@ def main(argv=None) -> int:
     run("gpt_lm", phase_gpt_lm, fa, dev)
     d256_serve = run("hf_serve", phase_hf_serve, fa, dev)
     run("prefix_paged", phase_prefix_paged, fa, dev)
+    run("admission", phase_admission, fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

@@ -13,8 +13,9 @@ repetition penalty, and with a pool cut to two rows' worth (admission
 stalls, the trie evicts, a stall defragments). Each row's table gathered
 into position order equals the dense cache over its committed cells
 (1e-6); `cancel` returns every block; `TFDE_PAGED_KV` picks the layout;
-a pool too small for one row, an unreadable knob and the unported JAX
-arguments raise. Each JAX batcher is built once per module.
+a pool too small for one row, an unreadable knob and a bad role raise,
+and the role split's guards are JAX's. Each JAX batcher is built once
+per module.
 """
 
 import jax
@@ -400,8 +401,9 @@ def test_env_knobs_select_the_layouts(lm, monkeypatch):
 
 def test_paged_refuses_what_it_cannot_serve(lm, monkeypatch):
     """A pool smaller than one max-length row, a dense trie handed to a
-    paged batcher, pool_blocks without paging, and the JAX batcher's
-    unported arguments all raise."""
+    paged batcher, pool_blocks without paging, a bad role and a KV format
+    the port does not have all raise; the role split's guards are the JAX
+    batcher's (a prefill replica refuses `submit_primed`)."""
     _, _, tm = lm
     kw = dict(batch_size=2, max_len=32, device="cpu")
     with pytest.raises(ValueError, match="cannot hold even one"):
@@ -411,9 +413,10 @@ def test_paged_refuses_what_it_cannot_serve(lm, monkeypatch):
             tm, paged=True, prefix_cache=tserver._resolve_prefix(True), **kw)
     with pytest.raises(ValueError, match="pool_blocks"):
         tserver.ContinuousBatcher(tm, paged=False, pool_blocks=9, **kw)
-    for bad in (dict(role="decode"), dict(admission_ctl=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tserver.ContinuousBatcher(tm, **bad, **kw)
+    assert tserver.ContinuousBatcher(tm, paged=True, role="decode",
+                                     **kw).role == "decode"
+    with pytest.raises(ValueError, match="role"):
+        tserver.ContinuousBatcher(tm, paged=True, role="bogus", **kw)
     # int8 KV is ported (tests/test_torch_kv_quant.py); a format the port
     # does not have raises, by argument or by knob
     with pytest.raises(ValueError, match="kv_quant"):
@@ -422,7 +425,9 @@ def test_paged_refuses_what_it_cannot_serve(lm, monkeypatch):
     with pytest.raises(ValueError, match="TFDE_KV_QUANT"):
         tserver.ContinuousBatcher(tm, **kw)
     monkeypatch.delenv("TFDE_KV_QUANT")
-    srv = tserver.ContinuousBatcher(tm, **kw)
-    for method in (srv.prime, srv.submit_primed):
-        with pytest.raises(NotImplementedError, match="role split"):
-            method(np.arange(4), 2)
+    srv = tserver.ContinuousBatcher(tm, paged=True, **kw)
+    primed = srv.prime(np.arange(4), 2)
+    assert primed.kv[(0, "k")].shape[0] == 4
+    pre = tserver.ContinuousBatcher(tm, paged=True, role="prefill", **kw)
+    with pytest.raises(RuntimeError, match="prefill-only"):
+        pre.submit_primed(primed)

@@ -254,16 +254,16 @@ def test_plan_clamps_warm_suffix_bucket(lm):
                                     prompt_buckets=(8, 48, 64),
                                     prefix_cache=pc, device="cpu")
     prompt = np.concatenate([t[:24], t[:30] + 30])
-    [(kind, key, group)] = srv._plan_wave([(0, prompt, 4)])
+    [(kind, key, group)] = srv._plan_wave([(0, prompt, 4, None)])
     assert kind == "warm" and key[:2] == (16, 48)
-    assert all(a.shape[0] == 16 for a in group[0][3].values())
+    assert all(a.shape[0] == 16 for a in group[0][4].values())
 
     pc2 = tpc.PrefixCache(block=16)
     pc2.insert(t[:32], cache, row=0)
     srv2 = tserver.ContinuousBatcher(tm, batch_size=2, max_len=64,
                                      prefix_cache=pc2, device="cpu")
     prompt2 = np.concatenate([t[:16], t[:33] + 30])
-    [(kind2, key2, _)] = srv2._plan_wave([(0, prompt2, 3)])
+    [(kind2, key2, _)] = srv2._plan_wave([(0, prompt2, 3, None)])
     assert kind2 == "cold" and key2 == 64
 
     # end to end through the shortened prefix: real K/V this time

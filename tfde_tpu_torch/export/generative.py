@@ -126,7 +126,7 @@ def export_generate(model: nn.Module, directory: str, prompt_len: int,
     if resolve_kv_quant(model) is not None:
         raise NotImplementedError(
             "export_generate of a model with kv_quant='int8': the exported "
-            "tick carries no scale planes (ROADMAP queue 1 item 5)")
+            "tick carries no scale planes (ROADMAP queue 1 item 3.4)")
     sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                     min_p=min_p, eos_id=eos_id, pad_id=pad_id)
     traced = copy.deepcopy(model).eval()

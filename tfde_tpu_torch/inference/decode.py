@@ -10,7 +10,10 @@
   (`init_cache(..., paged_blocks=, kv_block=)`). With
   `init_cache(..., kv_quant='int8')` either layout holds int8 payloads
   and fp32 scale planes (`key_scales`/`value_scales`: [B, max_len, Kv]
-  or [num_blocks, block, Kv] a layer; ops/quant.kv_quantize).
+  or [num_blocks, block, Kv] a layer; ops/quant.kv_quantize). Shipped
+  K/V (the role split's primed hand-off) lands with
+  `KVCache.land_planes` (rows) or `PagedKVCache.land_blocks` (pool
+  blocks), each held to the cache's layout by `check_planes`.
 - `sample_logits`: repetition penalty, then greedy or temperature with
   the top-k, top-p and min-p filters (`filter_logits`), then a draw from
   an explicit `torch.Generator`, or, given `gumbel_noise`, the Gumbel-max
@@ -109,6 +112,46 @@ class KVCache:
                                  f"{small.dtype}, the cache's {big.dtype}")
             big[rows] = small
 
+    def land_planes(self, planes: dict, rows: torch.Tensor) -> None:
+        """Write shipped K/V (a primed hand-off: `planes` maps each of this
+        cache's plane names to [R, P, ...] on its device, P <= max_len)
+        into cells [0, P) of batch rows `rows` [R], in place. Duplicate
+        rows carry identical values. A payload of another layout raises
+        (`check_planes`)."""
+        check_planes(self, planes, lead=2)
+        for name, big in self.planes().items():
+            seg = planes[name]
+            big[rows, :seg.shape[1]] = seg
+
+
+def check_planes(cache: KVCache, planes: dict, lead: int) -> None:
+    """Hold shipped planes to `cache`'s layout: the same plane names
+    (`KVCache.planes()`), each in the cache's dtype, with the cache's
+    per-cell dims [Kv, D] (a scale plane: [Kv]) after `lead` leading
+    dims (one primed request's [P, ...]: 1; a dense wave's [R, P, ...]:
+    2; a paged wave's [R, NB, block, ...]: 3). Raises ValueError
+    otherwise, where JAX casts: a full-precision payload would truncate
+    into an int8 cache, and int8 without its scale planes cannot be
+    read."""
+    mine = cache.planes()
+    if set(planes) != set(mine):
+        missing = sorted(set(mine) - set(planes))
+        extra = sorted(set(planes) - set(mine))
+        raise ValueError(
+            f"shipped K/V planes do not match the cache's "
+            f"({'int8' if cache.quantized else 'fp'}): missing "
+            f"{missing[:4]}{' ...' if len(missing) > 4 else ''}, "
+            f"unexpected {extra[:4]}{' ...' if len(extra) > 4 else ''}")
+    for name, big in mine.items():
+        seg = planes[name]
+        if seg.dtype != big.dtype:
+            raise ValueError(f"shipped plane {name} is {seg.dtype}, the "
+                             f"cache's {big.dtype}: a cast would change it")
+        if tuple(seg.shape[lead:]) != tuple(big.shape[2:]):
+            raise ValueError(
+                f"shipped plane {name} has cells {tuple(seg.shape[lead:])},"
+                f" the cache's {tuple(big.shape[2:])}")
+
 
 class PagedKVCache(KVCache):
     """The paged layout: per-layer K/V pools [num_blocks, block, Kv, D]
@@ -127,6 +170,21 @@ class PagedKVCache(KVCache):
         super().__init__(keys, values, index, key_scales, value_scales)
         self.table = table
         self.block = int(block)
+
+    def land_blocks(self, planes: dict, blocks: torch.Tensor) -> None:
+        """Write shipped K/V re-chunked to blocks (`planes`: each plane
+        name to [R, NB, block, ...] on the device) into pool blocks
+        `blocks` [R, NB], in place. Slots past a row's prompt blocks name
+        the null block and carry zeros, so duplicate writes are
+        identical. A payload of another layout raises (`check_planes`)."""
+        check_planes(self, planes, lead=3)
+        for name, pool in self.planes().items():
+            seg = planes[name]
+            if seg.shape[2] != self.block:
+                raise ValueError(f"shipped plane {name} is chunked to "
+                                 f"{seg.shape[2]}-cell blocks, the pool "
+                                 f"to {self.block}")
+            pool[blocks] = seg
 
 
 def validate_budget(model, prompt_len: int, max_new_tokens: int) -> int:

@@ -67,17 +67,40 @@ device program the JAX batcher would run (row template, prefill, scatter,
 seen update, state upload, block-table upload, prefill chunk, decode
 round) and one per blocking fetch.
 
-Not ported yet (ROADMAP queue 1 item 5): the prefill/decode role split
-and primed hand-off (`role`, `prime`, `submit_primed`), admission
-control (`admission_ctl`, which would gate on `kv_stats()`; so no
-request is shed yet), spans/trace/flight recorder, and the speculative
-batcher. The arguments and methods the JAX batcher has for them raise
-here.
+Admission control (`admission_ctl=`, default an
+`admission.AdmissionController` from the ``TFDE_ADMIT_*`` knobs, every
+cap off): `submit` and `submit_primed` pass one gate (`_admission_check`:
+the queue-depth and queued-token caps, the forced-overload lever and,
+when ``TFDE_ADMIT_KV_HEADROOM`` is set, the `kv_stats()` headroom
+floor) or raise `admission.QueueFull` with a Retry-After from the drain
+rate EWMA that every decode round feeds (`note_drain`). The queue drains
+by priority class (`interactive` > `batch` > `best_effort`, FIFO within
+one); a request whose TTFT deadline passed while it queued is shed at
+dequeue, before any prefill (`_maybe_shed`, `was_shed`). `enable_progress`
+/ `take_progress` stream each request's tokens as they land;
+`_publish_stats` mirrors `stats()` and the queue into the
+``serving/batcher/*`` gauges after every step.
+
+The prefill/decode role split (`role=`): a 'prefill' replica serves only
+`prime()` (one cold one-row prefill at the prompt's bucket on a fresh
+dense row cache, its attention on the flash kernel on a CUDA tensor; the
+row's K/V planes and the first token come back to the host in one sync
+as a `PrimedRequest`), a 'decode' replica refuses `prime()` and admits
+`submit_primed()` hand-offs beside plain submits: a 'primed' group lands
+the shipped planes with one scatter (the dense rows, or the pool blocks
+of a paged batcher) and runs no model FLOPs and no sync. The wire format
+(`inference/router.py`) is the JAX package's. At temperature > 0 a primed
+request's first token was drawn from the prefill replica's generator.
+
+Not ported yet (ROADMAP queue 1 items 4 and 5): spans, trace (`trace=`
+other than None raises) and the flight recorder, and the speculative
+batcher.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Optional
 
@@ -85,9 +108,11 @@ import numpy as np
 import torch
 
 from tfde_tpu_torch import knobs
+from tfde_tpu_torch.inference import admission as _admission
 from tfde_tpu_torch.inference import paged as _paged
 from tfde_tpu_torch.inference.decode import (
     KVCache,
+    check_planes,
     init_cache,
     remat_off,
     resolve_kv_quant,
@@ -102,15 +127,59 @@ from tfde_tpu_torch.observability import capacity as _capacity
 from tfde_tpu_torch.observability import metrics
 from tfde_tpu_torch.utils.devices import resolve_device
 
-#: priority classes, highest first — index order IS drain order
-#: (tfde_tpu/inference/admission.py)
-PRIORITIES = ("interactive", "batch", "best_effort")
-DEFAULT_PRIORITY = "interactive"
-
 
 def _fetch(tensors):
     """THE host sync: one blocking device->host copy per round."""
     return [t.cpu().numpy() for t in tensors]
+
+
+def _fetch_planes(planes: dict, tok: torch.Tensor):
+    """One device->host copy of every plane in `planes` and the tokens
+    `tok`: their bytes go into one flat buffer on the device (each part
+    padded to 8 bytes, so every view back is aligned), cross once, and
+    are cut back into host tensors. Returns ({name: host tensor}, tok as
+    np.int64)."""
+    parts, spans, at = [], [], 0
+    for t in list(planes.values()) + [tok.to(torch.int64)]:
+        raw = t.contiguous().view(torch.uint8).reshape(-1)
+        pad = -raw.numel() % 8
+        parts.append(raw)
+        if pad:
+            parts.append(raw.new_zeros(pad))
+        spans.append((at, raw.numel()))
+        at += raw.numel() + pad
+    flat = torch.cat(parts).cpu()
+    out = {}
+    for (name, t), (start, n) in zip(planes.items(), spans):
+        out[name] = flat[start:start + n].view(t.dtype).reshape(t.shape)
+    start, n = spans[-1]
+    return out, flat[start:start + n].view(torch.int64).numpy()
+
+
+def _no_trace(trace) -> None:
+    """The JAX batcher's `trace=` (a distributed-trace id): the port has
+    no trace module yet."""
+    if trace is not None:
+        raise NotImplementedError(
+            "trace=: request tracing is not ported (ROADMAP queue 1 item 4)")
+
+
+@dataclasses.dataclass
+class PrimedRequest:
+    """A prefill-role replica's hand-off unit: everything a decode replica
+    needs to admit the request without running the prompt forward. `kv`
+    holds HOST tensors by plane name (`KVCache.planes()`: `(layer, 'k' |
+    'v')`, and `'k_scale' | 'v_scale'` for an int8 cache), each [P, ...]
+    over the prompt's cells, so the object is process-portable:
+    inference/router.py ships it as the JAX package's JSON. Greedy
+    decoding of a primed request equals a locally admitted one; at
+    temperature > 0 the first token was drawn from the PREFILL replica's
+    generator."""
+
+    prompt: np.ndarray          # [P] int token ids
+    first_token: int            # sampled at prefill time (pending, unfed)
+    max_new_tokens: int
+    kv: dict                    # plane name -> host tensor [P, ...]
 
 
 @torch.no_grad()
@@ -199,16 +268,19 @@ def _pad_wave(r: int, cap: int) -> int:
 
 
 class _PriorityDeque:
-    """One FIFO lane per priority class, drained highest-priority-first."""
+    """One FIFO lane per priority class, drained highest-priority-first;
+    iteration walks the lanes in drain order."""
 
     def __init__(self):
         self._lanes = collections.OrderedDict(
-            (p, collections.deque()) for p in PRIORITIES)
+            (p, collections.deque()) for p in _admission.PRIORITIES)
 
-    def append(self, item, priority: str = DEFAULT_PRIORITY) -> None:
+    def append(self, item,
+               priority: str = _admission.DEFAULT_PRIORITY) -> None:
         self._lanes[priority].append(item)
 
-    def appendleft(self, item, priority: str = DEFAULT_PRIORITY) -> None:
+    def appendleft(self, item,
+                   priority: str = _admission.DEFAULT_PRIORITY) -> None:
         """Put a dequeued item back at the front of its lane (the
         capacity stall: nothing behind it overtakes it)."""
         self._lanes[priority].appendleft(item)
@@ -228,26 +300,43 @@ class _PriorityDeque:
                 return lane.popleft()
         raise IndexError("pop from an empty priority queue")
 
+    def depths(self) -> dict:
+        """Queue depth of each priority class."""
+        return {p: len(lane) for p, lane in self._lanes.items()}
+
     def __len__(self) -> int:
         return sum(len(lane) for lane in self._lanes.values())
 
     def __bool__(self) -> bool:
         return any(self._lanes.values())
 
-
+    def __iter__(self):
+        for lane in self._lanes.values():
+            yield from lane
 
 
 class _BatcherBase:
     """The request queue, per-row host bookkeeping (`_take_token`),
-    `cancel`, wave admission (`_admit` plans groups with `_plan_wave`
-    and runs each with `_run_group`; the subclass supplies the waves and
-    the capacity hooks), the usage meter and the capacity ledger (the
-    subclass wires it with `_init_capacity` once its cache exists)."""
+    admission control (`submit`/`submit_primed` through
+    `_admission_check`, deadline shedding at dequeue), `cancel`, the
+    progress stream, wave admission (`_admit` plans groups with
+    `_plan_wave` and runs each with `_run_group`; the subclass supplies
+    the waves and the capacity hooks), the usage meter, the capacity
+    ledger (the subclass wires it with `_init_capacity` once its cache
+    exists) and the ``serving/batcher/*`` gauges (`_publish_stats`)."""
+
+    _metrics_prefix = "serving/batcher"
+    #: subclasses that implement `_primed_wave` and `prime` flip this
+    _accepts_primed = False
 
     def __init__(self, model, batch_size: int, max_len: int, eos_id,
-                 pad_id: int, prompt_buckets, device):
+                 pad_id: int, prompt_buckets, device, role: str = "both",
+                 admission_ctl=None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'both', 'prefill' or 'decode', got {role!r}")
         self._device = resolve_device(device)
         if model.device != self._device:
             raise ValueError(f"model is on {model.device}, the batcher was "
@@ -258,14 +347,22 @@ class _BatcherBase:
         self._max_len = int(max_len)
         self._eos = eos_id
         self._pad = pad_id
+        self._role = role
         self._req = [None] * batch_size          # request id or None
         self._out = [[] for _ in range(batch_size)]
         self._budget = np.zeros(batch_size, np.int64)
         self._committed = np.zeros(batch_size, np.int64)
         self._tok = np.full(batch_size, pad_id, np.int64)
-        # queue items: (rid, prompt [P] np.int64, budget)
+        # queue items: (rid, prompt [P] np.int64, budget, primed or None);
+        # `primed` is set only for submit_primed() entries (K/V in hand)
         self._queue = _PriorityDeque()
+        # admission policy: caps + drain-rate estimate (the default reads
+        # TFDE_ADMIT_*; every cap off unless configured)
+        self._admission = (admission_ctl if admission_ctl is not None
+                           else _admission.AdmissionController())
         self._priority: dict = {}
+        self._deadline_at: dict = {}  # rid -> absolute TTFT deadline
+        self._shed: set = set()       # rids deadline-shed at dequeue
         self._submitted_at: dict = {}
         self._ttft_ms: dict = {}
         self._queue_ms: dict = {}
@@ -281,6 +378,10 @@ class _BatcherBase:
         self._short = False    # a wave gave requests back (paged)
         self._prefill_s = 0.0  # host seconds in prefill waves (each ends
         self._decode_s = 0.0   # in a sync) and in decode rounds
+        # per-request incremental delivery (`enable_progress`): off by
+        # default, since an unread stream entry would stay forever
+        self._track_progress = False
+        self._stream: dict = {}  # rid -> {"tokens", "taken", "done"}
         # KV capacity: the ledger and headroom model once the subclass's
         # cache exists (`_init_capacity`); the usage meter from the start
         # (its JSONL log arms from TFDE_USAGE_LOG or `arm_usage_log`)
@@ -296,6 +397,31 @@ class _BatcherBase:
     def free_rows(self) -> int:
         return sum(r is None for r in self._req)
 
+    @property
+    def role(self) -> str:
+        """'both', 'prefill' (serves `prime()` only) or 'decode' (refuses
+        `prime()`, admits `submit_primed()` beside `submit()`)."""
+        return self._role
+
+    @property
+    def admission(self) -> "_admission.AdmissionController":
+        return self._admission
+
+    @property
+    def outstanding_tokens(self) -> int:
+        """Remaining output-token budget across active rows plus the
+        queue: the least-loaded placement signal of a router."""
+        active = sum(int(self._budget[r]) for r in range(self._b)
+                     if self._req[r] is not None)
+        return active + self.queued_tokens
+
+    @property
+    def queued_tokens(self) -> int:
+        """Output-token backlog of QUEUED requests only (active rows are
+        already paid for): the admission cap's and the drain estimate's
+        unit."""
+        return sum(int(item[2]) for item in self._queue)
+
     def ttft_ms(self) -> dict:
         """{request id: ms from submit to its first token} so far."""
         return dict(self._ttft_ms)
@@ -307,13 +433,14 @@ class _BatcherBase:
 
     def reused_tokens(self) -> dict:
         """{request id: prompt tokens its admission took from the prefix
-        cache} so far (0: a cold admission)."""
+        cache} so far (0: a cold or primed admission)."""
         return dict(self._reused)
 
     def wave_counts(self) -> dict:
         """Prefill waves run, by kind: 'cold' (a dense bucket prefill,
         the flash kernel's wave), 'warm' (a dense suffix prefill after a
-        prefix hit), 'paged' (the chunked paged prefill)."""
+        prefix hit), 'paged' (the chunked paged prefill), 'primed' (the
+        scatter of shipped K/V: no model FLOPs)."""
         return dict(self._wave_kinds)
 
     @property
@@ -348,10 +475,80 @@ class _BatcherBase:
         did not fit (paged only)."""
         return self._stalls
 
-    def submit(self, prompt, max_new_tokens: int,
-               priority: Optional[str] = None) -> int:
+    def was_shed(self, rid: int) -> bool:
+        """True exactly once for a request that was deadline-shed at
+        dequeue (an HTTP layer turns its empty completion into an
+        explicit shed event)."""
+        if rid in self._shed:
+            self._shed.discard(rid)
+            return True
+        return False
+
+    def submit(self, prompt, max_new_tokens: int, trace=None,
+               priority: Optional[str] = None,
+               ttft_deadline_ms: Optional[float] = None) -> int:
         """Queue a request; returns its id. prompt: 1-D int token ids.
-        priority: 'interactive' (default) > 'batch' > 'best_effort'."""
+        `trace`: the JAX batcher's trace id; only None (tracing is not
+        ported). `priority`: 'interactive' (default; None and '' too) >
+        'batch' > 'best_effort', case and surrounding blanks ignored; the
+        queue drains highest-priority-first. `ttft_deadline_ms`: shed the
+        request at dequeue if its queue wait alone passed this budget
+        (default: the controller's ``TFDE_ADMIT_TTFT_DEADLINE_MS``).
+        Raises `admission.QueueFull` when a configured cap binds; a
+        rejected submit takes no request id and leaves no state."""
+        if self._role == "prefill":
+            raise RuntimeError(
+                "prefill-only replica: use prime() and hand the result to "
+                "a decode replica's submit_primed()")
+        _no_trace(trace)
+        prompt = self._check_request(prompt, max_new_tokens)
+        pr = _admission.validate_priority(priority)
+        self._admission_check(int(max_new_tokens))
+        return self._enqueue(prompt, int(max_new_tokens), None, pr,
+                             ttft_deadline_ms)
+
+    def submit_primed(self, primed: PrimedRequest, trace=None,
+                      priority: Optional[str] = None,
+                      ttft_deadline_ms: Optional[float] = None) -> int:
+        """Queue a request whose prefill already ran on a prefill-role
+        replica (`prime()`): only the K/V scatter and the decode happen
+        here. A payload of another cache layout (full precision into
+        int8, int8 without its scale planes, other widths) raises
+        ValueError. Returns the local request id."""
+        if not self._accepts_primed:
+            raise RuntimeError(
+                f"{type(self).__name__} does not accept primed requests")
+        if self._role == "prefill":
+            raise RuntimeError("prefill-only replica cannot decode")
+        _no_trace(trace)
+        prompt = self._check_request(primed.prompt, primed.max_new_tokens)
+        self._check_primed(primed, prompt)
+        pr = _admission.validate_priority(priority)
+        self._admission_check(int(primed.max_new_tokens))
+        return self._enqueue(prompt, int(primed.max_new_tokens), primed, pr,
+                             ttft_deadline_ms)
+
+    def _check_primed(self, primed: PrimedRequest,
+                      prompt: np.ndarray) -> None:
+        """A primed payload must fit this batcher's cache layout."""
+
+    def _admission_check(self, budget: int) -> None:
+        """One admission gate for both submit paths: the queue caps, and
+        when a ledger is wired and ``min_headroom_rows`` set the memory
+        gate, with the kv snapshot riding any rejection and the
+        outstanding decode backlog as the Retry-After basis when headroom
+        (not queue depth) binds."""
+        if self._ledger is not None and self._admission.min_headroom_rows:
+            kv = self.kv_stats()
+            self._admission.check(
+                len(self._queue), self.queued_tokens, budget,
+                headroom_rows=kv.get("headroom_rows"), kv=kv,
+                drain_tokens=self.outstanding_tokens)
+        else:
+            self._admission.check(len(self._queue), self.queued_tokens,
+                                  budget)
+
+    def _check_request(self, prompt, max_new_tokens: int) -> np.ndarray:
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must have at least one token")
@@ -362,18 +559,43 @@ class _BatcherBase:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the batcher's max_len {self._max_len}")
-        pr = DEFAULT_PRIORITY if priority is None else priority
-        if pr not in PRIORITIES:
-            raise ValueError(f"priority must be one of {PRIORITIES}, got "
-                             f"{priority!r}")
         self._validate_submit(prompt, max_new_tokens)
+        return prompt
+
+    def _enqueue(self, prompt: np.ndarray, budget: int, primed,
+                 priority: str, ttft_deadline_ms: Optional[float]) -> int:
         rid = self._next_id
         self._next_id += 1
-        self._queue.append((rid, prompt, int(max_new_tokens)), priority=pr)
-        self._priority[rid] = pr
-        self._submitted_at[rid] = time.perf_counter()
-        self._usage.begin(rid, int(prompt.size), pr)
+        self._queue.append((rid, prompt, budget, primed), priority=priority)
+        now = time.perf_counter()
+        self._priority[rid] = priority
+        self._submitted_at[rid] = now
+        self._usage.begin(rid, int(prompt.size), priority)
+        dl = (float(ttft_deadline_ms) if ttft_deadline_ms is not None
+              else self._admission.ttft_deadline_ms)
+        if dl and dl > 0:
+            self._deadline_at[rid] = now + dl / 1e3
+        if self._track_progress:
+            self._stream[rid] = {"tokens": [], "taken": 0, "done": False}
         return rid
+
+    def enable_progress(self) -> None:
+        """Track each request's tokens for `take_progress` (a streaming
+        front end's feed). Applies to requests submitted after the
+        call."""
+        self._track_progress = True
+
+    def take_progress(self, rid: int):
+        """(new tokens since the last take, done flag) of a request
+        submitted after `enable_progress()`. The take that drains a
+        finished request's entry drops it; a shed request is done with no
+        tokens."""
+        ent = self._stream[rid]
+        toks = ent["tokens"][ent["taken"]:]
+        ent["taken"] += len(toks)
+        if ent["done"] and ent["taken"] == len(ent["tokens"]):
+            del self._stream[rid]
+        return toks, ent["done"]
 
     def run(self) -> list:
         """Step until idle; returns every completion in finish order."""
@@ -386,9 +608,13 @@ class _BatcherBase:
         """Abandon a request whose consumer is gone: drop it from the
         queue, or free its row so the decode rounds stop spending ticks
         on it (a paged row's blocks return to the pool). Partial output
-        is discarded. Returns whether the request was found in flight."""
+        is discarded, and so are its stream entry and deadline. Returns
+        whether the request was found in flight."""
+        self._stream.pop(rid, None)
         self._submitted_at.pop(rid, None)
         self._priority.pop(rid, None)
+        self._deadline_at.pop(rid, None)
+        self._shed.discard(rid)
         if self._queue.remove_rid(rid):
             self._usage.finish(rid, 0, outcome="cancelled")
             return True
@@ -408,6 +634,22 @@ class _BatcherBase:
                 return True
         return False
 
+    def _publish_stats(self) -> None:
+        """Mirror `stats()` and the queue into the ``serving/batcher/*``
+        gauges (queue_depth, free_rows, outstanding_tokens, queued_tokens,
+        drain_rate_tps) and refresh the kv/* gauges (`kv_stats`)."""
+        reg = metrics.default_registry()
+        pre = self._metrics_prefix
+        for k, v in self.stats().items():
+            reg.gauge(f"{pre}/{k}").set(v)
+        reg.gauge(f"{pre}/queue_depth").set(len(self._queue))
+        reg.gauge(f"{pre}/free_rows").set(self.free_rows)
+        reg.gauge(f"{pre}/outstanding_tokens").set(self.outstanding_tokens)
+        reg.gauge(f"{pre}/queued_tokens").set(self.queued_tokens)
+        reg.gauge(f"{pre}/drain_rate_tps").set(
+            self._admission.drain_rate_tps)
+        self.kv_stats()
+
     def _validate_submit(self, prompt: np.ndarray,
                          max_new_tokens: int) -> None:
         validate_budget(self._model, int(prompt.size), max_new_tokens)
@@ -418,6 +660,10 @@ class _BatcherBase:
         """Prefill + scatter one padded wave; returns the [R] first
         tokens. Rows past `n` are ladder padding (duplicates of row 0)."""
         raise NotImplementedError
+
+    def _primed_wave(self, bucket: int, group, rows) -> np.ndarray:
+        raise NotImplementedError(
+            "primed admission requires a subclass with _accepts_primed")
 
     def _release_row(self, r: int) -> None:
         """Row `r` just left the batch (completion or cancel): return its
@@ -445,8 +691,8 @@ class _BatcherBase:
     def _admission_cells(self, kind: str, key, item) -> tuple:
         """(allocated cells, real tokens) of one admitted request's
         prefill, the ledger's pad-waste unit: the bucket and the prompt
-        (a warm group's suffix bucket and suffix). The paged batcher
-        counts blocks."""
+        (a warm group's suffix bucket and suffix; a primed group's
+        bucket and prompt). The paged batcher counts blocks."""
         prompt = item[1]
         if kind == "warm":
             return int(key[1]), int(prompt.size) - int(key[0])
@@ -458,10 +704,16 @@ class _BatcherBase:
         self._budget[r] -= 1
         self._tok[r] = t
         self._generated += 1
+        ent = self._stream.get(self._req[r]) if self._track_progress else None
+        if ent is not None:
+            ent["tokens"].append(int(t))
         if self._budget[r] <= 0 or (self._eos is not None and t == self._eos):
+            if ent is not None:
+                ent["done"] = True
             rid = self._req[r]
             done = (rid, np.asarray(self._out[r], np.int32))
             self._priority.pop(rid, None)
+            self._deadline_at.pop(rid, None)
             self._usage.finish(rid, len(self._out[r]), outcome="ok")
             self._release_row(r)
             self._req[r] = None
@@ -473,17 +725,23 @@ class _BatcherBase:
 
     def _plan_wave(self, wave) -> list:
         """Group one admission wave into prefill groups: [(kind, key,
-        items)], items (rid, prompt, budget, extra). Here 'cold' groups by
-        prompt bucket; the batcher adds 'warm' and 'paged'."""
-        groups: dict = collections.OrderedDict()
-        for rid, prompt, budget in wave:
+        items)], items (rid, prompt, budget, primed, extra). Here 'cold'
+        and 'primed' (K/V in hand: a scatter only) group by prompt
+        bucket; the batcher adds 'warm' and 'paged'."""
+        cold: dict = collections.OrderedDict()
+        primed: dict = collections.OrderedDict()
+        for rid, prompt, budget, pr in wave:
             bucket = next(b for b in self._buckets if b >= prompt.size)
-            groups.setdefault(bucket, []).append((rid, prompt, budget, None))
-        return [("cold", b, g) for b, g in groups.items()]
+            dst = primed if pr is not None else cold
+            dst.setdefault(bucket, []).append((rid, prompt, budget, pr, None))
+        return ([("cold", b, g) for b, g in cold.items()]
+                + [("primed", b, g) for b, g in primed.items()])
 
     def _run_group(self, kind: str, key, group, rows) -> np.ndarray:
         if kind == "cold":
             return self._cold_wave(key, group, rows)
+        if kind == "primed":
+            return self._primed_wave(key, group, rows)
         raise ValueError(f"unknown admission kind {kind!r}")
 
     def _cold_wave(self, bucket: int, group, rows) -> np.ndarray:
@@ -506,10 +764,11 @@ class _BatcherBase:
         """Fill free rows from the queue a group wave at a time. Every
         admitted row holds one pending token afterwards; a request that
         finishes on its first token frees its row within the same call.
-        A request whose cache blocks do not fit goes back to the front of
-        its lane, and admission stops until a completion frees blocks
-        (head of line, on purpose: skipping ahead would starve big
-        requests)."""
+        A request whose TTFT deadline passed in the queue is shed at
+        dequeue (`_maybe_shed`), before the capacity gate. A request
+        whose cache blocks do not fit goes back to the front of its lane,
+        and admission stops until a completion frees blocks (head of
+        line, on purpose: skipping ahead would starve big requests)."""
         finished = []
         stalled = False
         while self._queue and self.free_rows and not stalled:
@@ -519,11 +778,15 @@ class _BatcherBase:
             self._short = False
             while self._queue and len(wave) < len(free):
                 item = self._queue.popleft()
+                # a request whose queue wait alone blew its TTFT budget
+                # is dead on arrival: no wave is spent on it
+                if self._maybe_shed(item):
+                    continue
                 need = self._admission_cost(item)
                 if need and not self._admit_capacity(need, reserved):
                     self._queue.appendleft(
                         item, priority=self._priority.get(
-                            item[0], DEFAULT_PRIORITY))
+                            item[0], _admission.DEFAULT_PRIORITY))
                     self._stalls += 1
                     self._on_capacity_stall()
                     stalled = True
@@ -544,7 +807,7 @@ class _BatcherBase:
                 self._waves += 1
                 self._wave_kinds[kind] += 1
                 for i, item in enumerate(group):
-                    rid, prompt, budget, _extra = item
+                    rid, prompt, budget = item[:3]
                     r = rows[i]
                     self._req[r] = rid
                     self._out[r] = []
@@ -563,6 +826,32 @@ class _BatcherBase:
             stalled = stalled or self._short
             self._mark_dirty()
         return finished
+
+    def _maybe_shed(self, item) -> bool:
+        """Deadline shedding: True when `item`'s queue wait passed its
+        TTFT deadline. The request is dropped (no prefill), the
+        ``serving/shed_expired``, ``serving/shed_<priority>`` and
+        ``serving/shed_tokens`` counters tick, its usage closes with
+        outcome 'shed', its stream entry turns done and shed, and
+        `was_shed` answers once."""
+        rid, _prompt, budget, _pr = item
+        dl = self._deadline_at.get(rid)
+        if dl is None or time.perf_counter() <= dl:
+            return False
+        pr = self._priority.pop(rid, _admission.DEFAULT_PRIORITY)
+        self._deadline_at.pop(rid, None)
+        self._submitted_at.pop(rid, None)
+        self._shed.add(rid)
+        ent = self._stream.get(rid)
+        if ent is not None:
+            ent["done"] = True
+            ent["shed"] = True
+        reg = metrics.default_registry()
+        reg.counter("serving/shed_expired").incr()
+        reg.counter(f"serving/shed_{pr}").incr()
+        reg.counter("serving/shed_tokens").incr(int(budget))
+        self._usage.finish(rid, 0, outcome="shed")
+        return True
 
     def _mark_dirty(self) -> None:
         """Admission invalidated the device-resident loop state."""
@@ -587,8 +876,11 @@ class ContinuousBatcher(_BatcherBase):
     fewer than nmax + 1 raises. kv_quant: 'int8' stores every cache in
     int8 with fp32 scale planes, 'fp' keeps the model's own format (full
     precision by default), None defers to ``TFDE_KV_QUANT`` (fp or int8;
-    any other value raises). role and admission_ctl are the JAX
-    batcher's and are not ported: anything but their defaults raises.
+    any other value raises). role: 'both' (default), 'prefill' (serves
+    `prime()` only: the hand-off producer of the role split) or 'decode'
+    (refuses `prime()`; admits `submit_primed()` hand-offs beside plain
+    submits). admission_ctl: an `admission.AdmissionController` (default:
+    one from the ``TFDE_ADMIT_*`` knobs, every cap off).
 
     Usage::
 
@@ -618,20 +910,13 @@ class ContinuousBatcher(_BatcherBase):
                 f"{repetition_penalty}")
         if scan_depth < 1:
             raise ValueError(f"scan_depth must be >= 1, got {scan_depth}")
-        if role != "both":
-            raise NotImplementedError(
-                f"role={role!r}: the prefill/decode role split is not "
-                f"ported (ROADMAP queue 1 item 5)")
-        if admission_ctl is not None:
-            raise NotImplementedError(
-                "admission_ctl: admission control is not ported (ROADMAP "
-                "queue 1 item 5)")
         # one resolution covers every cache this batcher builds: the slab
         # or pool, the wave's row caches and the trie's segments
         self._kv_quant = resolve_kv_quant(
             model, knobs.kv_quant_spec() if kv_quant is None else kv_quant)
         super().__init__(model, batch_size, max_len, eos_id, pad_id,
-                         prompt_buckets, device)
+                         prompt_buckets, device, role=role,
+                         admission_ctl=admission_ctl)
         self._sampling = dict(
             temperature=float(temperature), top_k=top_k, top_p=top_p,
             min_p=min_p, repetition_penalty=float(repetition_penalty))
@@ -715,16 +1000,6 @@ class ContinuousBatcher(_BatcherBase):
         """Pool defragmentations run (paged: at capacity stalls)."""
         return self._defrags
 
-    def prime(self, *args, **kwargs):
-        raise NotImplementedError(
-            "prime: the prefill/decode role split is not ported (ROADMAP "
-            "queue 1 item 5)")
-
-    def submit_primed(self, *args, **kwargs):
-        raise NotImplementedError(
-            "submit_primed: the prefill/decode role split is not ported "
-            "(ROADMAP queue 1 item 5)")
-
     def stats(self) -> dict:
         """Decode ticks run, tokens delivered, tokens per round, and the
         host cost per token: dispatches and blocking syncs (the O(1/K)
@@ -748,11 +1023,12 @@ class ContinuousBatcher(_BatcherBase):
         """Admit into free rows, run one decode round (up to `scan_depth`
         ticks); returns [(request_id, tokens 1-D np.int32), ...] that
         finished now. A remat-trained model serves with remat off
-        (`decode.remat_off`). The kv/* gauges are refreshed after every
-        step (`kv_stats`), as the JAX batcher publishes them."""
+        (`decode.remat_off`). The ``serving/batcher/*`` and kv/* gauges
+        are refreshed after every step (`_publish_stats`), as the JAX
+        batcher publishes them."""
         with remat_off(self._model):
             finished = self._step()
-        self.kv_stats()
+        self._publish_stats()
         return finished
 
     def _step(self) -> list:
@@ -783,15 +1059,20 @@ class ContinuousBatcher(_BatcherBase):
         self._syncs += 1
         self._decode_s += time.perf_counter() - t0
         self._rounds += depth
+        n_emitted = 0
         for r in active:
             row = toks_np[r][emitted_np[r]]
             if row.size == 0:
                 continue
+            n_emitted += int(row.size)
             # feeding each pending token committed it; the row's last
             # sample stays pending
             self._committed[r] += int(row.size)
             for t in row:
                 finished.extend(self._take_token(r, int(t)))
+        # the drain rate: this round's tokens over its wall time, from
+        # before the first program to after the host replay (JAX's span)
+        self._admission.note_drain(n_emitted, time.perf_counter() - t0)
         return finished
 
     def _validate_submit(self, prompt, max_new_tokens) -> None:
@@ -911,9 +1192,14 @@ class ContinuousBatcher(_BatcherBase):
             return super()._plan_wave(wave)
         cold: dict = collections.OrderedDict()
         warm: dict = collections.OrderedDict()
+        primed: dict = collections.OrderedDict()
         block = self._prefix.block
-        for rid, prompt, budget in wave:
+        for rid, prompt, budget, pr in wave:
             bucket = next(b for b in self._buckets if b >= prompt.size)
+            if pr is not None:
+                primed.setdefault(bucket, []).append(
+                    (rid, prompt, budget, pr, None))
+                continue
             pre_len, kv = self._prefix.lookup(prompt)
             # the suffix feeds at cache position pre_len, so its bucket
             # must fit the row too (pre_len + bucket <= max_len), or the
@@ -936,11 +1222,13 @@ class ContinuousBatcher(_BatcherBase):
                 # penalty needs the whole prompt's presence mask
                 fbucket = bucket if self._seen is not None else 0
                 warm.setdefault((pre_len, sbucket, fbucket), []).append(
-                    (rid, prompt, budget, kv))
+                    (rid, prompt, budget, None, kv))
             else:
-                cold.setdefault(bucket, []).append((rid, prompt, budget, None))
+                cold.setdefault(bucket, []).append(
+                    (rid, prompt, budget, None, None))
         return ([("cold", b, g) for b, g in cold.items()]
-                + [("warm", k, g) for k, g in warm.items()])
+                + [("warm", k, g) for k, g in warm.items()]
+                + [("primed", b, g) for b, g in primed.items()])
 
     def _run_group(self, kind: str, key, group, rows) -> np.ndarray:
         if kind == "warm":
@@ -953,7 +1241,7 @@ class ContinuousBatcher(_BatcherBase):
         if kind == "warm":
             return int(key[0])
         if kind == "paged":
-            return int(item[3][0])
+            return int(item[4][0])
         return 0
 
     @torch.no_grad()
@@ -975,7 +1263,7 @@ class ContinuousBatcher(_BatcherBase):
         plens = np.zeros(rp, np.int64)
         kv_rows = []
         for i in range(rp):
-            _rid, prompt, _budget, kv = group[i if i < n else 0]
+            _rid, prompt, _budget, _pr, kv = group[i if i < n else 0]
             suffix = prompt[pre_len:]
             suffixes[i, :suffix.size] = suffix
             last[i] = suffix.size - 1
@@ -1032,11 +1320,13 @@ class ContinuousBatcher(_BatcherBase):
         return snap
 
     def _admission_cells(self, kind: str, key, item) -> tuple:
-        if kind != "paged":
+        if not self._paged:
             return super()._admission_cells(kind, key, item)
         # the fresh blocks the prompt took (past the shared prefix), in
         # cells, against the prompt tokens they hold: intra-block slack
-        prompt, pre = item[1], int(item[3][0])
+        # (a primed row shares nothing)
+        prompt = item[1]
+        pre = int(item[4][0]) if kind == "paged" else 0
         block = self._kv_block
         alloc = (_paged.blocks_for(int(prompt.size), block)
                  - pre // block) * block
@@ -1045,7 +1335,7 @@ class ContinuousBatcher(_BatcherBase):
     def _admission_cost(self, item) -> int:
         if not self._paged:
             return 0
-        _rid, prompt, budget = item
+        _rid, prompt, budget, _pr = item
         # the whole lifetime, sharing ignored: a warm match only lowers
         # the real claim, so the gate errs toward stalling a wave early
         return _paged.blocks_for(int(prompt.size) + int(budget) + 1,
@@ -1099,14 +1389,22 @@ class ContinuousBatcher(_BatcherBase):
         wave, another item's allocation draining the trie included, can
         invalidate them; the claim is the row's own reference. A
         duplicate prompt in the same wave still misses: its twin's blocks
-        join the trie after the wave."""
+        join the trie after the wave. Primed hand-offs keep their bucket
+        groups (the shipped K/V stack is shaped by the bucket)."""
         items = []
-        for rid, prompt, budget in wave:
+        primed: dict = collections.OrderedDict()
+        for rid, prompt, budget, pr in wave:
+            if pr is not None:
+                bucket = next(b for b in self._buckets if b >= prompt.size)
+                primed.setdefault(bucket, []).append(
+                    (rid, prompt, budget, pr, None))
+                continue
             pre_len, ids = 0, None
             if self._prefix is not None:
                 pre_len, ids = self._prefix.lookup(prompt, claim=True)
-            items.append((rid, prompt, budget, (pre_len, ids)))
-        return [("paged", self._chunk, items)] if items else []
+            items.append((rid, prompt, budget, None, (pre_len, ids)))
+        plans = [("paged", self._chunk, items)] if items else []
+        return plans + [("primed", b, g) for b, g in primed.items()]
 
     def _give_back(self, items) -> None:
         """Requests of a paged wave whose blocks did not fit after all:
@@ -1116,12 +1414,12 @@ class ContinuousBatcher(_BatcherBase):
         and the JAX wave then raises PoolExhausted mid-admission."""
         if not items:
             return
-        for rid, prompt, budget, (_pre, ids) in reversed(items):
-            if ids:
-                self._prefix.release(ids)
-            self._queue.appendleft((rid, prompt, budget),
+        for rid, prompt, budget, pr, extra in reversed(items):
+            if extra is not None and extra[1]:
+                self._prefix.release(extra[1])
+            self._queue.appendleft((rid, prompt, budget, pr),
                                    priority=self._priority.get(
-                                       rid, DEFAULT_PRIORITY))
+                                       rid, _admission.DEFAULT_PRIORITY))
         self._stalls += 1
         self._short = True
 
@@ -1141,7 +1439,7 @@ class ContinuousBatcher(_BatcherBase):
         blocks to the trie by incref."""
         block = self._kv_block
         dev = self._device
-        for i, (_rid, prompt, budget, (_pre, ids)) in enumerate(group):
+        for i, (_rid, prompt, budget, _pr, (_pre, ids)) in enumerate(group):
             shared = [int(b) for b in ids] if ids else []
             fresh = _paged.blocks_for(prompt.size + budget + 1,
                                       block) - len(shared)
@@ -1166,7 +1464,8 @@ class ContinuousBatcher(_BatcherBase):
         n = len(group)
         starts = np.zeros(n, np.int64)
         plens = np.zeros(n, np.int64)
-        for i, (_rid, prompt, _budget, (pre_len, _ids)) in enumerate(group):
+        for i, (_rid, prompt, _budget, _pr, (pre_len, _ids)) in enumerate(
+                group):
             r = rows[i]
             held = self._row_blocks[r]
             self._tables[r, :len(held)] = held
@@ -1233,9 +1532,164 @@ class ContinuousBatcher(_BatcherBase):
         (tok_np,) = _fetch((tok,))
         self._syncs += 1
         if self._prefix is not None:
-            for i, (_rid, prompt, _budget, (pre_len, _ids)) in enumerate(
+            for i, (_rid, prompt, _budget, _pr, (pre_len, _ids)) in enumerate(
                     group):
                 nb = prompt.size // block
                 if pre_len == 0 and nb:  # warm rows don't re-insert
                     self._prefix.insert(prompt, self._row_blocks[rows[i]][:nb])
         return tok_np
+
+    # -- prefill/decode role split -------------------------------------------
+    _accepts_primed = True
+
+    def _check_primed(self, primed: PrimedRequest,
+                      prompt: np.ndarray) -> None:
+        """The payload must be this batcher's dense layout over the
+        prompt's cells: the cache's plane names and dtypes (int8 with its
+        scale planes), its cell widths, P cells each (a paged batcher
+        takes the same dense planes and re-chunks them to blocks)."""
+        check_planes(self._cache, primed.kv, lead=1)
+        for name, t in primed.kv.items():
+            if t.shape[0] != prompt.size:
+                raise ValueError(
+                    f"shipped plane {name} holds {t.shape[0]} cells, the "
+                    f"prompt {prompt.size} tokens")
+
+    @torch.no_grad()
+    def prime(self, prompt, max_new_tokens: int,
+              trace=None) -> PrimedRequest:
+        """Run ONLY the prefill of one request and return the hand-off for
+        a decode replica's `submit_primed()`: a one-row cold prefill at the
+        prompt's bucket into a fresh dense row cache (even in a paged
+        batcher, as JAX does: the hand-off is layout-agnostic), through
+        `_first_tokens`, so every layer's attention is the flash kernel on
+        a CUDA tensor. The row's planes over the prompt's cells and the
+        first token come to the host in one sync. Touches no decode row
+        and no queue. A dense prefix trie is seeded with the prompt's
+        blocks; a paged trie holds pool blocks, which this row has none
+        of. `trace`: only None (tracing is not ported)."""
+        if self._role == "decode":
+            raise RuntimeError("decode-only replica cannot prime")
+        _no_trace(trace)
+        prompt = self._check_request(prompt, max_new_tokens)
+        p = int(prompt.size)
+        bucket = next(b for b in self._buckets if b >= p)
+        padded = np.full((1, bucket), self._pad, np.int64)
+        padded[0, :p] = prompt
+        with remat_off(self._model):
+            row_cache = init_cache(self._model, 1, self._max_len,
+                                   kv_quant=self._kv_quant)
+            self._dispatches += 1  # the fresh zero row cache
+            tok, _ = self._first_tokens(row_cache, padded,
+                                        np.asarray([p - 1]), padded,
+                                        np.asarray([p]))
+            self._dispatches += 1
+        if self._prefix is not None and not self._paged:
+            self._prefix.insert(prompt, row_cache, 0)
+        kv, tok_np = _fetch_planes(
+            {name: t[0, :p] for name, t in row_cache.planes().items()}, tok)
+        self._syncs += 1
+        return PrimedRequest(prompt=prompt.copy(),
+                             first_token=int(tok_np[0]),
+                             max_new_tokens=int(max_new_tokens), kv=kv)
+
+    def _stack_primed(self, group, rp: int, cells: int, copy_pad: bool):
+        """A primed group's shipped planes stacked on the host, [rp,
+        cells, ...] each, right-padded with zeros; the first tokens [rp]
+        and, with the penalty on, the presence rows [rp, V] rebuilt from
+        the ids (cheaper than shipping a vocab row). Ladder padding rows
+        take row 0's tokens and presence, and its payload when
+        `copy_pad` (dense: duplicate row writes) or zeros (paged: writes
+        to the null block)."""
+        n = len(group)
+        sample = group[0][3].kv
+        stacked = {name: torch.zeros((rp, cells) + tuple(t.shape[1:]),
+                                     dtype=t.dtype)
+                   for name, t in sample.items()}
+        toks = np.zeros(rp, np.int64)
+        seen = (np.zeros((rp, self._vocab), bool)
+                if self._seen is not None else None)
+        for i in range(rp):
+            _rid, prompt, _budget, pr, _x = group[i if i < n else 0]
+            if i < n or copy_pad:
+                for name, t in pr.kv.items():
+                    stacked[name][i, :t.shape[0]] = t
+            toks[i] = pr.first_token
+            if seen is not None:
+                seen[i, prompt] = True
+                seen[i, pr.first_token] = True
+        return stacked, toks, seen
+
+    @torch.no_grad()
+    def _primed_wave(self, bucket: int, group, rows) -> np.ndarray:
+        """Admit rows primed on another replica: stack the shipped planes
+        right-padded to the bucket, one scatter into the slab rows, the
+        presence rows rebuilt from the ids. No model FLOPs and no sync:
+        the first tokens are already on the host."""
+        if self._paged:
+            return self._primed_paged_wave(bucket, group, rows)
+        dev = self._device
+        n = len(group)
+        rp = _pad_wave(n, self._b)
+        rows_dev = torch.as_tensor(rows + [rows[0]] * (rp - n), device=dev)
+        stacked, toks, seen = self._stack_primed(group, rp, bucket,
+                                                 copy_pad=True)
+        self._cache.land_planes(
+            {name: t.to(dev) for name, t in stacked.items()}, rows_dev)
+        self._dispatches += 1
+        if seen is not None:
+            self._seen[rows_dev] = torch.as_tensor(seen, device=dev)
+            self._dispatches += 1
+        return toks
+
+    @torch.no_grad()
+    def _primed_paged_wave(self, bucket: int, group, rows) -> np.ndarray:
+        """The primed hand-off under paging: allocate each row's lifetime
+        blocks (a request that does not fit goes back to the front of its
+        lane, as in `_paged_wave`), point the tables at them, re-chunk the
+        shipped planes to blocks and land them with one scatter into the
+        pools. Padding rows and the slots past a row's prompt blocks name
+        the null block and carry zeros."""
+        block = self._kv_block
+        dev = self._device
+        for i, (_rid, prompt, budget, _pr, _x) in enumerate(group):
+            try:
+                self._row_blocks[rows[i]] = self._pool.alloc(
+                    _paged.blocks_for(prompt.size + budget + 1, block))
+            except _paged.PoolExhausted:
+                if i == 0 and all(self._req[r] is None
+                                  for r in range(self._b)):
+                    raise  # nothing will free a block: a real overflow
+                self._give_back(group[i:])
+                del group[i:]
+                if not group:
+                    return np.zeros(0, np.int64)
+                break
+        n = len(group)
+        rp = _pad_wave(n, self._b)
+        nb_bucket = _paged.blocks_for(bucket, block)
+        blk = np.zeros((rp, nb_bucket), np.int64)
+        for i in range(n):
+            r = rows[i]
+            held = self._row_blocks[r]
+            self._tables[r, :len(held)] = held
+            self._tables[r, len(held):] = 0
+            self._shared_cells[r] = 0
+            nbp = _paged.blocks_for(group[i][1].size, block)
+            blk[i, :nbp] = held[:nbp]
+        stacked, toks, seen = self._stack_primed(
+            group, rp, nb_bucket * block, copy_pad=False)
+        _paged.set_block_tables(self._cache, self._tables)
+        self._tables_dirty = False
+        self._dispatches += 1
+        self._cache.land_blocks(
+            {name: t.reshape((rp, nb_bucket, block) + tuple(t.shape[2:]))
+             .to(dev) for name, t in stacked.items()},
+            torch.as_tensor(blk, device=dev))
+        self._dispatches += 1
+        if seen is not None:
+            rows_dev = torch.as_tensor(rows[:n] + [rows[0]] * (rp - n),
+                                       device=dev)
+            self._seen[rows_dev] = torch.as_tensor(seen, device=dev)
+            self._dispatches += 1
+        return toks

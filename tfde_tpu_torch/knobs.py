@@ -11,9 +11,10 @@ the default). `env_float`, `env_flag`, `env_count`, `prefix_cache_spec`
 and `kv_quant_spec` raise on a value they cannot read where the JAX
 readers warn and fall back: they choose a serving layout
 (`TFDE_PAGED_KV`, `TFDE_PREFIX_CACHE`, `TFDE_KV_QUANT`), a maintenance
-threshold (`TFDE_KV_DEFRAG_THRESHOLD`) or a byte bound
-(`TFDE_CAPACITY_*`), and a misspelled value must not serve another
-layout, or report another headroom, quietly.
+threshold (`TFDE_KV_DEFRAG_THRESHOLD`), a byte bound
+(`TFDE_CAPACITY_*`) or an admission cap (`TFDE_ADMIT_*`), and a
+misspelled value must not serve another layout, report another
+headroom, or lift a cap, quietly.
 
 Knobs of the serving layouts, with their JAX defaults:
 
@@ -37,6 +38,18 @@ Knobs of the capacity ledger and the usage meter
   (``<model_dir>/metrics/usage_<host>.jsonl``) or a path;
 - ``TFDE_CAPACITY_USAGE_LOG_BYTES``: the byte bound of one usage log
   (8 MiB).
+
+Knobs of admission control (inference/admission.py), read by every
+batcher's default `AdmissionController`; each 0 (the default) is off:
+
+- ``TFDE_ADMIT_MAX_QUEUE``: the most QUEUED requests before `submit()`
+  raises `QueueFull` (`env_count`);
+- ``TFDE_ADMIT_MAX_QUEUED_TOKENS``: the most queued output tokens
+  (`env_count`);
+- ``TFDE_ADMIT_TTFT_DEADLINE_MS``: the default TTFT deadline; a request
+  still queued past it is shed at dequeue (`env_float`);
+- ``TFDE_ADMIT_KV_HEADROOM``: the fewest headroom rows (`kv_stats()`)
+  under which `submit()` raises `QueueFull` (`env_count`).
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ Families: gpt2, llama, mistral, gemma, gemma2, qwen2, qwen3, phi, phi3,
 neox, bigcode, opt, falcon. The JAX package's other families (bert,
 bert-classifier, t5, and the MoE families mixtral and qwen2-moe, which
 need `models/moe.py`) and its reverse direction (`*_to_hf`, `--reverse`)
-are not ported yet (ROADMAP.md, queue 2). Known approximation, as in
+are not ported yet (ROADMAP.md, queue 1 item 2). Known approximation, as in
 JAX: the Mlp's gelu is the tanh approximation, which is GPT-2's
 `gelu_new` exactly and differs from the erf gelu of NeoX and Falcon by
 ~1e-3 in activations.
@@ -1118,7 +1118,8 @@ def load_converted(artifact_dir: str, dtype: Optional[torch.dtype] = None,
     conf.pop("decode", None)
     if family in ("bert", "bert-classifier", "t5"):
         raise NotImplementedError(
-            f"family {family!r} is not ported yet (ROADMAP.md, queue 2); "
+            f"family {family!r} is not ported yet (ROADMAP.md, queue 1 "
+            f"item 2); "
             f"the port loads the GPT families")
     if family not in _FAMILIES and family not in _UNPORTED_FAMILIES:
         raise ValueError(f"unknown family {family!r} in {artifact_dir}")
@@ -1152,7 +1153,7 @@ def _cli(argv=None) -> str:
     args = parser.parse_args(argv)
     if args.family in _UNPORTED_FAMILIES:
         raise SystemExit(f"family {args.family!r} is not ported yet "
-                         f"(ROADMAP.md, queue 2)")
+                         f"(ROADMAP.md, queue 1 item 2)")
 
     import transformers
 

@@ -17,6 +17,11 @@ share.
 `live_kv_bytes` counts a batcher's live KV cells from its tensors, the
 figure its KV ledger must report.
 
+`ADMISSION_SCENARIOS` / `admission_scenario` are the JAX package's
+admission tests written against the batcher API both packages share:
+the CPU tests run each on a JAX and a port batcher and compare the
+outcomes, and `chip_smoke.py`'s admission phase runs them on the card.
+
 `torch_threads(n)` runs a block with n intra-op torch threads: the CPU
 tests run with one (`ONE_THREAD`), since pytest's workers share the
 host's cores and torch's default of one thread a core oversubscribes
@@ -101,6 +106,239 @@ def one_thread():
     one intra-op torch thread."""
     with torch_threads(1):
         yield
+
+
+# -- admission scenarios ------------------------------------------------------
+# The admission tests of the JAX package (tests/test_server.py: the caps,
+# the priority order, the deadline shed, forced overload, the KV-headroom
+# gate and its env drill, the default-off parity, the progress stream),
+# written against the batcher API the two packages share, so the same
+# scenario runs on a JAX batcher and a port batcher (the CPU tests compare
+# the outcomes) and on the card (chip_smoke.py's admission phase). Each
+# takes `make(**kw)` (a ContinuousBatcher of one package on one model),
+# that package's `admission` module and metrics registry, and a prompt; it
+# raises AssertionError where the JAX test asserts, and returns the outcome
+# the packages must agree on.
+
+def _hold(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Set (a str) or unset (None) environment variables for the block."""
+    before = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+#: the admission knobs, unset around every scenario but the env drill
+_ADMIT_OFF = dict(TFDE_ADMIT_MAX_QUEUE=None,
+                  TFDE_ADMIT_MAX_QUEUED_TOKENS=None,
+                  TFDE_ADMIT_TTFT_DEADLINE_MS=None,
+                  TFDE_ADMIT_KV_HEADROOM=None,
+                  TFDE_CAPACITY_BUDGET_BYTES=None)
+
+
+def _rejection(srv, adm, submit) -> dict:
+    """Run `submit()`, which must raise QueueFull; the rejection's
+    package-independent fields (the Retry-After only as >= the floor: it
+    comes from this machine's drain rate)."""
+    next_id = srv._next_id
+    depth = len(srv._queue)
+    try:
+        submit()
+    except adm.QueueFull as e:
+        _hold(isinstance(e, RuntimeError), "QueueFull is no RuntimeError")
+        _hold(srv._next_id == next_id and len(srv._queue) == depth,
+              "a rejected submit left state behind")
+        body = e.as_json()
+        out = {"reason": e.reason, "queue_depth": e.queue_depth,
+               "queued_tokens": e.queued_tokens,
+               "retry_floor": e.retry_after_s >= adm.MIN_RETRY_AFTER_S,
+               "body_keys": sorted(body),
+               "body_retry": body["retry_after_s"] == round(
+                   e.retry_after_s, 3)}
+        if e.kv is not None:
+            out["kv"] = {k: e.kv[k] for k in ("headroom_rows", "rows_active",
+                                              "rows_free")}
+            out["kv_used"] = e.kv["used_bytes"] > 0
+            _hold(body["kv"] == e.kv, "the 429 body lost the kv block")
+        return out
+    raise AssertionError("submit was admitted; QueueFull expected")
+
+
+def _tokens(done: dict, rids) -> list:
+    return [[int(t) for t in done[r]] for r in rids]
+
+
+def scenario_depth_cap(make, adm, reg, p):
+    srv = make(batch_size=1, max_len=48,
+               admission_ctl=adm.AdmissionController(max_queue=1))
+    admitted = srv.submit(p, 6)
+    rej = _rejection(srv, adm, lambda: srv.submit(p, 6))
+    _hold(rej["reason"] == "queue_depth" and rej["queue_depth"] == 1
+          and rej["queued_tokens"] == 6, f"depth cap: {rej}")
+    first = dict(srv.run())
+    rid = srv.submit(p, 4)  # the queue drained: admitted now
+    return {"rejection": rej, "rids": [admitted, rid],
+            "tokens": _tokens(first, [admitted]) + _tokens(
+                dict(srv.run()), [rid])}
+
+
+def scenario_token_cap(make, adm, reg, p):
+    srv = make(batch_size=1, max_len=48,
+               admission_ctl=adm.AdmissionController(max_queued_tokens=10))
+    a = srv.submit(p, 8)
+    rej = _rejection(srv, adm, lambda: srv.submit(p, 8))
+    _hold(rej["reason"] == "queued_tokens", f"token cap: {rej}")
+    b = srv.submit(p, 2)  # 8 + 2 == 10: exactly at the cap is in
+    done = dict(srv.run())
+    _hold(sorted(done) == [a, b], "token cap: not both served")
+    return {"rejection": rej, "tokens": _tokens(done, [a, b])}
+
+
+def scenario_priority(make, adm, reg, p):
+    srv = make(batch_size=1, max_len=48)
+    blocker = srv.submit(p, 8)
+    srv.step()  # the blocker holds the one row
+    r_be = srv.submit(p, 3, priority="best_effort")
+    r_ba = srv.submit(p, 3, priority="batch")
+    r_in = srv.submit(p, 3)  # unlabeled: interactive
+    depths = srv._queue.depths()
+    _hold(depths == {"interactive": 1, "batch": 1, "best_effort": 1},
+          f"priority lanes {depths}")
+    order, done = [], {}
+    while not srv.idle:
+        for rid, toks in srv.step():
+            order.append(rid)
+            done[rid] = toks
+    _hold(order == [blocker, r_in, r_ba, r_be], f"finish order {order}")
+    return {"order": order,
+            "tokens": _tokens(done, [blocker, r_in, r_ba, r_be])}
+
+
+def scenario_deadline_shed(make, adm, reg, p):
+    reg.reset("serving/shed")
+    reg.reset("usage/requests")
+    srv = make(batch_size=1, max_len=48)
+    srv.enable_progress()
+    blocker = srv.submit(p, 6)
+    doomed = srv.submit(p, 5, priority="batch", ttft_deadline_ms=1.0)
+    time.sleep(0.01)  # the deadline passes in the queue
+    done = dict(srv.run())
+    _hold(blocker in done and doomed not in done, "the doomed request ran")
+    progress = srv.take_progress(doomed)
+    shed = [srv.was_shed(doomed), srv.was_shed(doomed)]
+    _hold(list(progress[0]) == [] and progress[1] is True,
+          f"shed stream {progress}")
+    _hold(shed == [True, False], f"was_shed answered {shed}")
+    counters = {k: reg.get(k).value for k in (
+        "serving/shed_expired", "serving/shed_batch", "serving/shed_tokens",
+        "usage/requests/shed")}
+    _hold(counters == {"serving/shed_expired": 1, "serving/shed_batch": 1,
+                       "serving/shed_tokens": 5, "usage/requests/shed": 1},
+          f"shed counters {counters}")
+    _hold(srv.idle and not srv._deadline_at and not srv._priority,
+          "the shed request left state behind")
+    return {"tokens": _tokens(done, [blocker]), "shed": shed,
+            "progress": [list(progress[0]), progress[1]],
+            "counters": counters}
+
+
+def scenario_forced_overload(make, adm, reg, p):
+    srv = make(batch_size=1, max_len=48)
+    adm.force_overload(30.0)
+    try:
+        _hold(adm.overload_active(), "the lever did not arm")
+        rej = _rejection(srv, adm, lambda: srv.submit(p, 4))
+    finally:
+        adm.clear_overload()
+    _hold(rej["reason"] == "forced_overload", f"overload: {rej}")
+    rid = srv.submit(p, 4)
+    return {"rejection": rej, "tokens": _tokens(dict(srv.run()), [rid])}
+
+
+def scenario_headroom(make, adm, reg, p):
+    srv = make(batch_size=2, max_len=48,
+               admission_ctl=adm.AdmissionController(min_headroom_rows=2))
+    admitted = srv.submit(p, 6)  # 2 free rows == the floor: in
+    srv.step()                   # one row busy: 1 free < 2
+    rej = _rejection(srv, adm, lambda: srv.submit(p, 6))
+    _hold(rej["reason"] == "kv_headroom" and rej["kv"]["headroom_rows"] == 1
+          and rej["kv"]["rows_active"] == 1 and rej["kv_used"],
+          f"headroom gate: {rej}")
+    first = dict(srv.run())
+    rid = srv.submit(p, 4)  # the slab drained: admitted again
+    return {"rejection": rej, "tokens": _tokens(first, [admitted])
+            + _tokens(dict(srv.run()), [rid])}
+
+
+def scenario_env_drill(make, adm, reg, p):
+    with env_set(**dict(_ADMIT_OFF, TFDE_ADMIT_KV_HEADROOM="1",
+                        TFDE_CAPACITY_BUDGET_BYTES="64")):
+        srv = make(batch_size=2, max_len=48)
+    _hold(srv._cap_model.budget_bytes == 64
+          and srv._ledger.row_bytes > 64, "the drill's budget")
+    rej = _rejection(srv, adm, lambda: srv.submit(p, 6))
+    _hold(rej["reason"] == "kv_headroom" and rej["kv"]["headroom_rows"] == 0
+          and rej["kv"]["rows_free"] == 2, f"env drill: {rej}")
+    _hold(len(srv._queue) == 0 and srv.idle, "the drill queued a request")
+    return {"rejection": rej}
+
+
+def scenario_default_off(make, adm, reg, p):
+    srv = make(batch_size=1, max_len=48)
+    _hold(srv.admission.min_headroom_rows == 0
+          and not srv.admission.enabled, "admission is on by default")
+    rids = [srv.submit(p, 4) for _ in range(4)]  # 1 row, 3 queued: all in
+    done = dict(srv.run())
+    _hold(sorted(done) == rids, "default-off dropped a request")
+    return {"tokens": _tokens(done, rids)}
+
+
+def scenario_progress(make, adm, reg, p):
+    srv = make(batch_size=2, max_len=64)
+    srv.enable_progress()
+    rid = srv.submit(p, 6)
+    got, fin, final = [], False, {}
+    while not srv.idle:
+        final.update(srv.step())
+        if not fin:
+            toks, fin = srv.take_progress(rid)
+            got.extend(int(t) for t in toks)
+    _hold(fin and got == [int(t) for t in final[rid]],
+          f"streamed {got} against {final.get(rid)}")
+    _hold(rid not in srv._stream, "a drained stream entry stayed")
+    return {"tokens": got}
+
+
+ADMISSION_SCENARIOS = {
+    "depth_cap": scenario_depth_cap, "token_cap": scenario_token_cap,
+    "priority": scenario_priority, "deadline_shed": scenario_deadline_shed,
+    "forced_overload": scenario_forced_overload,
+    "headroom": scenario_headroom, "env_drill": scenario_env_drill,
+    "default_off": scenario_default_off, "progress": scenario_progress}
+
+
+def admission_scenario(name: str, make, adm, reg, prompt) -> dict:
+    """Run scenario `name` with the admission knobs unset (the env drill
+    sets its own)."""
+    with env_set(**_ADMIT_OFF):
+        return ADMISSION_SCENARIOS[name](make, adm, reg,
+                                         np.asarray(prompt, np.int64))
 
 #: this spawn's token (`run_ranks`), which makes every store path a
 #: spawn's own
