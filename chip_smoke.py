@@ -101,9 +101,11 @@ without printing a result:
    and live ms of a batch of 128; `train_and_evaluate` with a
    BestExporter over the evals after steps 1 and 2 and the final one,
    whose newest artifact must be the one best_metric.json names;
-   `python -m tfde_tpu_torch.mnist_tf2 --custom-loop --max-steps 100`,
-   then `--model-dir D2 --max-steps 200`, each exiting 0 at its step
-   count with a finite loss; a bf16 GPT whose forward launches the flash
+   `python -m tfde_tpu_torch.mnist_tf2 --custom-loop --max-steps 100`
+   and `--model-dir D2 --max-steps 200`, two child processes run
+   together beside the GPT export check below (none of the three is
+   timed against another reading), each exiting 0 at its step count with
+   a finite loss; a bf16 GPT whose forward launches the flash
    kernel exports from the card (the kernels are `torch.library` ops, so
    the trace records them and launches nothing), and its artifact,
    loaded in a fresh process on the card, launches the kernel once a
@@ -167,7 +169,11 @@ without printing a result:
    CPU, the same gathered parameters on every rank, each rank's parameter
    elements and optimizer bytes); then `python -m
    tfde_tpu_torch.imagenet_vit --max-steps 10` in a child process. Every
-   file lies under build/ and is removed at the end;
+   file lies under build/ and is removed at the end. The entry points'
+   children of phases 11-13 (cifar10_resnet, bert_mlm, imagenet_vit) are
+   queued and run together after phase 13, so that none overlaps another
+   phase's timed work (since PR 17, to keep the script inside its time
+   limit);
 14. gpt_lm — GPT pretraining with rotary positions, grouped-query
    attention, the sliding window, remat and packing: a small fp32 GPT
    (head dim 64, rope, 2 KV heads of 4, window 24, remat 'full') on the
@@ -206,7 +212,8 @@ without printing a result:
    (seconds, bytes), served by `serve_gpt.main(["--hf-dir", ...])` (16
    requests) and loaded again (seconds), Llama-3.2-1B built on the card
    from seed 0 without that round trip; each served in bf16 behind a
-   ContinuousBatcher as in the serve phase (16 requests of 16-960 prompt tokens x 32; the
+   ContinuousBatcher as in the serve phase (16 requests of 16-960 prompt
+   tokens x 16, `HF_NEW`, cut from 32 in PR 17; the
    counters zeroed just before: one forward launch a layer a prefill
    wave; tokens/s, mean TTFT, ms per output token, peak memory), one
    wave's first-token logits flash vs reference (held in fp32,
@@ -228,7 +235,8 @@ without printing a result:
 16. prefix_paged — the prefix-KV cache and paged KV in the batcher:
    Llama-3.2-1B at its published widths (random weights from seed 0,
    built on the card) behind a ContinuousBatcher (batch 8, max_len 1024,
-   scan depth 4) answering 24 requests x 32 new tokens, each a shared
+   scan depth 4) answering 24 requests x 16 new tokens (`PP_NEW`, cut
+   from 32 in PR 17), each a shared
    512-token system prompt + 16-256 tokens, four of them repeating an
    earlier request's whole prompt; in fp32 (a) dense, (b) dense with the
    prefix cache, (c) paged with the trie, (d) paged with the trie, the
@@ -270,7 +278,8 @@ without printing a result:
 17. admission — admission control and the prefill/decode role split:
    Llama-3.2-1B at its published widths (random weights from seed 0,
    built on the card), 16 primed + 8 plain requests of 100-900 prompt
-   tokens x 16 new. In fp32, for fp and int8 KV: a prefill replica
+   tokens x 8 new (`AD_NEW`, cut from 16 in PR 17). In fp32, for fp and
+   int8 KV: a prefill replica
    (`role='prefill'`, batch 1) primes the 16 (each `prime()` must launch
    the forward once a layer, 16 times; ms a request, payload bytes a
    prompt token held at 65,536 fp32 / 17,408 int8), each payload crosses
@@ -289,7 +298,31 @@ without printing a result:
    Retry-After against the seconds its backlog took to drain, and the
    KV-headroom gate under ``TFDE_CAPACITY_BUDGET_BYTES`` of three bf16
    rows (floor one row): each submit rejected exactly when the
-   headroom before it is below the floor, int8 KV admitting more rows.
+   headroom before it is below the floor, int8 KV admitting more rows;
+18. decoding — the decoding modes, TF32 off: Llama-3.2-1B at its
+   published widths (random weights from seed 0) with `serve_gpt`'s
+   quarter-width draft (hidden 512, depth 4, 8 heads of D 64, MLP 2048,
+   seed 7): `generate_speculative` in fp32 at num_draft 4, batch 1 x
+   128 and 900 prompt tokens and batch 4 x 512, x 64 new, equal to
+   greedy `generate` with the small draft and with the target as its
+   own draft (then exactly 13 rounds), one prefill of each model's
+   flash launches a call, and the sampled rounds (temperature 0.8)
+   with the perfect draft at acceptance >= 0.99;
+   `SpeculativeContinuousBatcher` (batch 8, max_len 1024) on 12
+   requests of 100-900 prompt tokens x 32, in fp32 every request equal
+   to its solo `generate` and the forward launched 16 + 4 times a
+   wave (the counters zeroed just before), in bf16 timed with the small
+   and the perfect draft beside the plain ContinuousBatcher (scan depth
+   4); beam search (batch 2 x 4 beams, prompt 256, 32 new, length
+   penalty 0.6) in fp32, beam 1 equal to greedy `generate`, every beam's
+   score within 1e-3 of one cache-free forward of its sequence, sorted
+   and distinct, 16 launches (the [8, 256] prefill), and bf16 ms a beam
+   step; Gemma-2-2B in fp32 (window 4096, 'alternate') on the rolling
+   cache, a 4,352-token prompt x 32 new equal to the full-budget cache's
+   tokens, its local planes 4,096 cells and its global 4,384, both
+   caches' bytes, 26 launches in the prefill, and the windowed forward
+   at [1, 4352, 8 -> 4, 256] (window 4096, cap 50, scale 1/16) against
+   its plain version (out and lse) in fp32 and bf16.
 
 Every phase prints its seconds.
 
@@ -1779,23 +1812,45 @@ EX_BATCHES, EX_TOL, EX_ACC_TOL = (1, 7, 128, 10000), 1e-5, 1e-4
 EX_PS_BYTES = {4: 4 * (58_800 + 15_266)}
 
 
-def _ex_child(argv, root, what):
-    """`python -m <argv>` in a child process from this checkout, with TF32
-    off (``NVIDIA_TF32_OVERRIDE=0``: torch's default runs cuDNN's
+def _ex_spawn(argv, root, name):
+    """Start `python -m <argv>` in a child process from this checkout, with
+    TF32 off (``NVIDIA_TF32_OVERRIDE=0``: torch's default runs cuDNN's
     convolutions in TF32, and the child's eval accuracy is held to the
-    artifact's in fp32): (its stderr log, seconds); raises unless it
-    exits 0."""
+    artifact's in fp32), its stderr into `root`/<name>.log; `_ex_wait`
+    collects it."""
     env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *argv], env=env, cwd=root,
-                          capture_output=True, text=True, timeout=900)
+    log = os.path.join(root, f"{name}.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", *argv], env=env,
+                                cwd=root, stdout=subprocess.DEVNULL,
+                                stderr=f)
+    return proc, log, time.perf_counter()
+
+
+def _ex_wait(child, what):
+    """(stderr log, seconds) of a `_ex_spawn` child; raises unless it
+    exits 0 (a child past 900 s is killed)."""
+    proc, log, t0 = child
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
     secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{what} exited {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
-    return proc.stderr, secs
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}:\n{text[-4000:]}")
+    return text, secs
+
+
+def _ex_child(argv, root, what):
+    """`python -m <argv>` in a child process (`_ex_spawn`), waited for:
+    (its stderr log, seconds)."""
+    return _ex_wait(_ex_spawn(argv, root, what.replace(" ", "_")), what)
 
 
 def _ex_evals(log):
@@ -1946,22 +2001,32 @@ def _ex_best(dev, root):
         raise AssertionError("the newest artifact is not the best one")
 
 
-def _ex_tf2(root):
-    """The second recipe: mnist_tf2's custom loop, then its Estimator."""
+def _ex_tf2_start(root):
+    """The second recipe: mnist_tf2's custom loop and its Estimator, two
+    child processes started together (neither is timed against anything:
+    each prints its own wall); `_ex_tf2` waits for them."""
+    return (_ex_spawn(["tfde_tpu_torch.mnist_tf2", "--custom-loop",
+                       "--max-steps", "100"], root, "tf2_custom"),
+            _ex_spawn(["tfde_tpu_torch.mnist_tf2", "--model-dir",
+                       os.path.join(root, "tf2"), "--max-steps", "200"],
+                      root, "tf2_estimator"))
+
+
+def _ex_tf2(root, children):
+    """The two mnist_tf2 children of `_ex_tf2_start`, held."""
     import re
 
-    log, secs = _ex_child(["tfde_tpu_torch.mnist_tf2", "--custom-loop",
-                           "--max-steps", "100"], root, "mnist_tf2 custom")
+    log, secs = _ex_wait(children[0], "mnist_tf2 custom")
     m = re.search(r"custom loop done: step=(\d+) loss=([\d.naif]+)", log)
     d2 = os.path.join(root, "tf2")
-    log2, secs2 = _ex_child(["tfde_tpu_torch.mnist_tf2", "--model-dir", d2,
-                             "--max-steps", "200"], root, "mnist_tf2")
+    log2, secs2 = _ex_wait(children[1], "mnist_tf2")
     evals = _ex_evals(log2)
     stamps = os.listdir(os.path.join(d2, "export", "exporter"))
     print(f"export tf2: --custom-loop --max-steps 100: {m and m.group(0)} "
           f"({secs:.1f} s); --model-dir --max-steps 200: final eval "
           f"{evals[-1] if evals else None}, artifacts {stamps} "
-          f"({secs2:.1f} s)")
+          f"({secs2:.1f} s; the two ran together, beside the exported GPT's "
+          f"check)")
     if not (m and int(m[1]) == 100 and math.isfinite(float(m[2])) and evals
             and evals[-1][0] == 200 and math.isfinite(evals[-1][1]["loss"])
             and len(stamps) == 1):
@@ -2112,13 +2177,19 @@ def phase_export(fa, dev, dp_ms=None):
                         f"export_{os.getpid()}")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
+    tf2 = ()
     try:
         _ex_recipe(dev, root, dp_ms)
         _ex_best(dev, root)
-        _ex_tf2(root)
+        tf2 = _ex_tf2_start(root)
         _ex_flash_gpt(fa, dev, root)
+        _ex_tf2(root, tf2)
         _ex_cards()
     finally:
+        for proc, _log, _t0 in tf2:  # a failure above leaves none running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2506,29 +2577,82 @@ def _rn_recipe(fa, dev):
                              f"{flash}")
 
 
-def _entry_child(argv, root, what, steps):
-    """`python -m <argv>` in a child process (`_ex_child`), which must log
-    that it is done at `steps`."""
-    log, secs = _ex_child(argv, root, what)
-    done = [line for line in log.splitlines() if "done at step" in line]
-    fed = [line for line in log.splitlines() if "input: " in line]
-    print(f"{what} entry point: python -m {' '.join(argv)} exit 0 in "
-          f"{secs:.1f} s; {fed + done}")
-    if not (done and f"done at step {steps} (" in done[-1]):
-        raise AssertionError(f"{what}: {log[-3000:]}")
-    return log
+#: entry-point children queued by the resnet, bert and vit phases, as
+#: (argv, what, steps, check); `_entry_flush` runs them together
+_ENTRY_QUEUE = []
 
 
-def _rn_entry_point(root):
+def _entry_child(argv, what, steps, check=None):
+    """Queue `python -m <argv>` for a child process (`_ex_spawn`), which
+    must exit 0 and log that it is done at `steps`, and pass `check(log)`.
+    The queued children run together in `_entry_flush`, after the phases
+    that queue them: none overlaps another phase's timed work, and each
+    prints only its own wall."""
+    _ENTRY_QUEUE.append((argv, what, steps, check))
+
+
+def _entry_flush():
+    """Start every queued entry-point child at once, each in a directory of
+    its own under build/ (removed after), then hold each. A failure kills
+    the others."""
+    import shutil
+
+    queued = list(_ENTRY_QUEUE)
+    _ENTRY_QUEUE.clear()
+    if not queued:
+        return
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots, children = [], []
+    t0 = time.perf_counter()
+    try:
+        for argv, what, _steps, _check in queued:
+            roots.append(os.path.join(here, "build",
+                                      f"entry_{what}_{os.getpid()}"))
+            shutil.rmtree(roots[-1], ignore_errors=True)
+            os.makedirs(roots[-1])
+            children.append(_ex_spawn(argv, roots[-1], what))
+        ended = {}
+        while len(ended) < len(children):  # each child's own wall
+            for i, (proc, _log, _t0) in enumerate(children):
+                if i not in ended and proc.poll() is not None:
+                    ended[i] = time.perf_counter()
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError("an entry point ran past 900 s")
+            time.sleep(0.2)
+        for i, (argv, what, steps, check) in enumerate(queued):
+            log, _secs = _ex_wait(children[i], what)
+            secs = ended[i] - children[i][2]
+            done = [line for line in log.splitlines()
+                    if "done at step" in line]
+            fed = [line for line in log.splitlines() if "input: " in line]
+            print(f"{what} entry point: python -m {' '.join(argv)} exit 0 "
+                  f"in {secs:.1f} s (beside {len(queued) - 1} other entry "
+                  f"points); {fed + done}")
+            if not (done and f"done at step {steps} (" in done[-1]
+                    and (check is None or check(log))):
+                raise AssertionError(f"{what}: {log[-3000:]}")
+    finally:
+        for proc, _log, _t0 in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    print(f"entry points ({', '.join(q[1] for q in queued)}) together: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _rn_entry_point():
     """`python -m tfde_tpu_torch.cifar10_resnet --max-steps RN_ENTRY_STEPS`
     in a child process, as a user runs it (`_entry_child`), fed by the
     native loader."""
-    log = _entry_child(["tfde_tpu_torch.cifar10_resnet", "--max-steps",
-                        str(RN_ENTRY_STEPS)], root, "cifar10_resnet",
-                       RN_ENTRY_STEPS)
-    fed = [line for line in log.splitlines() if "input: " in line]
-    if not (fed and "the native loader" in fed[-1]):
-        raise AssertionError(f"cifar10_resnet: {log[-3000:]}")
+    def native(log):
+        fed = [line for line in log.splitlines() if "input: " in line]
+        return bool(fed) and "the native loader" in fed[-1]
+
+    _entry_child(["tfde_tpu_torch.cifar10_resnet", "--max-steps",
+                  str(RN_ENTRY_STEPS)], "cifar10_resnet", RN_ENTRY_STEPS,
+                 native)
 
 
 def phase_resnet(fa, dev):
@@ -2557,7 +2681,7 @@ def phase_resnet(fa, dev):
         _rn_streaming(dev, root, arrays[0])
         _rn_parity(dev)
         _rn_recipe(fa, dev)
-        _rn_entry_point(root)
+        _rn_entry_point()
     finally:
         datasets.cifar10 = load
         shutil.rmtree(root, ignore_errors=True)
@@ -2814,23 +2938,13 @@ def _bert_recipe(fa, dev):
 
 
 def phase_bert(fa, dev):
-    """BERT-base MLM on the card (docstring, phase 12). Every file lies
-    under build/ and is removed at the end."""
-    import shutil
-
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        f"bert_{os.getpid()}")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    try:
-        kernels = _kernels_at(fa, dev, "bert", BERT_SHAPE)
-        _bert_parity(dev)
-        recipe = _bert_recipe(fa, dev)
-        _entry_child(["tfde_tpu_torch.bert_mlm", "--max-steps",
-                      str(BERT_ENTRY_STEPS)], root, "bert_mlm",
-                     BERT_ENTRY_STEPS)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    """BERT-base MLM on the card (docstring, phase 12); its entry point's
+    child is queued (`_entry_child`)."""
+    kernels = _kernels_at(fa, dev, "bert", BERT_SHAPE)
+    _bert_parity(dev)
+    recipe = _bert_recipe(fa, dev)
+    _entry_child(["tfde_tpu_torch.bert_mlm", "--max-steps",
+                  str(BERT_ENTRY_STEPS)], "bert_mlm", BERT_ENTRY_STEPS)
     return kernels, recipe
 
 
@@ -3034,16 +3148,10 @@ def _vit_cards(parity):
 
 
 def phase_vit(fa, dev):
-    """ImageNet ViT-B/16 under FSDP on the card (docstring, phase 13).
-    Every file lies under build/ and is removed at the end."""
-    import shutil
-
+    """ImageNet ViT-B/16 under FSDP on the card (docstring, phase 13); its
+    entry point's child is queued (`_entry_child`)."""
     from tfde_tpu_torch.data import datasets
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        f"vit_{os.getpid()}")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
     load = datasets.imagenet
     try:
         kernels = _kernels_at(fa, dev, "vit", VIT_SHAPE)
@@ -3062,11 +3170,10 @@ def phase_vit(fa, dev):
         _vit_cards(parity)
         _entry_child(["tfde_tpu_torch.imagenet_vit", "--max-steps",
                       str(VIT_ENTRY_STEPS), "--train-examples",
-                      str(VIT_ENTRY_EXAMPLES)], root, "imagenet_vit",
+                      str(VIT_ENTRY_EXAMPLES)], "imagenet_vit",
                      VIT_ENTRY_STEPS)
     finally:
         datasets.imagenet = load
-        shutil.rmtree(root, ignore_errors=True)
     return kernels, recipe
 
 
@@ -3380,6 +3487,9 @@ HF_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 #: fixed bound there: its rounding grows with depth (flash vs einsum
 #: 1.16e-2 at GPT-2 small's 12 layers, 2.88e-2 at Llama-3.2-1B's 16)
 HF_WAVE_TOL, HF_BF16_RATIO = 1e-4, 2.0
+#: new tokens of every hf_serve request (32 until PR 17; cut to keep the
+#: whole script inside its time limit beside the decoding phase)
+HF_NEW = 16
 #: the two prefill shapes of the full-width models, [B, S, H, D] and KV
 #: heads (Llama-3.2-1B, Qwen3-0.6B)
 HF_PREFILL = {"Llama-3.2-1B": ((1, 4096, 32, 64), 8),
@@ -3500,12 +3610,12 @@ def _hf_full(fa, dev, root, name, artifact=True):
         t0 = time.perf_counter()
         done = serve_gpt.main(["--hf-dir", out, "--requests", "16",
                                "--batch-size", "8", "--max-len", "1024",
-                               "--max-new-tokens", "32"])
+                               "--max-new-tokens", str(HF_NEW)])
         torch.cuda.synchronize(dev)
         entry_s = time.perf_counter() - t0
-        if len(done) != 16 or any(len(t) != 32 for _, t in done):
+        if len(done) != 16 or any(len(t) != HF_NEW for _, t in done):
             raise AssertionError(f"hf_serve {name}: serve_gpt --hf-dir did "
-                                 f"not answer 16 requests of 32 tokens")
+                                 f"not answer 16 requests of {HF_NEW} tokens")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3517,7 +3627,7 @@ def _hf_full(fa, dev, root, name, artifact=True):
               f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s, loaded "
               f"onto the card (fp32, then cast to bf16) in {load_s:.2f} s; "
               f"serve_gpt.main --hf-dir (load + 16 requests of 2-8 prompt "
-              f"tokens x 32) {entry_s:.2f} s")
+              f"tokens x {HF_NEW}) {entry_s:.2f} s")
     else:
         model.cast_compute_weights_()
         torch.cuda.synchronize(dev)
@@ -3536,7 +3646,7 @@ def _hf_full(fa, dev, root, name, artifact=True):
     torch.cuda.synchronize(dev)
     _zero_counts(fa)
     t0 = time.perf_counter()
-    rids = [srv.submit(p, 32) for p in prompts]
+    rids = [srv.submit(p, HF_NEW) for p in prompts]
     done = dict(srv.run())
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -3560,7 +3670,7 @@ def _hf_full(fa, dev, root, name, artifact=True):
     if sorted(done) != sorted(rids):
         raise AssertionError(f"hf_serve {name}: not every request finished")
     for rid, toks in done.items():
-        if (len(toks) != 32 or toks.min() < 0
+        if (len(toks) != HF_NEW or toks.min() < 0
                 or toks.max() >= model.vocab_size):
             raise AssertionError(f"hf_serve {name}: request {rid} returned "
                                  f"{toks!r}")
@@ -3577,7 +3687,7 @@ def _hf_full(fa, dev, root, name, artifact=True):
     # one row, and a one-ulp change flips a near-tie): counted here, held
     # exactly in fp32 below
     bf16_same = sum(int(np.array_equal(done[rid], generate(
-        model, p[None], 32, device=dev)[0][0, p.size:].cpu().numpy()))
+        model, p[None], HF_NEW, device=dev)[0][0, p.size:].cpu().numpy()))
         for rid, p in zip(rids[:4], prompts[:4]))
     # the same (bf16-valued) weights computed in fp32: no second load
     model32 = GPT(**model.config, dtype=torch.float32, device=dev)
@@ -3604,10 +3714,10 @@ def _hf_full(fa, dev, root, name, artifact=True):
                              f"logits disagree")
     srv = ContinuousBatcher(model, batch_size=8, max_len=1024, scan_depth=4,
                             device=dev)
-    rids32 = [srv.submit(p, 32) for p in prompts[:4]]
+    rids32 = [srv.submit(p, HF_NEW) for p in prompts[:4]]
     done32 = dict(srv.run())
     same = sum(int(np.array_equal(done32[rid], generate(
-        model, p[None], 32, device=dev)[0][0, p.size:].cpu().numpy()))
+        model, p[None], HF_NEW, device=dev)[0][0, p.size:].cpu().numpy()))
         for rid, p in zip(rids32, prompts[:4]))
     print(f"hf_serve {name}: the first four requests' greedy tokens, batcher "
           f"== generate on the card: fp32 {same}/4 (held), bf16 "
@@ -3680,11 +3790,13 @@ def phase_hf_serve(fa, dev):
 
 
 #: prefix_paged: Llama-3.2-1B at its published widths behind the batcher
-#: (batch 8, max_len 1024, scan depth 4), 24 requests x 32 new tokens, each
+#: (batch 8, max_len 1024, scan depth 4), 24 requests x PP_NEW new tokens
+#: (32 until PR 17: cut to keep the whole script inside its time limit
+#: beside the decoding phase), each
 #: a shared 512-token system prompt from seed 0 + a suffix of 16-256
 #: tokens; requests 8, 13, 18 and 23 repeat the whole prompt of requests
 #: 0, 2, 4 and 6
-PP_BATCH, PP_MAX_LEN, PP_DEPTH, PP_NEW = 8, 1024, 4, 32
+PP_BATCH, PP_MAX_LEN, PP_DEPTH, PP_NEW = 8, 1024, 4, 16
 PP_SYSTEM, PP_SUFFIX, PP_REQUESTS = 512, (16, 256), 24
 PP_REPEATS = {8: 0, 13: 2, 18: 4, 23: 6}
 #: run (d)'s pool: two max-length rows and the null block (nmax =
@@ -4253,9 +4365,10 @@ def phase_prefix_paged(fa, dev):
 #: admission: Llama-3.2-1B at its published widths behind the role split.
 #: A prefill replica (batch 1) primes AD_PRIMED requests, a decode replica
 #: (batch AD_BATCH, max_len 1024, scan depth 4) admits them beside
-#: AD_PLAIN plain submits, AD_NEW new tokens each; prompts of
+#: AD_PLAIN plain submits, AD_NEW new tokens each (16 until PR 17: cut to
+#: keep the whole script inside its time limit); prompts of
 #: AD_PROMPT[0]-AD_PROMPT[1] tokens from seed 0
-AD_BATCH, AD_MAX_LEN, AD_DEPTH, AD_NEW = 8, 1024, 4, 16
+AD_BATCH, AD_MAX_LEN, AD_DEPTH, AD_NEW = 8, 1024, 4, 8
 AD_PRIMED, AD_PLAIN, AD_PROMPT = 16, 8, (100, 900)
 #: the four layouts of the hand-off: (paged, kv_quant)
 AD_LAYOUTS = {"dense": (False, "fp"), "paged": (True, "fp"),
@@ -4617,10 +4730,353 @@ def phase_admission(fa, dev):
     torch.cuda.empty_cache()
 
 
+#: decoding: speculative decoding on Llama-3.2-1B with serve_gpt's
+#: quarter-width draft (hidden 512, depth 4, 8 heads of D 64, MLP 2048):
+#: generate_speculative at num_draft DC_DRAFT over (batch, prompt) runs x
+#: DC_NEW new tokens; the batcher at batch DC_BATCH, max_len DC_MAX_LEN,
+#: DC_REQUESTS requests of DC_PROMPT tokens x DC_SRV_NEW
+DC_DRAFT, DC_NEW, DC_RUNS = 4, 64, ((1, 128), (1, 900), (4, 512))
+DC_BATCH, DC_MAX_LEN, DC_REQUESTS = 8, 1024, 12
+DC_PROMPT, DC_SRV_NEW, DC_SCAN = (100, 900), 32, 4
+#: beam search: batch x beams, prompt, new tokens, length penalty; the
+#: score of a beam against one cache-free forward of its sequence
+BM_BATCH, BM_BEAMS, BM_PROMPT, BM_NEW, BM_PENALTY = 2, 4, 256, 32, 0.6
+BM_SCORE_TOL = 1e-3
+#: the rolling cache: Gemma-2-2B (window 4096, 'alternate'), batch 1
+RC_PROMPT, RC_NEW = 4352, 32
+
+
+def _dc_prompts(vocab, n, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+
+
+def _dc_solo(model, prompt, n, dev):
+    """The greedy solo run of one [P] prompt: its N new tokens."""
+    from tfde_tpu_torch.inference.decode import generate
+
+    toks, _ = generate(model, prompt[None, :], n, device=dev)
+    return toks[0, prompt.size:].cpu().numpy()
+
+
+def _dc_generate_speculative(fa, dev, model, draft):
+    """generate_speculative in fp32 at DC_RUNS against greedy generate;
+    the target as its own draft (every round commits num_draft + 1); the
+    sampled rounds with the perfect draft."""
+    from tfde_tpu_torch.inference.decode import generate
+    from tfde_tpu_torch.inference.speculative import generate_speculative
+
+    rng = np.random.default_rng(0)
+    rounds_each = -(-(DC_NEW - 1) // (DC_DRAFT + 1))
+    for b, p in DC_RUNS:
+        prompt = rng.integers(0, model.vocab_size, (b, p))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ref, _ = generate(model, prompt, DC_NEW, device=dev)
+        torch.cuda.synchronize(dev)
+        print(f"decoding generate fp32 batch {b} x prompt {p} x {DC_NEW} "
+              f"new: {time.perf_counter() - t0:.3f} s")
+        for name, d in (("small draft", draft), ("perfect draft", model)):
+            _zero_counts(fa)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out, _, st = generate_speculative(
+                model, d, prompt, DC_NEW, num_draft=DC_DRAFT,
+                return_stats=True, device=dev)
+            torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            want = model.depth + d.depth
+            if fa.flash_forward.launches != want:
+                raise AssertionError(
+                    f"decoding: generate_speculative launched the forward "
+                    f"{fa.flash_forward.launches} times, not {want}")
+            if not torch.equal(out, ref):
+                raise AssertionError(f"decoding: speculative ({name}) batch "
+                                     f"{b} x {p} differs from generate")
+            if d is model and st["rounds"] != rounds_each:
+                raise AssertionError(f"decoding: the perfect draft took "
+                                     f"{st['rounds']} rounds, not "
+                                     f"{rounds_each}")
+            print(f"decoding generate_speculative fp32 ({name}) batch {b} "
+                  f"x prompt {p} x {DC_NEW} new, num_draft {DC_DRAFT}: "
+                  f"tokens equal generate; {st}; flash_fwd "
+                  f"{fa.flash_forward.launches} launches; {dt:.3f} s, "
+                  f"{dt * 1e3 / st['rounds']:.2f} ms a round")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, p = DC_RUNS[-1]
+    prompt = rng.integers(0, model.vocab_size, (b, p))
+    out, lengths, st = generate_speculative(
+        model, model, prompt, DC_NEW, num_draft=DC_DRAFT, temperature=0.8,
+        generator=gen, return_stats=True, device=dev)
+    if (st["acceptance_rate"] < 0.99
+            or lengths.tolist() != [p + DC_NEW] * b):
+        raise AssertionError(f"decoding: sampled perfect draft {st}")
+    print(f"decoding generate_speculative sampled (temperature 0.8, the "
+          f"perfect draft) batch {b} x {p}: {st}")
+
+
+def _dc_serve(fa, dev, model, draft, prompts, label, plain=False):
+    """The requests through SpeculativeContinuousBatcher (or, `plain`,
+    ContinuousBatcher at scan depth DC_SCAN), the counters zeroed just
+    before: (tokens by request, stats, wall s, decode s, flash launches,
+    admission waves)."""
+    from tfde_tpu_torch.inference.server import (
+        ContinuousBatcher, SpeculativeContinuousBatcher)
+
+    if plain:
+        srv = ContinuousBatcher(model, batch_size=DC_BATCH,
+                                max_len=DC_MAX_LEN, scan_depth=DC_SCAN,
+                                device=dev)
+    else:
+        srv = SpeculativeContinuousBatcher(
+            model, draft, batch_size=DC_BATCH, max_len=DC_MAX_LEN,
+            num_draft=DC_DRAFT, device=dev)
+    torch.cuda.synchronize(dev)
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, DC_SRV_NEW) for p in prompts]
+    done = dict(srv.run())
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = fa.flash_forward.launches
+    st = srv.stats()
+    waves = srv.wave_counts().get("cold", 0)
+    emitted = st["generated"] - len(prompts)  # less each first token
+    decode_s = srv._decode_s
+    per_round = decode_s * 1e3 / max(st["rounds"], 1)
+    print(f"decoding {label}: {len(prompts)} requests in {wall:.3f} s "
+          f"({st['generated'] / wall:.1f} tok/s whole; {emitted} decode "
+          f"tokens in {decode_s:.3f} s of rounds, "
+          f"{emitted / decode_s:.1f} tok/s, {per_round:.2f} ms a "
+          f"{'tick' if plain else 'round'}); {waves} cold waves, flash_fwd "
+          f"{launches} launches; stats "
+          f"{ {k: v for k, v in st.items() if not k.endswith('_s')} }")
+    return [done[r] for r in rids], st, wall, launches, waves
+
+
+def _dc_batcher(fa, dev, fields):
+    """SpeculativeContinuousBatcher: fp32 against solo generate and its
+    launches; bf16 timed with the small and the perfect draft beside the
+    plain batcher."""
+    import gc
+
+    from tfde_tpu_torch.models.gpt import GPT
+    from tfde_tpu_torch.serve_gpt import quarter_draft
+
+    model = GPT(**fields, dtype=torch.float32, device=dev, seed=0)
+    draft = quarter_draft(model, dev)
+    print(f"decoding: draft hidden {draft.hidden_size}, depth "
+          f"{draft.depth}, {draft.num_heads} heads of D {draft.head_dim}, "
+          f"MLP {draft.mlp_dim}, random weights from seed 7")
+    _dc_generate_speculative(fa, dev, model, draft)
+    prompts = _dc_prompts(model.vocab_size, DC_REQUESTS, *DC_PROMPT, seed=1)
+    print(f"decoding batcher: batch {DC_BATCH}, max_len {DC_MAX_LEN}, "
+          f"num_draft {DC_DRAFT}, prompt lengths "
+          f"{[int(p.size) for p in prompts]} x {DC_SRV_NEW} new")
+    toks, _st, _w, launches, waves = _dc_serve(fa, dev, model, draft,
+                                               prompts, "batcher fp32")
+    want = (model.depth + draft.depth) * waves
+    if launches != want:
+        raise AssertionError(f"decoding: the batcher launched the forward "
+                             f"{launches} times over {waves} waves, not "
+                             f"{want}")
+    diff = [i for i, (p, t) in enumerate(zip(prompts, toks))
+            if not np.array_equal(t, _dc_solo(model, p, DC_SRV_NEW, dev))]
+    if diff:
+        raise AssertionError(f"decoding: batcher requests {diff} differ "
+                             f"from their solo generate")
+    print(f"decoding batcher fp32: all {len(prompts)} requests equal their "
+          f"solo generate; flash_fwd {model.depth} + {draft.depth} launches "
+          f"a wave")
+    del model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT(**fields, device=dev, seed=0).cast_compute_weights_()
+    draft = quarter_draft(model, dev)
+    for label, d, plain in (("batcher bf16, small draft", draft, False),
+                            ("batcher bf16, perfect draft", model, False),
+                            ("plain ContinuousBatcher bf16, scan depth "
+                             f"{DC_SCAN}", None, True)):
+        _dc_serve(fa, dev, model, d, prompts, label, plain=plain)
+    return model
+
+
+def _dc_beam(fa, dev, fields, bf16_model):
+    """Beam search on Llama-3.2-1B: fp32 beam 1 against greedy generate,
+    every beam's score against one cache-free forward, sorted and
+    distinct, the prefill's launches; bf16 ms a beam step."""
+    import gc
+
+    from tfde_tpu_torch.inference.beam import beam_search
+    from tfde_tpu_torch.inference.decode import generate
+    from tfde_tpu_torch.models.gpt import GPT
+
+    model = GPT(**fields, dtype=torch.float32, device=dev, seed=0)
+    prompt = np.random.default_rng(2).integers(
+        0, model.vocab_size, (BM_BATCH, BM_PROMPT))
+    one, _, _ = beam_search(model, prompt, BM_NEW, num_beams=1,
+                            length_penalty=BM_PENALTY, device=dev)
+    greedy, _ = generate(model, prompt, BM_NEW, device=dev)
+    if not torch.equal(one[:, 0], greedy):
+        raise AssertionError("decoding: beam 1 differs from greedy generate")
+    _zero_counts(fa)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    toks, scores, lengths = beam_search(model, prompt, BM_NEW,
+                                        num_beams=BM_BEAMS,
+                                        length_penalty=BM_PENALTY, device=dev)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    if fa.flash_forward.launches != model.depth:
+        raise AssertionError(f"decoding: beam search launched the forward "
+                             f"{fa.flash_forward.launches} times, not "
+                             f"{model.depth}")
+    seqs = toks.reshape(BM_BATCH * BM_BEAMS, -1)
+    with torch.no_grad():
+        logp = torch.log_softmax(model(seqs), dim=-1)
+    picked = logp[:, BM_PROMPT - 1:-1].gather(
+        2, seqs[:, BM_PROMPT:, None])[..., 0]
+    joint = picked.sum(dim=1).view(BM_BATCH, BM_BEAMS)
+    norm = (lengths - BM_PROMPT).float() ** BM_PENALTY
+    err = float((scores * norm - joint).abs().max())
+    if err > BM_SCORE_TOL:
+        raise AssertionError(f"decoding: beam scores {err:.3e} from the "
+                             f"cache-free forward")
+    if not bool((scores[:, 1:] <= scores[:, :-1]).all()) or any(
+            len({tuple(b) for b in row.tolist()}) != BM_BEAMS
+            for row in toks):
+        raise AssertionError("decoding: beams not sorted or not distinct")
+    print(f"decoding beam search fp32 batch {BM_BATCH} x {BM_BEAMS} beams, "
+          f"prompt {BM_PROMPT} x {BM_NEW} new, length_penalty "
+          f"{BM_PENALTY}: beam 1 equals greedy generate; every beam's score "
+          f"within {err:.3e} of one cache-free forward (tol "
+          f"{BM_SCORE_TOL:g}); sorted and distinct; flash_fwd "
+          f"{model.depth} launches (the [{BM_BATCH * BM_BEAMS}, "
+          f"{BM_PROMPT}] prefill); {dt:.3f} s; best scores "
+          f"{scores[:, 0].tolist()}")
+    del model, logp
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = {}
+    for n in (1, BM_NEW):
+        beam_search(bf16_model, prompt, n, num_beams=BM_BEAMS, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        beam_search(bf16_model, prompt, n, num_beams=BM_BEAMS, device=dev)
+        torch.cuda.synchronize(dev)
+        times[n] = time.perf_counter() - t0
+    print(f"decoding beam search bf16: {times[BM_NEW] * 1e3:.1f} ms for "
+          f"{BM_NEW} tokens, {times[1] * 1e3:.1f} ms for the prefill and "
+          f"the first; "
+          f"{(times[BM_NEW] - times[1]) * 1e3 / (BM_NEW - 1):.2f} ms a beam "
+          f"step ({BM_BATCH * BM_BEAMS} rows)")
+
+
+def _dc_rolling(fa, dev, fields):
+    """Gemma-2-2B fp32 on the rolling cache against the full-budget cache,
+    the planes' lengths and bytes, the prefill's launches; the windowed
+    forward at the prefill's shape against its plain version."""
+    import gc
+
+    from tfde_tpu_torch.inference.decode import generate, init_cache
+    from tfde_tpu_torch.models.gpt import GPT
+
+    model = GPT(**fields, dtype=torch.float32, device=dev, seed=0)
+    window = fields["sliding_window"]
+    prompt = np.random.default_rng(3).integers(0, model.vocab_size,
+                                               (1, RC_PROMPT))
+    total = RC_PROMPT + RC_NEW
+    rolling = init_cache(model, 1, total, rolling=True)
+    full = init_cache(model, 1, total)
+    lens = [k.shape[1] for k in rolling.keys]
+    local = [n for i, n in enumerate(lens) if i % 2 == 0]
+    glob = [n for i, n in enumerate(lens) if i % 2 == 1]
+    if set(local) != {window} or set(glob) != {total}:
+        raise AssertionError(f"decoding: rolling planes {lens}")
+    nbytes = {name: sum(t.numel() * t.element_size()
+                        for t in c.planes().values())
+              for name, c in (("rolling", rolling), ("full", full))}
+    print(f"decoding rolling cache (Gemma-2-2B fp32, batch 1, {total} "
+          f"cells): {len(local)} local layers' planes hold {window} "
+          f"positions, {len(glob)} global layers' {total}; cache bytes "
+          f"rolling {nbytes['rolling']}, full {nbytes['full']}")
+    del rolling
+    _zero_counts(fa)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got, _ = generate(model, prompt, RC_NEW, device=dev)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    if fa.flash_forward.launches != model.depth:
+        raise AssertionError(f"decoding: the rolling prefill launched the "
+                             f"forward {fa.flash_forward.launches} times")
+    with torch.no_grad():
+        tok = model.head(model.hidden(torch.as_tensor(prompt, device=dev),
+                                      cache=full)[:, -1]).argmax(-1)
+        want = [tok]
+        for _ in range(RC_NEW - 1):
+            want.append(model(want[-1][:, None], cache=full)[:, -1]
+                        .argmax(-1))
+    if not torch.equal(got[:, RC_PROMPT:], torch.stack(want, dim=1)):
+        raise AssertionError("decoding: rolling generate differs from the "
+                             "full-budget cache")
+    print(f"decoding rolling generate: {RC_PROMPT} + {RC_NEW} tokens equal "
+          f"the full-budget cache's; flash_fwd {model.depth} launches in the "
+          f"prefill ({model.depth // 2} windowed over the {RC_PROMPT}-token "
+          f"prompt); {dt:.3f} s")
+    del model, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h, kv, d = fields["num_heads"], fields["num_kv_heads"], fields["head_dim"]
+    opts = (True, window, fields["attn_scale"], fields["attn_logit_cap"])
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, RC_PROMPT, h, d), generator=gen,
+                        device=dev).to(dtype)
+        k, v = (torch.randn((1, RC_PROMPT, kv, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        out, lse = fa.flash_forward(q, k, v, *opts)
+        torch.cuda.synchronize(dev)
+        ref_out, ref_lse = fa.flash_forward_reference(q, k, v, *opts)
+        out_rel = _rel(out.float(), ref_out.float())
+        lse_err = float((lse - ref_lse).abs().max())
+        tol_out, tol_lse = TOL[dtype]
+        ok = (bool(torch.isfinite(out).all()) and out_rel <= tol_out
+              and lse_err <= tol_lse)
+        print(f"kernel flash_fwd rolling prefill [1, {RC_PROMPT}, {h} -> "
+              f"{kv}, {d}] {str(dtype).split('.')[-1]} window {window} cap "
+              f"{opts[3]} scale {opts[2]}: out rel {out_rel:.3e} (tol "
+              f"{tol_out:g}), lse max abs {lse_err:.3e} (tol {tol_lse:g}) "
+              f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_fwd disagrees with its plain version "
+                                 "at the rolling prefill shape")
+        del q, k, v, out, lse, ref_out, ref_lse
+
+
+def phase_decoding(fa, dev):
+    """The decoding modes (docstring, phase 18)."""
+    import gc
+
+    from tfde_tpu_torch import testing
+
+    print(f"decoding on {_card()}")
+    llama = testing.FULL_WIDTH["Llama-3.2-1B"][1]
+    bf16 = _dc_batcher(fa, dev, llama)
+    _dc_beam(fa, dev, llama, bf16)
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dc_rolling(fa, dev, testing.FULL_WIDTH["Gemma-2-2B"][1])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
           "lifecycle", "export", "resnet",
           "bert", "vit", "gpt_lm", "hf_serve", "prefix_paged",
-          "admission")
+          "admission", "decoding")
 
 
 def main(argv=None) -> int:
@@ -4670,10 +5126,12 @@ def main(argv=None) -> int:
     run("resnet", phase_resnet, fa, dev)
     run("bert", phase_bert, fa, dev)
     run("vit", phase_vit, fa, dev)
+    _entry_flush()
     run("gpt_lm", phase_gpt_lm, fa, dev)
     d256_serve = run("hf_serve", phase_hf_serve, fa, dev)
     run("prefix_paged", phase_prefix_paged, fa, dev)
     run("admission", phase_admission, fa, dev)
+    run("decoding", phase_decoding, fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

@@ -120,7 +120,7 @@ def test_dropout_is_off_outside_training_and_drawn_from_the_generator():
 
 @pytest.mark.parametrize("field,value", [
     ("quant", "int8"), ("fused_qkv", True), ("paged_blocks", 16),
-    ("rolling_cache", True), ("num_experts", 4), ("kv_quant", "int8")])
+    ("num_experts", 4), ("kv_quant", "int8")])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         Encoder(1, 32, 4, 8, 64, torch.float32, device="cpu",

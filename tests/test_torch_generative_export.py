@@ -17,8 +17,8 @@ held against the JAX package.
   in-process `generate`'s; a sampled artifact's tokens equal in-process
   `generate(seed=...)` for one seed and differ for another.
 - `gpt_lm --generate N --export-generate DIR --device cpu --tiny`: the
-  artifact reproduces the logged tokens; the JAX example's refusals and
-  `--beams` (not ported) raise.
+  artifact reproduces the logged tokens; the JAX example's refusals
+  raise (`--beams` beam-decodes: tests/test_torch_beam.py).
 """
 
 import json
@@ -206,8 +206,6 @@ def test_gpt_lm_generate_exports_what_it_logs(tmp_path, caplog):
     (["--export-generate", "d"], ValueError, "--generate N to export"),
     (["--generate", "4", "--beams", "2", "--export-generate", "d"],
      ValueError, "beam search is not supported"),
-    (["--generate", "4", "--beams", "2"], NotImplementedError,
-     "queue 1, item 5"),
 ])
 def test_gpt_lm_generate_refusals(flags, error, match):
     with pytest.raises(error, match=match):

@@ -137,7 +137,7 @@ def test_prefill_and_per_row_decode_match_jax(pair, jax_decode, impl):
 
 @pytest.mark.parametrize("field,value", [
     ("moe_every", 4), ("kv_block", 32), ("fused_qkv", True),
-    ("quant", "int8"), ("rolling_cache", True), ("paged_blocks", 16),
+    ("quant", "int8"), ("paged_blocks", 16),
     ("num_experts", 4), ("dropout_rate", 0.1),
     ("router_z_loss_weight", 0.01),
 ])

@@ -363,8 +363,9 @@ def test_kv_quant_knob_and_refusals(lm, monkeypatch):
         tdecode.init_cache(tm, 1, 8, kv_quant="int4")
     with pytest.raises(ValueError, match="rolling"):
         tdecode.init_cache(tm, 1, 8, kv_quant="int8", rolling=True)
-    with pytest.raises(NotImplementedError, match="rolling"):
-        tdecode.init_cache(tm, 1, 8, rolling=True)
+    # without int8 the rolling request builds: the full cache here, as
+    # the model has no window (tests/test_torch_rolling.py)
+    assert not tdecode.init_cache(tm, 1, 8, rolling=True).rolling
     big = tdecode.init_cache(tm, 2, 8)
     with pytest.raises(ValueError, match="int8"):
         big.scatter_rows(tdecode.init_cache(tm, 1, 8, kv_quant="int8"),

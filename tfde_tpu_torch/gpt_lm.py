@@ -21,8 +21,10 @@ example's sampling: temperature 0.8, top-k 40, seed 2; `--temperature 0`
 decodes greedily), and `--export-generate DIR` also writes the whole
 decode loop as a generative artifact with the same sampling under DIR
 (`export.generative.export_generate`; `load_generate(DIR)` serves it, and
-its tokens for seed 2 are the ones logged). `--beams K` (beam search) is
-not ported and raises. Runs on CUDA by default:
+its tokens for seed 2 are the ones logged). `--beams K` decodes by beam
+search instead (`inference.beam.beam_search`, K beams, length penalty
+0.6) and logs each prompt's best beam and its score; it does not export.
+Runs on CUDA by default:
 
     python -m tfde_tpu_torch.gpt_lm --seq-len 1024 --batch-size 8 --max-steps 20
     python -m tfde_tpu_torch.gpt_lm --rope --kv-heads 4 --sliding-window 256 \\
@@ -31,6 +33,8 @@ not ported and raises. Runs on CUDA by default:
         --max-steps 20 --generate 32 --export-generate /tmp/gen
     python -m tfde_tpu_torch.gpt_lm --tiny --device cpu --max-steps 3 \\
         --batch-size 4 --seq-len 16 --train-examples 64 --packed --rope
+    python -m tfde_tpu_torch.gpt_lm --tiny --device cpu --max-steps 3 \\
+        --batch-size 4 --seq-len 16 --train-examples 64 --generate 4 --beams 2
 
 The JAX example's strategies and other options (--seq-parallel,
 --pipeline, --tensor, --moe, --fake-devices, ...) are not ported yet; an
@@ -49,6 +53,7 @@ import torch
 from tfde_tpu_torch.data import datasets
 from tfde_tpu_torch.data.packing import pack_documents, packed_next_token_loss
 from tfde_tpu_torch.export.generative import export_generate
+from tfde_tpu_torch.inference.beam import beam_search
 from tfde_tpu_torch.inference.decode import generate
 from tfde_tpu_torch.models.gpt import GPT2Small, gpt_tiny_test, next_token_loss
 from tfde_tpu_torch.training.optimizers import (
@@ -92,7 +97,7 @@ def main(argv=None):
                              "from a training prompt (inference/decode.py)")
     parser.add_argument("--beams", type=int, default=0, metavar="K",
                         help="with --generate: beam-search decode with K "
-                             "beams (not ported: raises)")
+                             "beams (inference/beam.py) instead of sampling")
     parser.add_argument("--export-generate", type=str, default=None,
                         metavar="DIR",
                         help="with --generate: also export the whole decode "
@@ -119,11 +124,6 @@ def main(argv=None):
                          "loop; exporting beam search is not supported yet "
                          "— drop --beams to export, or drop "
                          "--export-generate to beam-decode in process")
-    if args.beams > 0:
-        # before training, not after: the run would be discarded
-        raise NotImplementedError(
-            "--beams: beam search (inference/beam.py) is not ported yet "
-            "(ROADMAP.md, queue 1, item 5)")
     device = resolve_device(args.device)
     model_kw = {"remat": args.remat}
     if args.rope:
@@ -184,10 +184,19 @@ def main(argv=None):
         # one sampling config for the in-process decode AND the export, so
         # the artifact reproduces exactly what was just logged
         sampling = dict(temperature=args.temperature, top_k=40)
-        out, lengths = generate(model, prompt, args.generate, device=device,
-                                seed=2, **sampling)
-        for row, n in zip(out.cpu().numpy(), lengths.cpu().numpy()):
-            log.info("generated: %s", row[:int(n)].tolist())
+        if args.beams > 0:
+            out, scores, lengths = beam_search(
+                model, prompt, args.generate, num_beams=args.beams,
+                device=device)
+            for row, score, n in zip(out[:, 0].cpu().numpy(),
+                                     scores[:, 0].cpu().numpy(),
+                                     lengths[:, 0].cpu().numpy()):
+                log.info("beam best (%.3f): %s", score, row[:int(n)].tolist())
+        else:
+            out, lengths = generate(model, prompt, args.generate,
+                                    device=device, seed=2, **sampling)
+            for row, n in zip(out.cpu().numpy(), lengths.cpu().numpy()):
+                log.info("generated: %s", row[:int(n)].tolist())
         if args.export_generate:
             d = export_generate(model, args.export_generate,
                                 prompt_len=prompt.shape[1],

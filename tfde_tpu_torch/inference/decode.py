@@ -28,6 +28,18 @@
   artifact exports (export/generative.py). Sampling draws from a
   `generator` or, with `seed`, from `gumbel_noise`: the same seed gives
   the same tokens in process and from an exported artifact.
+- `generate_ragged`: `generate` for right-padded prompts of different
+  lengths: the shortest prefix prefills, then each row's prompt tail is
+  teacher-forced one token a step, so the cache never holds padding.
+- The rolling cache (`init_cache(..., rolling=True)` on a model with a
+  sliding window; `KVCache.rolling`): each windowed layer's planes hold
+  min(budget, window) slots, the token at position p in slot p mod slots
+  (models/transformer.MultiHeadAttention._rolling_attention). `generate`,
+  `generate_ragged` and inference/beam.py decode on it, as in JAX; the
+  paths that rewind (speculative decoding, the batchers) and the exported
+  decode keep the full-budget cache. A rolling cache's index stays an
+  int: JAX's rolling layer refuses per-row indices, and so does the
+  port's.
 - `remat_off`: serves a remat-trained model (the JAX `_decode_clone`'s
   remat=False); decode itself refuses remat.
 """
@@ -61,7 +73,8 @@ class KVCache:
     def __init__(self, keys: list, values: list,
                  index: Union[int, torch.Tensor] = 0,
                  key_scales: Optional[list] = None,
-                 value_scales: Optional[list] = None):
+                 value_scales: Optional[list] = None,
+                 rolling: bool = False):
         if (key_scales is None) != (value_scales is None):
             raise ValueError("an int8 cache needs both scale planes")
         self.keys = keys
@@ -69,6 +82,9 @@ class KVCache:
         self.index = index
         self.key_scales = key_scales
         self.value_scales = value_scales
+        #: the windowed layers' planes are rolling slots (`init_cache(...,
+        #: rolling=True)`): slot = position mod the plane's length
+        self.rolling = rolling
 
     @property
     def quantized(self) -> bool:
@@ -95,6 +111,18 @@ class KVCache:
 
     def advance(self, n: int) -> None:
         self.index = self.index + n
+
+    def select_rows(self, rows: torch.Tensor) -> None:
+        """Make row i of every plane the old row `rows[i]` ([B'] int64 on
+        the cache's device): one `index_select` along dim 0 a plane (beam
+        search's reorder, the JAX `_gather_beams`). A [B] index follows
+        its rows; an int index is every row's."""
+        for planes in (self.keys, self.values, self.key_scales,
+                       self.value_scales):
+            for i, plane in enumerate(planes or ()):
+                planes[i] = plane.index_select(0, rows)
+        if isinstance(self.index, torch.Tensor):
+            self.index = self.index.index_select(0, rows)
 
     def scatter_rows(self, rows_cache: "KVCache", rows: torch.Tensor) -> None:
         """Write an R-row cache's K/V into batch rows `rows` [R] in place.
@@ -171,6 +199,10 @@ class PagedKVCache(KVCache):
         self.table = table
         self.block = int(block)
 
+    def select_rows(self, rows: torch.Tensor) -> None:
+        raise ValueError("a paged cache's rows share its pools: reorder "
+                         "the block table, not the planes")
+
     def land_blocks(self, planes: dict, blocks: torch.Tensor) -> None:
         """Write shipped K/V re-chunked to blocks (`planes`: each plane
         name to [R, NB, block, ...] on the device) into pool blocks
@@ -237,36 +269,45 @@ def init_cache(model, batch_size: int, max_len: int,
     table. `kv_quant='int8'` (`resolve_kv_quant`) makes the payloads
     int8 and adds zero fp32 scale planes ([batch_size, max_len, Kv] or
     [paged_blocks, block, Kv]; zeros dequantize to the fp cache's exact
-    0.0). The rolling (window-bounded) cache is not ported: `rolling=True`
-    raises, after refusing int8 with it as JAX does."""
-    quant = resolve_kv_quant(model, kv_quant, rolling)
-    if rolling:
-        raise NotImplementedError(
-            "the rolling cache is not ported (ROADMAP queue 1 item 5)")
+    0.0). `rolling=True` on a model with a sliding window gives each
+    windowed layer [batch_size, min(max_len, window), Kv, D] rolling
+    planes (`KVCache.rolling`; an 'alternate' model's global layers keep
+    the full budget); on a model without one it is the full cache, as
+    JAX's `_decode_clone` engages the rolling layers only under a window.
+    Rolling with `paged_blocks` or int8 raises ValueError, as in JAX."""
+    if rolling and paged_blocks is not None:
+        raise ValueError(
+            "paged_blocks and rolling are mutually exclusive cache layouts")
+    windowed = rolling and getattr(model, "sliding_window", None) is not None
+    quant = resolve_kv_quant(model, kv_quant,
+                             rolling if kv_quant == "int8" else windowed)
     dtype = torch.int8 if quant else model.dtype
     if paged_blocks is not None:
         block = 16 if kv_block is None else int(kv_block)
         if paged_blocks < 2 or block < 1:
             raise ValueError(f"paged_blocks must be >= 2 and kv_block >= 1, "
                              f"got {paged_blocks} and {block}")
-        shape = (int(paged_blocks), block, model.kv_heads, model.head_dim)
+        shapes = [(int(paged_blocks), block, model.kv_heads,
+                   model.head_dim)] * model.depth
     else:
-        shape = (batch_size, max_len, model.kv_heads, model.head_dim)
+        windows = [blk.attn.window if windowed else None
+                   for blk in model.decoder.blocks()]
+        shapes = [(batch_size, max_len if w is None else min(max_len, w),
+                   model.kv_heads, model.head_dim) for w in windows]
 
-    def planes(plane_shape, plane_dtype):
-        return [torch.zeros(plane_shape, dtype=plane_dtype,
-                            device=model.device)
-                for _ in range(model.depth)]
+    def planes(plane_dtype, cell_dims=4):
+        return [torch.zeros(shape[:cell_dims], dtype=plane_dtype,
+                            device=model.device) for shape in shapes]
 
-    keys, values = planes(shape, dtype), planes(shape, dtype)
-    scales = ((planes(shape[:3], torch.float32),
-               planes(shape[:3], torch.float32)) if quant else (None, None))
+    keys, values = planes(dtype), planes(dtype)
+    scales = ((planes(torch.float32, 3), planes(torch.float32, 3))
+              if quant else (None, None))
     if paged_blocks is not None:
         nmax = -(-(max_len + 1) // block)
         table = torch.zeros((batch_size, nmax), dtype=torch.int64,
                             device=model.device)
         return PagedKVCache(keys, values, table, block, 0, *scales)
-    return KVCache(keys, values, 0, *scales)
+    return KVCache(keys, values, 0, *scales, rolling=windowed)
 
 
 @contextlib.contextmanager
@@ -398,8 +439,11 @@ def generate(model, prompt, max_new_tokens: int,
     by Gumbel-max over `gumbel_noise(seed, step, ...)`: what an exported
     artifact draws (export/generative.py). `prefill_token`, then
     `decode_token` once a further token, the decode ticks at a per-row
-    position tensor [B] (the two functions an artifact exports). Runs on
-    `device` (CUDA by default), which must be the model's."""
+    position tensor [B] (the two functions an artifact exports). A model
+    with a sliding window decodes on the rolling cache (`init_cache(...,
+    rolling=True)`), as JAX's `generate` does, its ticks at the shared
+    int position the rolling layers take. Runs on `device` (CUDA by
+    default), which must be the model's."""
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model is on {model.device}, generate was asked "
@@ -411,7 +455,7 @@ def generate(model, prompt, max_new_tokens: int,
                                  device=device)
         b, p = prompt.shape
         total = validate_budget(model, p, max_new_tokens)
-        cache = init_cache(model, b, total)
+        cache = init_cache(model, b, total, rolling=True)
         sample = dict(generator=generator, temperature=temperature,
                       top_k=top_k, top_p=top_p, min_p=min_p,
                       repetition_penalty=repetition_penalty)
@@ -422,13 +466,98 @@ def generate(model, prompt, max_new_tokens: int,
             seen[torch.arange(b, device=device)[:, None], prompt] = True
         tok, done = prefill_token(model, prompt, cache, seed, sample, eos_id,
                                   seen)
-        cache.set_index(torch.full((b,), p, dtype=torch.int64, device=device))
+        if not cache.rolling:
+            cache.set_index(torch.full((b,), p, dtype=torch.int64,
+                                       device=device))
         new = [tok]
         for step in range(1, max_new_tokens):
             tok, done = decode_token(model, tok, done, cache, step, seed,
                                      sample, eos_id, pad_id, seen)
             new.append(tok)
         return finish(prompt, torch.stack(new, dim=1), eos_id)
+
+
+def _check_ragged(prompt_lengths, b: int, p_max: int, prefill_len):
+    """`generate_ragged`'s argument checks, JAX's: returns (lengths
+    [B] np.int64, prefill_len)."""
+    lengths = np.asarray(prompt_lengths, np.int64)
+    if lengths.shape != (b,):
+        raise ValueError(
+            f"prompt_lengths must be [batch]={b}, got {lengths.shape}")
+    if lengths.min() < 1 or lengths.max() > p_max:
+        raise ValueError(
+            f"prompt_lengths must lie in [1, {p_max}], got "
+            f"[{lengths.min()}, {lengths.max()}]")
+    if prefill_len is None:
+        prefill_len = int(lengths.min())
+    if not 1 <= prefill_len <= lengths.min():
+        raise ValueError(
+            f"prefill_len={prefill_len} must lie in [1, min(prompt_lengths)="
+            f"{lengths.min()}] — prefilling past a row's prompt would feed "
+            f"its padding into the cache")
+    return lengths, int(prefill_len)
+
+
+@torch.no_grad()
+def generate_ragged(model, prompt, prompt_lengths, max_new_tokens: int,
+                    generator: Optional[torch.Generator] = None,
+                    prefill_len: Optional[int] = None,
+                    temperature: float = 0.0, top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    min_p: Optional[float] = None,
+                    eos_id: Optional[int] = None, pad_id: int = 0,
+                    device=None):
+    """`generate` for a batch of prompts of DIFFERENT lengths.
+
+    `prompt` is [B, Pmax] right-padded, `prompt_lengths` [B] each row's
+    real length. Returns (tokens [B, Pmax + max_new_tokens], lengths [B])
+    as int64 tensors, row r's continuation from slot `prompt_lengths[r]`,
+    pad after its end. The first `prefill_len` slots (default the
+    shortest prompt) prefill at index 0 (the flash kernel on a CUDA
+    tensor); then every further slot is one decode step whose input is
+    the row's own prompt token while the row is inside its prompt and its
+    sampled continuation after, so the cache never holds padding and
+    greedy rows equal solo `generate` runs. A model with a sliding window
+    decodes on the rolling cache, as in JAX. Sampling draws from
+    `generator` once a slot for every row (JAX splits its key once a
+    slot)."""
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"model is on {model.device}, generate_ragged was "
+                         f"asked for {device}")
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                             device=device)
+    b, p_max = prompt.shape
+    lengths_np, prefill_len = _check_ragged(prompt_lengths, b, p_max,
+                                            prefill_len)
+    sample = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                  min_p=min_p)
+    with remat_off(model):
+        total = validate_budget(model, p_max, max_new_tokens)
+        cache = init_cache(model, b, total, rolling=True)
+        lengths = torch.as_tensor(lengths_np, device=device)
+        slots = torch.arange(p_max, device=device)
+        seq = torch.cat([
+            torch.where(slots[None] < lengths[:, None], prompt, pad_id),
+            torch.full((b, max_new_tokens), pad_id, dtype=torch.int64,
+                       device=device)], dim=1)
+        logits = model.head(
+            model.hidden(prompt[:, :prefill_len], cache=cache)[:, -1])
+        gen_count = torch.zeros(b, dtype=torch.int64, device=device)
+        done = torch.zeros(b, dtype=torch.bool, device=device)
+        for t in range(prefill_len, total):
+            sampled = sample_logits(logits, generator, **sample)
+            in_prompt = t < lengths
+            can_gen = ~in_prompt & ~done & (gen_count < max_new_tokens)
+            tok = torch.where(in_prompt, seq[:, t],
+                              torch.where(can_gen, sampled, pad_id))
+            gen_count = gen_count + can_gen.long()
+            if eos_id is not None:
+                done = done | (can_gen & (sampled == eos_id))
+            seq[:, t] = tok
+            if t < total - 1:  # the last slot's logits would feed nothing
+                logits = model(tok[:, None], cache=cache)[:, -1]
+        return seq, lengths + gen_count
 
 
 def _noise(model, seed, step, b, sample):

@@ -92,9 +92,18 @@ of a paged batcher) and runs no model FLOPs and no sync. The wire format
 (`inference/router.py`) is the JAX package's. At temperature > 0 a primed
 request's first token was drawn from the prefill replica's generator.
 
-Not ported yet (ROADMAP queue 1 items 4 and 5): spans, trace (`trace=`
-other than None raises) and the flight recorder, and the speculative
-batcher.
+`SpeculativeContinuousBatcher` composes continuous batching with
+speculative decoding (inference/speculative.py): a target slab and a
+draft slab of max_len + num_draft + 1 cells a row; each admission wave
+prefills both on fresh row caches at index 0 (the flash kernel on a CUDA
+tensor) through the shared cold-wave helper and lands them with one
+scatter a cache; each round rewinds both caches to the rows' committed
+counts, runs the draft and verify forwards for the whole batch and fetches
+(round tokens, counts) once. Like JAX's, it takes no prefix cache, paged
+pool, int8 KV argument or primed hand-off.
+
+Not ported yet (ROADMAP queue 1 item 4): spans, trace (`trace=` other
+than None raises) and the flight recorder.
 """
 
 from __future__ import annotations
@@ -123,6 +132,7 @@ from tfde_tpu_torch.inference.prefix_cache import (
     DEFAULT_BLOCK,
     resolve as _resolve_prefix,
 )
+from tfde_tpu_torch.inference.speculative import fetch_round, run_round
 from tfde_tpu_torch.observability import capacity as _capacity
 from tfde_tpu_torch.observability import metrics
 from tfde_tpu_torch.utils.devices import resolve_device
@@ -221,6 +231,18 @@ def _decode_scan(model, cache: KVCache, tok, idx, budget, done, seen,
         emitted.append(live)
     return (tok, idx, budget, done, seen, torch.stack(toks, dim=1),
             torch.stack(emitted, dim=1))
+
+
+def _prefill_logits(model, row_cache: KVCache, feed: np.ndarray,
+                    last: np.ndarray) -> torch.Tensor:
+    """Run `feed` [R, S] into `row_cache` from its index (index 0 on a
+    fresh row cache: the flash prefill) and return each row's logits at
+    its true last position `last` [R]: [R, V] fp32, the head on R
+    positions only."""
+    dev = model.device
+    h = model.hidden(torch.as_tensor(feed, device=dev), cache=row_cache)
+    rows = torch.arange(feed.shape[0], device=dev)
+    return model.head(h[rows, torch.as_tensor(last, device=dev)])
 
 
 def _normalize_buckets(buckets, max_len: int) -> tuple:
@@ -453,11 +475,13 @@ class _BatcherBase:
         model_dir to anchor the file)."""
         self._usage.arm(model_dir)
 
-    def _init_capacity(self, cache) -> None:
+    def _init_capacity(self, cache, cells_per_row: Optional[int] = None
+                       ) -> None:
         """The occupancy ledger and headroom model of the dense slab
-        `cache` ([B, max_len] cells a layer)."""
+        `cache` ([B, cells_per_row] cells a layer; default max_len: the
+        speculative batcher's slab carries the draft's slack past it)."""
         self._ledger = _capacity.CapacityLedger.from_cache(
-            cache, self._b, self._max_len)
+            cache, self._b, cells_per_row or self._max_len)
         self._cap_model = _capacity.CapacityModel(self._ledger)
 
     def kv_stats(self) -> dict:
@@ -1129,10 +1153,7 @@ class ContinuousBatcher(_BatcherBase):
         dev = self._device
         rp = feed.shape[0]
         ar = torch.arange(rp, device=dev)
-        h = self._model.hidden(torch.as_tensor(feed, device=dev),
-                               cache=row_cache)
-        # the head runs on each row's true last position only
-        logits = self._model.head(h[ar, torch.as_tensor(last, device=dev)])
+        logits = _prefill_logits(self._model, row_cache, feed, last)
         row_seen = None
         if self._seen is not None:
             valid = torch.as_tensor(
@@ -1693,3 +1714,156 @@ class ContinuousBatcher(_BatcherBase):
             self._seen[rows_dev] = torch.as_tensor(seen, device=dev)
             self._dispatches += 1
         return toks
+
+
+class SpeculativeContinuousBatcher(_BatcherBase):
+    """Continuous batching accelerated by a draft model: every round the
+    draft proposes `num_draft` tokens a row and ONE target forward
+    verifies them all (inference/speculative.py's round, per-row
+    acceptance), while freed rows admit queued requests between rounds in
+    bucketed waves, as `ContinuousBatcher` does.
+
+    model, draft_model: `models.gpt.GPT`s of one vocabulary on `device`
+    (CUDA by default). The target and draft slabs hold max_len +
+    num_draft + 1 cells a row (a round feeds num_draft + 1 tokens past a
+    row's committed count before the rewind); the KV ledger tracks the
+    target slab (the draft cache is a cost of speculation, not serving
+    capacity). temperature 0 (default): each request's tokens equal its
+    solo greedy `generate`; temperature > 0: speculative sampling, drawn
+    from `generator`. Admission control (`admission_ctl`, default the
+    ``TFDE_ADMIT_*`` knobs), priorities and deadlines come from the base.
+    As in JAX there is no prefix cache, paged pool, int8 KV argument or
+    role: such an argument is a TypeError, the ``TFDE_PREFIX_CACHE``,
+    ``TFDE_PAGED_KV`` and ``TFDE_KV_QUANT`` knobs are not read (the slabs
+    take the models' own KV format), and `submit_primed` raises. `stats()`
+    reports rounds, tokens, tokens a round a row, the draft's acceptance
+    rate, dispatches and syncs; the ``serving/speculative/*`` gauges
+    mirror it after every step, and each round observes
+    ``serving/ms_per_token`` and feeds the admission drain rate."""
+
+    _metrics_prefix = "serving/speculative"
+
+    def __init__(self, model, draft_model, batch_size: int, max_len: int,
+                 num_draft: int = 4, temperature: float = 0.0,
+                 eos_id: Optional[int] = None, pad_id: int = 0,
+                 generator: Optional[torch.Generator] = None,
+                 prompt_buckets: Optional[tuple] = None,
+                 admission_ctl=None, device=None):
+        if num_draft < 1:
+            raise ValueError(f"num_draft must be >= 1, got {num_draft}")
+        super().__init__(model, batch_size, max_len, eos_id, pad_id,
+                         prompt_buckets, device, admission_ctl=admission_ctl)
+        if draft_model.device != self._device:
+            raise ValueError(f"draft model is on {draft_model.device}, the "
+                             f"batcher was asked for {self._device}")
+        self._draft = draft_model
+        self._temperature = float(temperature)
+        self._generator = generator
+        self._nd = int(num_draft)
+        self._cache_len = self._max_len + self._nd + 1
+        self._tgt_cache = init_cache(model, batch_size, self._cache_len)
+        self._drf_cache = init_cache(draft_model, batch_size,
+                                     self._cache_len)
+        self._init_capacity(self._tgt_cache, cells_per_row=self._cache_len)
+        self._round_tokens = 0    # tokens the rounds produced
+        self._draft_proposed = 0  # num_draft a row a round
+        self._draft_accepted = 0  # commits beyond the guaranteed token
+
+    def stats(self) -> dict:
+        """Rounds, tokens delivered, tokens a round a ROW (1.0: no draft
+        ever accepted; num_draft + 1: a perfect draft), the share of
+        proposed draft tokens committed, and the host cost in the JAX
+        units (dispatches, syncs)."""
+        return {
+            "rounds": self._rounds,
+            "generated": self._generated,
+            "tokens_per_round": (self._round_tokens
+                                 / max(self._rounds * self._b, 1)),
+            "acceptance_rate": (self._draft_accepted
+                                / max(self._draft_proposed, 1)),
+            "dispatches": self._dispatches,
+            "syncs": self._syncs,
+        }
+
+    def _validate_submit(self, prompt, max_new_tokens) -> None:
+        super()._validate_submit(prompt, max_new_tokens)
+        validate_budget(self._draft, int(prompt.size), max_new_tokens)
+
+    @torch.no_grad()
+    def _prefill_wave(self, prompts, last, rows, plens, n) -> np.ndarray:
+        """Both prefills of one cold wave on fresh row caches at index 0
+        (the flash kernel on a CUDA tensor), the target's first tokens
+        sampled at each row's true last position (the draft's head does
+        not run), then one scatter a cache and one fetch."""
+        rp = prompts.shape[0]
+        tgt_rows = init_cache(self._model, rp, self._cache_len)
+        drf_rows = init_cache(self._draft, rp, self._cache_len)
+        self._dispatches += 2  # the two fresh zero row caches
+        logits = _prefill_logits(self._model, tgt_rows, prompts, last)
+        tok = sample_logits(logits, self._generator,
+                            temperature=self._temperature)
+        self._draft.hidden(torch.as_tensor(prompts, device=self._device),
+                           cache=drf_rows)
+        self._dispatches += 2
+        rows_dev = torch.as_tensor(rows, device=self._device)
+        self._tgt_cache.scatter_rows(tgt_rows, rows_dev)
+        self._drf_cache.scatter_rows(drf_rows, rows_dev)
+        self._dispatches += 2
+        (tok_np,) = _fetch((tok,))
+        self._syncs += 1
+        return tok_np
+
+    def step(self) -> list:
+        """Admit, then run ONE speculative round for the whole batch;
+        returns [(request_id, tokens 1-D np.int32), ...] that finished on
+        it. Remat-trained models serve with remat off."""
+        with remat_off(self._model), remat_off(self._draft):
+            finished = self._step()
+        self._publish_stats()
+        return finished
+
+    @torch.no_grad()
+    def _step(self) -> list:
+        finished = self._admit()
+        active = [r for r in range(self._b) if self._req[r] is not None]
+        if not active:
+            return finished
+        self._rounds += 1
+        t0 = time.perf_counter()
+        # the rewind each round: acceptance lengths diverge every round
+        for cache in (self._tgt_cache, self._drf_cache):
+            cache.set_index(torch.as_tensor(self._committed,
+                                            device=self._device))
+        self._dispatches += 2
+        round_toks, n_new, _ = run_round(
+            self._model, self._draft, self._tgt_cache, self._drf_cache,
+            torch.as_tensor(self._tok, device=self._device), self._nd,
+            self._pad, self._temperature, self._generator)
+        self._dispatches += 1
+        round_np, n_np = fetch_round(round_toks, n_new)
+        self._syncs += 1
+        n_emitted = 0
+        for r in active:
+            taken = 0
+            for t in round_np[r, :int(n_np[r])].tolist():
+                if self._req[r] is None:
+                    break  # the row finished mid-round: overshoot dropped
+                self._round_tokens += 1
+                finished.extend(self._take_token(r, int(t)))
+                taken += 1
+            n_emitted += taken
+            # a row's commits beyond the target's own token are accepted
+            # proposals (the (num_draft + 1)-th is the bonus, no draft's)
+            self._draft_proposed += self._nd
+            self._draft_accepted += min(max(taken - 1, 0), self._nd)
+            if self._req[r] is not None:
+                # tok_last and the accepted tokens are now in both caches
+                # (the pending one stays unfed)
+                self._committed[r] += taken
+        dt = time.perf_counter() - t0
+        self._decode_s += dt
+        if n_emitted:
+            metrics.default_registry().histogram(
+                "serving/ms_per_token").observe(dt * 1e3 / n_emitted)
+            self._admission.note_drain(n_emitted, dt)
+        return finished

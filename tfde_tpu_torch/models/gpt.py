@@ -15,7 +15,11 @@ bias under `head_bias`), then `final_logit_cap`'s fp32 softcap; sequence
 packing (`segment_ids`) and the training objective `next_token_loss`.
 `kv_quant` (None or 'int8') is the storage format of the caches the
 model decodes with by default (`inference/decode.init_cache`); the
-layers read the format from the cache they are given. Every other field of the JAX `GPT` raises NotImplementedError when set
+layers read the format from the cache they are given. `rolling_cache` is
+accepted and kept in `config`: JAX's `_decode_clone(rolling=True)` sets
+it, and in the port the drivers pick the layout (`generate`,
+`generate_ragged` and beam search decode a windowed model on the rolling
+cache, the rewinding paths on the full one). Every other field of the JAX `GPT` raises NotImplementedError when set
 away from its default (`_UNPORTED`), so a configuration the port does not
 implement is never served as a different model. `config` holds the JAX
 fields the model was built with (`models/convert.save_converted` writes
@@ -47,7 +51,6 @@ _UNPORTED = {
     "moe_normalize_topk": True,
     "moe_shared_expert_dim": None,
     "router_z_loss_weight": 0.0,
-    "rolling_cache": False,
     "paged_blocks": None,
     "kv_block": 16,
     "quant": None,
@@ -83,6 +86,7 @@ class GPT(nn.Module):
                  attn_logit_cap: Optional[float] = None,
                  final_logit_cap: Optional[float] = None,
                  kv_quant: Optional[str] = None,
+                 rolling_cache: bool = False,
                  device=None, seed: int = 0, **fields):
         super().__init__()
         for name, value in fields.items():
@@ -122,7 +126,7 @@ class GPT(nn.Module):
             head_bias=head_bias, embed_scale=embed_scale, head_dim=head_dim,
             tie_embeddings=tie_embeddings, attn_scale=attn_scale,
             attn_logit_cap=attn_logit_cap, final_logit_cap=final_logit_cap,
-            kv_quant=kv_quant)
+            kv_quant=kv_quant, rolling_cache=rolling_cache)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.depth = depth
@@ -137,6 +141,7 @@ class GPT(nn.Module):
         self.embed_scale = embed_scale
         self.final_logit_cap = final_logit_cap
         self.kv_quant = kv_quant
+        self.rolling_cache = rolling_cache
         self.wte = nn.Embedding(vocab_size, hidden_size, device=device)
         self.wpe = (nn.Embedding(max_position, hidden_size, device=device)
                     if position == "learned" else None)

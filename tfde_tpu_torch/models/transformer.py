@@ -31,7 +31,11 @@ the stack with the layer number, where flax keeps it in the "cache"
 collection; its `index` is a Python int (one shared position — `generate`
 and the admission prefill) or a [B] tensor (per-row positions — the
 batcher's decode ticks). A paged cache (`decode.PagedKVCache`: pools and
-a block table) takes the paged branch (`_paged_attention`).
+a block table) takes the paged branch (`_paged_attention`), a rolling
+cache (`decode.init_cache(..., rolling=True)`) the rolling branch on its
+windowed layers (`_rolling_attention`). The JAX `rolling_cache` field of
+`TransformerBlock` and `Encoder` (and of GPT) is accepted and has no
+effect: the layers read the layout from the cache they are given.
 """
 
 from __future__ import annotations
@@ -55,7 +59,6 @@ from tfde_tpu_torch.ops.rotary import apply_rotary
 _UNPORTED = {
     "fused_qkv": False,
     "quant": None,
-    "rolling_cache": False,
     "paged_blocks": None,
     "kv_block": 16,
     "kv_quant": None,
@@ -311,6 +314,9 @@ class MultiHeadAttention(nn.Module):
         A paged cache (one carrying a block `table`) takes
         `_paged_attention`.
 
+        A full-precision cache stores `nan_to_num` of the K/V, as the
+        paged cache does (JAX stores them as they are, and its speculative
+        decoding at the position table's end emits NaN's argmax there).
         An int8 cache (`cache.quantized`) stores `kv_quantize` of this
         call's K/V (payload and scale planes at the same cells) and
         attends over `kv_dequantize` of the whole slab, as JAX does: the
@@ -318,6 +324,8 @@ class MultiHeadAttention(nn.Module):
         flash prefill at index 0 takes the dequantized K/V."""
         if getattr(cache, "table", None) is not None:
             return self._paged_attention(q, k, v, cache, layer)
+        if cache.rolling and self.window is not None:
+            return self._rolling_attention(q, k, v, cache, layer)
         quant = cache.quantized
         planes = [cache.keys[layer], cache.values[layer]]
         if quant:
@@ -336,7 +344,12 @@ class MultiHeadAttention(nn.Module):
             k_w = kv_dequantize(k_q, k_s, k.dtype)
             v_w = kv_dequantize(v_q, v_s, v.dtype)
         else:
-            k_w, v_w = k.to(planes[0].dtype), v.to(planes[1].dtype)
+            # nan_to_num (the identity on finite values): a learned
+            # position past the table embeds NaN, and speculative rounds
+            # feed up to num_draft positions past a row's budget; a masked
+            # cell's zero weight would still take 0 * NaN
+            k_w = torch.nan_to_num(k.to(planes[0].dtype))
+            v_w = torch.nan_to_num(v.to(planes[1].dtype))
             writes = [k_w, v_w]
         cols = torch.arange(max_len, device=q.device)
         steps = torch.arange(sq, device=q.device)
@@ -366,6 +379,62 @@ class MultiHeadAttention(nn.Module):
             values = kv_dequantize(values, planes[3], v.dtype)
         return attn_lib.grouped_attention(q, keys, values,
                                           mask=valid[:, None], **opts)
+
+    def _rolling_attention(self, q, k, v, cache, layer: int) -> torch.Tensor:
+        """The window-bounded rolling cache (JAX `_rolling_attention`): the
+        token at position p lives in slot p mod Wc of the layer's [B, Wc,
+        Kv, D] planes (Wc = min(budget, window)), so decode memory is
+        O(window). After this call's writes the newest position is P =
+        index + S - 1, and slot j holds position b_j = P - ((P - j) mod
+        Wc); a query at position p attends slot j iff 0 <= b_j <= p and
+        p - b_j < window (the masked einsum over the slots).
+
+        The index must be an int: a per-row [B] index raises
+        NotImplementedError, as in JAX (the per-row paths rewind and keep
+        the full cache). One prefill from position 0, then single-token
+        steps: a prefill at index 0 is plain causal windowed attention
+        over the call's own q/k/v and goes through the dispatcher (the
+        flash kernel on a CUDA tensor), and so does a prompt longer than
+        the cache (S > Wc; only at index 0, where every key a band-limited
+        query needs is in the call), which keeps its newest Wc tokens."""
+        keys, values = cache.keys[layer], cache.values[layer]
+        sq, wc = q.shape[1], keys.shape[1]
+        idx = cache.index
+        if not isinstance(idx, int):
+            if sq > wc:
+                raise ValueError(
+                    "per-row prefill longer than the rolling window cache "
+                    "is unsupported (rows would need in-batch keys beyond "
+                    "their own cache)")
+            raise NotImplementedError(
+                "rolling_cache with per-row cache indices is unsupported — "
+                "the per-row paths (speculative decoding, row-recycling "
+                "servers) use the full-budget cache")
+        if sq > wc and idx != 0:
+            raise ValueError(
+                f"a {sq}-token call at position {idx} overflows the "
+                f"{wc}-slot rolling cache: a call longer than the window "
+                f"is a prefill from position 0")
+        q, k = self._rotate(q, k, idx)
+        k_w, v_w = k.to(keys.dtype), v.to(values.dtype)
+        opts = dict(scale=self.attn_scale, logit_cap=self.attn_logit_cap)
+        pos = idx + torch.arange(sq, device=q.device)
+        if sq > wc:
+            keys[:, pos[-wc:] % wc] = k_w[:, -wc:]
+            values[:, pos[-wc:] % wc] = v_w[:, -wc:]
+        else:
+            keys[:, pos % wc] = k_w
+            values[:, pos % wc] = v_w
+        if idx == 0:
+            return attn_lib.attention(q, k_w, v_w, causal=True,
+                                      impl=self.attn_impl, window=self.window,
+                                      **opts)
+        last = idx + sq - 1
+        held = last - ((last - torch.arange(wc, device=q.device)) % wc)
+        ago = pos[:, None] - held[None, :]  # [sq, Wc]
+        valid = (held >= 0) & (ago >= 0) & (ago < self.window)
+        return attn_lib.grouped_attention(q, keys, values,
+                                          mask=valid[None, None], **opts)
 
     def _paged_attention(self, q, k, v, cache, layer: int) -> torch.Tensor:
         """Paged decode attention (JAX `_paged_attention`): write this
@@ -483,7 +552,8 @@ class TransformerBlock(nn.Module):
                  ln_eps: float = 1e-6, causal: bool = False,
                  norm_style: str = "pre", norm: str = "layer",
                  mlp_act: str = "gelu", use_bias: bool = True,
-                 dropout_rate: float = 0.0, device=None, **fields):
+                 dropout_rate: float = 0.0, rolling_cache: bool = False,
+                 device=None, **fields):
         super().__init__()
         attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
         if fields.get("num_experts", 0) > 0 and (mlp_act, use_bias) not in (
@@ -586,7 +656,8 @@ class Encoder(nn.Module):
                  norm: str = "layer", mlp_act: str = "gelu",
                  use_bias: bool = True, dropout_rate: float = 0.0,
                  window: Optional[int] = None, window_pattern: str = "all",
-                 remat=False, device=None, **fields):
+                 remat=False, rolling_cache: bool = False, device=None,
+                 **fields):
         super().__init__()
         attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
         check_unported("Encoder", fields)
