@@ -303,13 +303,15 @@ without printing a result:
    published widths (random weights from seed 0) with `serve_gpt`'s
    quarter-width draft (hidden 512, depth 4, 8 heads of D 64, MLP 2048,
    seed 7): `generate_speculative` in fp32 at num_draft 4, batch 1 x
-   128 and 900 prompt tokens and batch 4 x 512, x 64 new, equal to
-   greedy `generate` with the small draft and with the target as its
-   own draft (then exactly 13 rounds), one prefill of each model's
+   128 and 900 prompt tokens and batch 4 x 512, x 32 new (cut from 64
+   for the script's time limit), equal to greedy `generate`
+   with the small draft and with the target as its own draft (then
+   exactly 7 rounds), one prefill of each model's
    flash launches a call, and the sampled rounds (temperature 0.8)
    with the perfect draft at acceptance >= 0.99;
    `SpeculativeContinuousBatcher` (batch 8, max_len 1024) on 12
-   requests of 100-900 prompt tokens x 32, in fp32 every request equal
+   requests of 100-900 prompt tokens x 16 (cut from 32), in fp32
+   every request equal
    to its solo `generate` and the forward launched 16 + 4 times a
    wave (the counters zeroed just before), in bf16 timed with the small
    and the perfect draft beside the plain ContinuousBatcher (scan depth
@@ -322,7 +324,40 @@ without printing a result:
    tokens, its local planes 4,096 cells and its global 4,384, both
    caches' bytes, 26 launches in the prefill, and the windowed forward
    at [1, 4352, 8 -> 4, 256] (window 4096, cap 50, scale 1/16) against
-   its plain version (out and lse) in fp32 and bf16.
+   its plain version (out and lse) in fp32 and bf16;
+19. router — the serving front door (inference/router.py): Llama-3.2-1B
+   at its published widths (random weights from seed 0, fp32, one module
+   shared by the replicas) behind two in-process ReplicaServers (batch 4,
+   max_len 512) and a prefill-role one (batch 1), a Router priming
+   prompts of 256 tokens or more. (1) 12 requests of 32-400 prompt
+   tokens x 8 new (16 before a slow card host ran the phase in 129.0 s)
+   through `request_generate` in parallel threads: every
+   token list equal to its solo `generate`, both decode replicas used,
+   the long prompts primed and decoded from the hand-off, the flash
+   forward launched 16 times a cold wave and a prime and never for a
+   primed wave (the counters zeroed just before); TTFT and end-to-end
+   seconds, beside the same requests' TTFT in one in-process batcher and
+   one request at a time through the router and in-process (the hops'
+   cost); (2) replica 0's front door shut: the next 4 requests on replica
+   1 with solo tokens, replica 0 down (`router/replicas_lost`,
+   `router/replica0/up`, `replica_down` in the flight ring); (3) `python
+   -m tfde_tpu_torch.serve_gpt --serve 0` (GPT-2 small, --seed 0) as a
+   child beside an in-process replica of the same seeded model (a second
+   child prints the weights' sha256, equal to this process's): the
+   child's start-up seconds, its request's tokens equal to the
+   in-process replica's, then SIGKILL: marked down, the next requests on
+   the survivor with equal tokens; (4) a replica capped at one queued
+   request answers a burst with 429s (integer Retry-After,
+   `QueueFull.as_json()`), and the Router in front of it rejects with 429
+   'saturated'; (5) the trace ring on: one long-prompt request's
+   stitched waterfall from GET /trace/<id>, its events in causal order
+   and their durations; (6) POST /profile {"span": 4}: replica 1
+   captures the decode rounds of 4 requests x 16 new on `torch.profiler`
+   (CPU and CUDA), the prefill replica refuses with 409 (one window a
+   process); the Chrome trace's path and size, its top 5 CUDA kernels,
+   the window's device-busy share and an unprofiled tick's; (7) every
+   step-loop thread alive, every server closed. Automatic profile
+   triggers are off for the phase; the serve_gpt child starts first.
 
 Every phase prints its seconds.
 
@@ -4735,9 +4770,9 @@ def phase_admission(fa, dev):
 #: generate_speculative at num_draft DC_DRAFT over (batch, prompt) runs x
 #: DC_NEW new tokens; the batcher at batch DC_BATCH, max_len DC_MAX_LEN,
 #: DC_REQUESTS requests of DC_PROMPT tokens x DC_SRV_NEW
-DC_DRAFT, DC_NEW, DC_RUNS = 4, 64, ((1, 128), (1, 900), (4, 512))
+DC_DRAFT, DC_NEW, DC_RUNS = 4, 32, ((1, 128), (1, 900), (4, 512))
 DC_BATCH, DC_MAX_LEN, DC_REQUESTS = 8, 1024, 12
-DC_PROMPT, DC_SRV_NEW, DC_SCAN = (100, 900), 32, 4
+DC_PROMPT, DC_SRV_NEW, DC_SCAN = (100, 900), 16, 4
 #: beam search: batch x beams, prompt, new tokens, length penalty; the
 #: score of a beam against one cache-free forward of its sequence
 BM_BATCH, BM_BEAMS, BM_PROMPT, BM_NEW, BM_PENALTY = 2, 4, 256, 32, 0.6
@@ -5073,10 +5108,604 @@ def phase_decoding(fa, dev):
     torch.cuda.empty_cache()
 
 
+#: router: Llama-3.2-1B (published widths, random weights from seed 0,
+#: fp32) behind two decode-capable replicas (batch RT_BATCH, max_len
+#: RT_MAX_LEN) and a prefill replica (batch 1), a Router priming prompts
+#: of RT_PREFILL_MIN tokens or more; RT_REQUESTS requests of RT_PROMPT
+#: tokens x RT_NEW new in parallel threads (RT_NEW 16 until a slow card
+#: host ran the phase in 129.0 s: the solo references dominate there)
+RT_BATCH, RT_MAX_LEN, RT_PREFILL_MIN = 4, 512, 256
+RT_REQUESTS, RT_PROMPT, RT_NEW = 12, (32, 400), 8
+#: re-routed requests, sequential hop-cost requests, the profiled
+#: requests (one wave of RT_BATCH, RT_PROFILE_NEW new each: the window,
+#: RT_SPAN decode rounds, opens after their first step and closes after
+#: the second, so it holds decode ticks only), the HTTP calls' timeout (s)
+RT_REROUTE, RT_HOPS, RT_TIMEOUT = 4, 2, 120
+RT_PROFILED, RT_PROFILE_NEW, RT_SPAN = 4, 16, 4
+#: the child replica (`python -m` argv), the child that prints the sha256
+#: of the same seeded weights, and the profiler's category of a CUDA
+#: kernel in its Chrome trace
+RT_CHILD = ("tfde_tpu_torch.serve_gpt", "--serve", "0", "--seed", "0")
+RT_DIGEST = ("from tfde_tpu_torch.models.gpt import GPT2Small; "
+             "from tfde_tpu_torch.testing import state_digest; "
+             "print(state_digest(GPT2Small(device='cuda', seed=0)"
+             ".cast_compute_weights_()))")
+RT_KERNEL_CAT = "kernel"
+
+
+def _rt_ms(xs) -> str:
+    xs = sorted(xs)
+    return (f"median {xs[len(xs) // 2] * 1e3:.1f} ms, max "
+            f"{xs[-1] * 1e3:.1f} ms")
+
+
+def _rt_through(router_url, prompts, n=RT_NEW):
+    """Every prompt through `request_generate` (`n` new tokens) in
+    parallel threads: (results, end-to-end seconds each)."""
+    from tfde_tpu_torch.inference.router import request_generate
+
+    def one(p):
+        t0 = time.perf_counter()
+        out = request_generate(router_url, p, n, timeout=RT_TIMEOUT)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        res = list(pool.map(one, prompts))
+    return [r[0] for r in res], [r[1] for r in res]
+
+
+def _rt_hold(what, outs, prompts, want):
+    diff = [i for i, (o, p) in enumerate(zip(outs, prompts))
+            if o["tokens"] != want[p.tobytes()]]
+    if diff:
+        raise AssertionError(f"router {what}: requests {diff} differ from "
+                             f"their solo generate")
+
+
+def _rt_parity(fa, dev, model, router, reps, pre, prompts, want):
+    """Drill 1: the requests through the front door against solo
+    `generate`, their placement, the prefill tier's hand-offs and the
+    phase's flash launches; then TTFT through the router against the
+    batcher in-process."""
+    from tfde_tpu_torch.inference.router import request_generate
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    primes = []
+    prime = pre.batcher.prime
+    pre.batcher.prime = lambda *a, **kw: (primes.append(1), prime(*a, **kw))[1]
+    torch.cuda.synchronize(dev)
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    outs, e2e = _rt_through(router.url, prompts)
+    wall = time.perf_counter() - t0
+    launches = fa.flash_forward.launches
+    pre.batcher.prime = prime
+    _rt_hold("parity", outs, prompts, want)
+    placed = sorted({o["replica"] for o in outs})
+    if placed != [0, 1]:
+        raise AssertionError(f"router: placement used replicas {placed}")
+    n_long = sum(int(p.size) >= RT_PREFILL_MIN for p in prompts)
+    with reps[0].lock, reps[1].lock:
+        waves = [r.batcher.wave_counts() for r in reps]
+    cold = sum(w.get("cold", 0) for w in waves)
+    primed = sum(w.get("primed", 0) for w in waves)
+    if len(primes) != n_long or not primed:
+        raise AssertionError(f"router: {len(primes)} primes and {primed} "
+                             f"primed waves for {n_long} long prompts")
+    want_launches = model.depth * (cold + len(primes))
+    if launches != want_launches:
+        raise AssertionError(
+            f"router: flash_fwd launched {launches} times, not "
+            f"{model.depth} x ({cold} cold waves + {len(primes)} primes)")
+    ttft = [o["ttft_s"] for o in outs]
+    print(f"router parity: {len(prompts)} requests in parallel in "
+          f"{wall:.3f} s, every token equal to solo generate; replicas "
+          f"{[o['replica'] for o in outs]}; {n_long} prompts of >= "
+          f"{RT_PREFILL_MIN} tokens primed on the prefill replica, decoded "
+          f"in {primed} primed waves beside {cold} cold waves; flash_fwd "
+          f"{launches} launches ({model.depth} a cold wave and a prime, 0 a "
+          f"primed wave); TTFT through the router {_rt_ms(ttft)}; end to "
+          f"end {_rt_ms(e2e)} a request")
+    # the same requests submitted at once to one batcher of a replica's
+    # width, in-process (no HTTP, no SSE, no router, no prefill tier)
+    direct = ContinuousBatcher(model, batch_size=RT_BATCH,
+                               max_len=RT_MAX_LEN, device=dev)
+    for p in prompts:
+        direct.submit(p, RT_NEW)
+    direct.run()
+    torch.cuda.synchronize(dev)
+    print(f"router parity: the same {len(prompts)} requests at once into "
+          f"one in-process batcher (batch {RT_BATCH}): TTFT "
+          f"{_rt_ms([v / 1e3 for v in direct.ttft_ms().values()])}")
+    # the hops' cost: one request at a time, through the router and
+    # directly (submit, then steps until its first token is taken)
+    short = [p for p in prompts if p.size < RT_PREFILL_MIN][:RT_HOPS]
+    direct.enable_progress()
+    via, own = [], []
+    for p in short:
+        via.append(request_generate(router.url, p, RT_NEW,
+                                    timeout=RT_TIMEOUT)["ttft_s"])
+        t0 = time.perf_counter()
+        rid = direct.submit(p, RT_NEW)
+        while not direct.take_progress(rid)[0]:
+            direct.step()
+        own.append(time.perf_counter() - t0)
+        direct.run()
+        direct.take_progress(rid)
+    print(f"router hops: {len(short)} requests one at a time (prompts "
+          f"{[int(p.size) for p in short]}), TTFT through the router "
+          f"{_rt_ms(via)}, in-process {_rt_ms(own)}: the HTTP, SSE and "
+          f"router hops cost {(sum(via) - sum(own)) / len(short) * 1e3:.1f} "
+          f"ms a request")
+    del direct
+    return launches
+
+
+def _rt_reroute(router, reps, prompts, want):
+    """Drill 2: replica 0's front door shut; the next requests land on
+    replica 1 with equal tokens, and replica 0 is down."""
+    from tfde_tpu_torch.inference.router import request_generate
+    from tfde_tpu_torch.observability import flightrec, metrics
+
+    reg = metrics.default_registry()
+    lost = reg.counter("router/replicas_lost").value
+    reps[0]._httpd.shutdown()
+    reps[0]._httpd.server_close()
+    outs = [request_generate(router.url, p, RT_NEW, timeout=RT_TIMEOUT)
+            for p in prompts]
+    if any(o["replica"] != 1 for o in outs):
+        raise AssertionError(f"router re-route: placed on "
+                             f"{[o['replica'] for o in outs]}")
+    _rt_hold("re-route", outs, prompts, want)
+    tab = {row["replica"]: row for row in router.table()}
+    kinds = [e["kind"] for e in flightrec.default_recorder().events()]
+    if (reg.counter("router/replicas_lost").value < lost + 1
+            or reg.gauge("router/replica0/up").value != 0
+            or tab[0]["up"] or "replica_down" not in kinds):
+        raise AssertionError(f"router re-route: replica 0 not marked down "
+                             f"({tab[0]})")
+    print(f"router re-route: replica 0's front door shut; the next "
+          f"{len(prompts)} requests all on replica 1, tokens equal to solo "
+          f"generate; router/replicas_lost "
+          f"{reg.counter('router/replicas_lost').value:.0f}, "
+          f"router/replica0/up 0, replica_down in the flight ring")
+
+
+def _rt_spawn(root):
+    """Start the `serve_gpt --serve 0` child (RT_CHILD), the child that
+    prints the sha256 of the same seeded weights (RT_DIGEST), and a
+    thread that notes when the child's URL is logged and its /healthz
+    first reads ready: (child, digest child, the child's stderr log, the
+    thread, its findings {"url", "ready_s", "healthz"})."""
+    import threading
+    import urllib.request
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    log = os.path.join(root, "serve_child.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        child = subprocess.Popen([sys.executable, "-m", *RT_CHILD], env=env,
+                                 cwd=here, stdout=subprocess.DEVNULL,
+                                 stderr=f)
+    digest = subprocess.Popen([sys.executable, "-c", RT_DIGEST], env=env,
+                              cwd=here, stdout=subprocess.PIPE, text=True)
+    seen = {}
+
+    def watch():
+        while child.poll() is None and time.perf_counter() - t0 < 600:
+            with open(log) as f:
+                for line in f:
+                    if "replica serving on " in line:
+                        seen["url"] = line.split(
+                            "replica serving on ")[1].split()[0]
+            if "url" in seen:
+                hz = json.loads(urllib.request.urlopen(
+                    seen["url"] + "/healthz", timeout=30).read())
+                if hz.get("state") == "ready":
+                    seen["ready_s"] = time.perf_counter() - t0
+                    seen["healthz"] = hz
+                    return
+            time.sleep(0.05)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return child, digest, log, watcher, seen
+
+
+def _rt_child(dev, spawned):
+    """Drill 3: the `python -m tfde_tpu_torch.serve_gpt --serve 0` child
+    (GPT-2 small, random weights from --seed 0; started with the phase,
+    `_rt_spawn`) next to an in-process replica of the same seeded model
+    behind one Router; its request, and after a SIGKILL the survivor's,
+    equal the in-process replica's tokens for the same prompt."""
+    from tfde_tpu_torch import testing
+    from tfde_tpu_torch.inference.router import (ReplicaServer, Router,
+                                                 request_generate)
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.models.gpt import GPT2Small
+
+    child, digest, log, watcher, seen = spawned
+    local = router = None
+    try:
+        model = GPT2Small(device=dev, seed=0).cast_compute_weights_()
+        # serve_gpt's batcher: batch 4, max_len 128, scan depth 4
+        local = ReplicaServer(ContinuousBatcher(
+            model, batch_size=4, max_len=128, scan_depth=4,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev), replica_id=1).start()
+        mine = testing.state_digest(model)
+        theirs = digest.communicate(timeout=600)[0].strip().splitlines()[-1]
+        if theirs != mine:
+            raise AssertionError(f"router child: --seed 0 weights differ "
+                                 f"between processes ({theirs} vs {mine})")
+        watcher.join(timeout=600)
+        if "ready_s" not in seen:
+            with open(log) as f:
+                raise AssertionError(f"router child did not serve:\n"
+                                     f"{f.read()[-4000:]}")
+        url = seen["url"]
+        print(f"router child: serve_gpt --serve 0 ready at {url} in "
+              f"{seen['ready_s']:.1f} s (process start to /healthz "
+              f"{seen['healthz']}; it started with the phase and booted "
+              f"while this process built its model and ran drills 1-2); "
+              f"--seed 0 "
+              f"gives the same weights in two processes (sha256 of every "
+              f"parameter's bytes, a second child against this process: "
+              f"{mine[:16]})")
+        router = Router([url, local.url]).start()
+        p = np.random.default_rng(5).integers(0, model.vocab_size, 48)
+        ref = request_generate(local.url + "/generate", p, RT_NEW,
+                               timeout=RT_TIMEOUT)["tokens"]
+        out = request_generate(router.url, p, RT_NEW, timeout=RT_TIMEOUT)
+        if out["replica"] != 0 or out["tokens"] != ref:
+            raise AssertionError(f"router child: {out} against {ref}")
+        solo = _dc_solo(model, p, RT_NEW, dev).tolist()
+        child.kill()
+        child.wait(timeout=60)
+        after = [request_generate(router.url, p, RT_NEW, timeout=RT_TIMEOUT)
+                 for _ in range(2)]
+        if any(o["replica"] != 1 or o["tokens"] != ref for o in after):
+            raise AssertionError(f"router child: after the SIGKILL {after}")
+        if router.table()[0]["up"]:
+            raise AssertionError("router child: the killed child is not down")
+        print(f"router child: one request on the child, tokens equal to "
+              f"the in-process replica's run of the same prompt (bf16; "
+              f"solo generate {'equal' if solo == ref else 'differs'}); "
+              f"SIGKILL: the child marked down, the next {len(after)} "
+              f"requests on the survivor with equal tokens")
+        return local
+    finally:
+        for proc in (child, digest):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if router is not None:
+            router.close()
+
+
+def _rt_overload(dev, model, prompt, want):
+    """Drill 4: a replica capped at one queued request answers a burst
+    with 429s; with it saturated the Router rejects at the front door."""
+    import urllib.error
+    import urllib.request
+
+    from tfde_tpu_torch.inference import admission
+    from tfde_tpu_torch.inference.router import (ReplicaServer, Router,
+                                                 request_generate)
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    b = ContinuousBatcher(model, batch_size=1, max_len=RT_MAX_LEN,
+                          admission_ctl=admission.AdmissionController(
+                              max_queue=1), device=dev)
+    rep = ReplicaServer(b, replica_id=0).start()
+    router = Router([rep.url]).start()
+    step = b.step
+    first = None
+    try:
+        b.step = lambda: time.sleep(0.01)   # decode stalled: the queue holds
+        body = json.dumps({"prompt": prompt.tolist(),
+                           "max_new_tokens": RT_NEW}).encode()
+
+        def post():
+            req = urllib.request.Request(
+                rep.url + "/generate", data=body,
+                headers={"Content-Type": "application/json"})
+            return urllib.request.urlopen(req, timeout=RT_TIMEOUT)
+
+        first = post()
+        first.readline()                    # the one queued request
+        codes = []
+        with ThreadPoolExecutor(7) as pool:
+            def burst(_):
+                try:
+                    post().close()
+                    return 200, None, None
+                except urllib.error.HTTPError as e:
+                    return e.code, e.headers.get("Retry-After"), \
+                        json.loads(e.read())
+            codes = list(pool.map(burst, range(7)))
+        if any(c != 429 or int(ra) < 1 or js.get("error") != "queue full"
+               or js.get("reason") != "queue_depth" for c, ra, js in codes):
+            raise AssertionError(f"router overload: the burst got {codes}")
+        t0 = time.perf_counter()
+        try:
+            request_generate(router.url, prompt, RT_NEW, timeout=RT_TIMEOUT)
+            raise AssertionError("router overload: the saturated router "
+                                 "served")
+        except urllib.error.HTTPError as e:
+            fast = time.perf_counter() - t0
+            js = json.loads(e.read())
+            if (e.code != 429 or js.get("reason") != "saturated"
+                    or int(e.headers.get("Retry-After")) < 1):
+                raise AssertionError(f"router overload: {e.code} {js}")
+        b.step = step
+        toks = [json.loads(line[6:])["token"] for line in first
+                if line.startswith(b"data: ") and b'"token"' in line]
+        if toks != want:
+            raise AssertionError(f"router overload: the queued request's "
+                                 f"tokens {toks} differ from solo generate")
+        print(f"router overload: a replica capped at one queued request "
+              f"answered a burst of {len(codes)} with 429 (Retry-After "
+              f"{sorted({int(c[1]) for c in codes})} s, body "
+              f"{codes[0][2]}); the router in front of it rejected with 429 "
+              f"'saturated' in {fast * 1e3:.1f} ms; the queued request's "
+              f"tokens equal solo generate")
+    finally:
+        b.step = step
+        if first is not None:
+            first.close()
+        router.close()
+        if not rep.loop_alive:
+            raise AssertionError("router overload: the step loop died")
+        rep.close()
+
+
+def _rt_trace(router, prompt, want):
+    """Drill 5: one long-prompt request's stitched waterfall from
+    GET {router}/trace/<id>."""
+    import urllib.request
+
+    from tfde_tpu_torch.inference.router import request_generate
+    from tfde_tpu_torch.observability import trace
+
+    trace.enable()
+    try:
+        out = request_generate(router.url, prompt, RT_NEW,
+                               timeout=RT_TIMEOUT)
+        doc = json.loads(urllib.request.urlopen(
+            f"{router.url}/trace/{out['trace']}", timeout=30).read())
+    finally:
+        trace.disable()
+    if out["tokens"] != want:
+        raise AssertionError("router trace: tokens differ from solo generate")
+    evs = doc["events"]
+    first = {}
+    for e in evs:
+        first.setdefault(e["name"], e)
+    need = ("router/request", "router/prime", "serve/prime",
+            "router/attempt", "serve/queued", "serve/prefill_primed",
+            "serve/first_token", "serve/decode_round", "serve/done",
+            "serve/stream_out", "router/done")
+    missing = [n for n in need if n not in first]
+    if missing:
+        raise AssertionError(f"router trace: no {missing} in "
+                             f"{[e['name'] for e in evs]}")
+
+    def start(n):
+        return first[n]["ts"]
+
+    def end(n):
+        return first[n]["ts"] + first[n].get("dur", 0.0)
+
+    # causal order: the request, the prime round trip around the
+    # replica's prime, the placement, the queue, the primed wave, the
+    # rounds, the stream out inside the router's whole
+    order = [start("router/request") <= start("router/prime")
+             <= start("serve/prime"), end("serve/prime") <= end("router/prime")
+             <= start("router/attempt") + 1e-3,
+             start("serve/queued") <= start("serve/prefill_primed")
+             <= start("serve/decode_round"),
+             end("serve/decode_round") <= end("serve/done") + 1e-3,
+             end("serve/stream_out") <= end("router/done") + 1e-3]
+    if not all(order):
+        raise AssertionError(f"router trace: out of order {order}")
+    rounds = [e for e in evs if e["name"] == "serve/decode_round"]
+    ft = first["serve/first_token"]
+    relay = (first["router/done"]["dur"] - first["router/prime"]["dur"]
+             - first["serve/stream_out"]["dur"])
+    print(f"router trace: prompt {prompt.size} tokens, "
+          f"{len(evs)} events from {doc['procs']}: router/prime "
+          f"{first['router/prime']['dur'] * 1e3:.1f} ms (serve/prime "
+          f"{first['serve/prime']['dur'] * 1e3:.1f} ms of it), queue "
+          f"{ft['queue_wait_ms']:.1f} ms, primed wave "
+          f"{first['serve/prefill_primed']['dur'] * 1e3:.1f} ms, first "
+          f"token {ft['ttft_ms']:.1f} ms after submit, {len(rounds)} decode "
+          f"rounds {sum(e['dur'] for e in rounds) * 1e3:.1f} ms, "
+          f"serve/stream_out {first['serve/stream_out']['dur'] * 1e3:.1f} "
+          f"ms, router/done {first['router/done']['dur'] * 1e3:.1f} ms "
+          f"(the router's own relay and placement {relay * 1e3:.1f} ms)")
+
+
+def _rt_profile(router, reps, pre, prompts, want, model_dir):
+    """Drill 6: POST {router}/profile {"span": RT_SPAN} just before the
+    requests arrive (a window opens at the first decode round with work,
+    so the capture holds their rounds): replica 1 captures, the prefill
+    replica (same process) refuses with 409; the window's kernels and
+    device-busy share."""
+    import urllib.request
+
+    from tfde_tpu_torch.observability import profiler
+
+    req = urllib.request.Request(
+        router.url + "/profile",
+        data=json.dumps({"span": RT_SPAN, "reason": "router_phase"})
+        .encode(), headers={"Content-Type": "application/json"})
+    # replica 1's steps, timed: (ticks after, ticks run, decode seconds)
+    b, steps = reps[1].batcher, []
+    step = b.step
+
+    def timed():
+        t0, d0 = b._rounds, b._decode_s
+        out = step()
+        steps.append((b._rounds, b._rounds - t0, b._decode_s - d0))
+        return out
+
+    with reps[1].lock:
+        b.step = timed
+    arm = json.loads(urllib.request.urlopen(req, timeout=30).read())
+    outs, _ = _rt_through(router.url, prompts, RT_PROFILE_NEW)
+    with reps[1].lock:
+        del b.step
+    _rt_hold("profile", outs, prompts, want)
+    # the fan-out's order: replica 0 (down: an error), replica 1, the
+    # prefill replica (a 409 body: no error)
+    dead, r1, pr = arm["replicas"]
+    if ("error" not in dead or r1.get("armed") is not True
+            or pr.get("armed") is not False or "error" in pr):
+        raise AssertionError(f"router profile: {arm}")
+    deadline = time.perf_counter() + 60
+    while (not profiler.list_artifacts(model_dir[1])
+           and time.perf_counter() < deadline):
+        time.sleep(0.05)
+    (rec,) = profiler.list_artifacts(model_dir[1])
+    if profiler.list_artifacts(model_dir[2]):
+        raise AssertionError("router profile: the prefill replica captured")
+    with open(rec["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == RT_KERNEL_CAT]
+    if not kern:
+        raise AssertionError("router profile: no CUDA kernel in the window")
+    by_name = {}
+    for e in kern:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    spans, busy, t_end = sorted((e["ts"], e["ts"] + e["dur"]) for e in kern), \
+        0.0, None
+    for a, b in spans:
+        if t_end is None or a > t_end:
+            busy += b - a
+            t_end = b
+        elif b > t_end:
+            busy += b - t_end
+            t_end = b
+    wall_us = rec["wall_s"] * 1e6
+    # the window holds the decode of the steps that ended past its first
+    # round up to its last; the drill's other steps ran unprofiled
+    inside = [rec["start"] < after <= rec["stop"] for after, _, _ in steps]
+    n_win = sum(n for (_, n, _), i in zip(steps, inside) if i)
+    n_out = sum(n for (_, n, _), i in zip(steps, inside) if not i)
+    plain_ms = 1e3 * sum(d for (_, _, d), i in zip(steps, inside)
+                         if not i) / max(n_out, 1)
+    prof_ms = 1e3 * sum(d for (_, _, d), i in zip(steps, inside)
+                        if i) / max(n_win, 1)
+    print(f"router profile: replica 1 captured rounds {rec['start']}-"
+          f"{rec['stop']} ({len(rec['traces'])} traces), the prefill "
+          f"replica refused (409, one window a process); "
+          f"{rec['trace_file']} {os.path.getsize(rec['trace_file'])} bytes, "
+          f"{len(kern)} kernels; device busy {busy / 1e3:.2f} ms of a "
+          f"{wall_us / 1e3:.2f} ms window ({busy / wall_us:.3f} busy, "
+          f"{1 - busy / wall_us:.3f} idle; an observation of the decode "
+          f"rounds, ticks of Llama-3.2-1B fp32 at batch {RT_BATCH}); the "
+          f"drill's {n_out} ticks outside the window took {plain_ms:.2f} "
+          f"ms a tick of decode, its {n_win} inside {prof_ms:.2f}: with "
+          f"the device's {busy / 1e3 / max(n_win, 1):.2f} ms a tick "
+          f"unchanged, busy {busy / 1e3 / max(n_win, 1) / plain_ms:.3f} "
+          f"of an unprofiled tick")
+    for name, us in top:
+        print(f"router profile kernel: {us / 1e3:9.3f} ms  {name[:110]}")
+
+
+def phase_router(fa, dev):
+    """The serving front door (docstring, phase 19)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from tfde_tpu_torch import testing
+    from tfde_tpu_torch.inference.router import ReplicaServer, Router
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+    from tfde_tpu_torch.models.gpt import GPT
+    from tfde_tpu_torch.observability import profiler
+
+    print(f"router on {_card()}")
+    root = tempfile.mkdtemp(prefix="router_phase_")
+    dirs = [os.path.join(root, name) for name in ("r0", "r1", "pre")]
+    # the child replica starts first and boots while this process works
+    spawned = _rt_spawn(root)
+    # the automatic captures (an SLO burn crossing of the router's
+    # tracker arms whichever replica's sink the hub asks first) are off,
+    # so the one profiler window of the process is the profile drill's
+    hub = profiler.hub()
+    hub.enabled = False
+    servers, router = [], None
+    try:
+        fields = testing.FULL_WIDTH["Llama-3.2-1B"][1]
+        model = GPT(**fields, dtype=torch.float32, device=dev, seed=0)
+        prompts = _dc_prompts(model.vocab_size, RT_REQUESTS, *RT_PROMPT,
+                              seed=2)
+        extra = _dc_prompts(model.vocab_size, RT_REROUTE + RT_PROFILED, 32,
+                            200, seed=3)
+        longp = _dc_prompts(model.vocab_size, 1, 300, 400, seed=4)
+        want = {p.tobytes(): _dc_solo(model, p, RT_NEW, dev).tolist()
+                for p in prompts + extra[:RT_REROUTE] + longp}
+        want.update({p.tobytes(): _dc_solo(model, p, RT_PROFILE_NEW,
+                                           dev).tolist()
+                     for p in extra[RT_REROUTE:]})
+        print(f"router: Llama-3.2-1B (published widths, random weights "
+              f"from seed 0, fp32, one module shared by every replica: its "
+              f"forward keeps no state on the module); two replicas (batch "
+              f"{RT_BATCH}, max_len {RT_MAX_LEN}) and a prefill replica "
+              f"(batch 1) behind a Router (prefill_min_tokens "
+              f"{RT_PREFILL_MIN}); prompt lengths "
+              f"{[int(p.size) for p in prompts]} x {RT_NEW} new")
+        reps = [ReplicaServer(ContinuousBatcher(
+                    model, batch_size=RT_BATCH, max_len=RT_MAX_LEN,
+                    device=dev), replica_id=i, model_dir=dirs[i]).start()
+                for i in range(2)]
+        pre = ReplicaServer(ContinuousBatcher(
+            model, batch_size=1, max_len=RT_MAX_LEN, role="prefill",
+            device=dev), replica_id=0, model_dir=dirs[2]).start()
+        servers = reps + [pre]
+        router = Router([r.url for r in reps], prefill_replicas=[pre.url],
+                        prefill_min_tokens=RT_PREFILL_MIN).start()
+        launches = _rt_parity(fa, dev, model, router, reps, pre, prompts,
+                              want)
+        _rt_reroute(router, reps, extra[:RT_REROUTE], want)
+        servers.append(_rt_child(dev, spawned))
+        _rt_overload(dev, model, extra[0], want[extra[0].tobytes()])
+        _rt_trace(router, longp[0], want[longp[0].tobytes()])
+        _rt_profile(router, reps, pre, extra[RT_REROUTE:], want, dirs)
+        dead = [s for s in servers if not s.loop_alive]
+        if dead:
+            raise AssertionError(f"router: {len(dead)} step loops died")
+        print(f"router end: all {len(servers)} step loops alive")
+    finally:
+        for proc in spawned[:2]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        hub.enabled = True
+        if router is not None:
+            router.close()
+        for s in servers:
+            try:
+                s.close()
+            except OSError:
+                pass  # replica 0's front door was shut by the re-route drill
+        shutil.rmtree(root, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("router end: every server closed")
+    return launches
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
           "lifecycle", "export", "resnet",
           "bert", "vit", "gpt_lm", "hf_serve", "prefix_paged",
-          "admission", "decoding")
+          "admission", "decoding", "router")
 
 
 def main(argv=None) -> int:
@@ -5132,6 +5761,7 @@ def main(argv=None) -> int:
     run("prefix_paged", phase_prefix_paged, fa, dev)
     run("admission", phase_admission, fa, dev)
     run("decoding", phase_decoding, fa, dev)
+    run("router", phase_router, fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

@@ -38,6 +38,7 @@ from tfde_tpu_torch.inference import server as tserver
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import gpt_tiny_test
 from tfde_tpu_torch.observability import metrics as tmetrics
+from tfde_tpu_torch.observability import trace as ttrace
 from tfde_tpu_torch.testing import one_thread
 
 #: one intra-op torch thread for the module (`testing.one_thread`)
@@ -212,7 +213,8 @@ def test_batcher_gauges_and_drain_rate(lm):
     """After each step the serving/batcher/* gauges hold the queue, the
     rows, the backlog and the drain rate as the JAX batcher's do (the
     counts exactly; the drain rate, a wall-clock figure, positive on
-    both); a trace id raises until tracing is ported."""
+    both); a trace id is taken, and with the trace ring off nothing is
+    recorded for it."""
     make_j, make_t = _makers(lm)
     names = ("queue_depth", "free_rows", "outstanding_tokens",
              "queued_tokens", "rounds", "generated", "dispatches", "syncs")
@@ -235,9 +237,10 @@ def test_batcher_gauges_and_drain_rate(lm):
         seen.append(trace)
     assert seen[0] == seen[1]
     srv = make_t(batch_size=1, max_len=48)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        srv.submit(PROMPT, 2, trace="abc")
-    assert srv._next_id == 0 and not srv._queue
+    assert not ttrace.active()
+    assert srv.submit(PROMPT, 2, trace="abc") == 0
+    assert len(srv._queue) == 1 and not srv._trace_ids
+    assert ttrace.events("abc") == []
 
 
 def test_cancel_drops_deadline_and_stream(lm):

@@ -253,3 +253,32 @@ def test_wire_bf16_and_refusals():
         trouter.primed_from_json(bad)
     with pytest.raises(ValueError, match="plane"):
         trouter.leaf_name((0, "q"))
+
+
+def test_prime_and_primed_trace_events_match_jax(lm):
+    """`prime(trace=)` records ``serve/prime`` and a primed submit's
+    trace reads queued (primed) -> prefill_primed -> first token ->
+    rounds -> done, with the JAX package's names in both halves."""
+    from tfde_tpu.observability import trace as jtrace
+    from tfde_tpu_torch.observability import trace as ttrace
+
+    names = []
+    for pkg, make in ((jtrace, _jax), (ttrace, _port)):
+        pre = make(lm, False, "fp", batch_size=1, role="prefill")
+        dec = make(lm, False, "fp", batch_size=2, role="decode")
+        pkg.enable()
+        try:
+            primed = pre.prime(PROMPTS[1], NEW, trace="h")
+            dec.submit_primed(primed, trace="h")
+            dec.run()
+            evs = [e for e in pkg.events("h")
+                   if not e["name"].startswith("compile/")]
+        finally:
+            pkg.disable()
+        names.append([e["name"] for e in evs])
+        assert evs[0]["prompt_tokens"] == PROMPTS[1].size
+        assert evs[1]["primed"] is True
+    assert names[1] == names[0]
+    assert names[1][:3] == ["serve/prime", "serve/queued",
+                            "serve/prefill_primed"]
+    assert names[1][-1] in ("serve/done", "serve/decode_round")

@@ -123,9 +123,9 @@ def test_remat_artifact_serves(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    # --prefix-cache and --num-draft are ported: a value they cannot read
-    # is the error
-    ["--num-draft", "two"], ["--prefix-cache", "bogus"], ["--serve", "0"],
+    # --prefix-cache, --num-draft and --serve are ported: a value they
+    # cannot read is the error
+    ["--num-draft", "two"], ["--prefix-cache", "bogus"], ["--serve", "zero"],
     ["--tokenizer", "tok"], ["--prompt", "hi"], ["--fake-devices", "1"]])
 def test_unported_serving_flags_are_argparse_errors(flag):
     with pytest.raises(SystemExit):

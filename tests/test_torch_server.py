@@ -259,3 +259,157 @@ def test_serve_gpt_runs_on_cpu():
     done = serve_gpt.main(["--tiny", "--device", "cpu", "--requests", "3",
                            "--batch-size", "2", "--max-new-tokens", "5"])
     assert len(done) == 3 and all(len(t) == 5 for _rid, t in done)
+
+
+def _trace_story(pkg_trace, pkg_flightrec, srv, prompts, cancel=False):
+    """Serve `prompts` (the first traced "t0", the rest "t1".. each), the
+    ring on: every trace's event names (JAX's recompile-sentinel
+    compile/* events aside), in order; with `cancel`, the last request is
+    cancelled while queued."""
+    pkg_trace.enable()
+    try:
+        rids = [srv.submit(p, n, trace=f"t{i}")
+                for i, (p, n) in enumerate(prompts)]
+        if cancel:
+            assert srv.cancel(rids[-1])
+        srv.run()
+        return {f"t{i}": [e["name"] for e in pkg_trace.events(f"t{i}")
+                          if not e["name"].startswith("compile/")]
+                for i in range(len(prompts))}
+    finally:
+        pkg_trace.disable()
+
+
+@pytest.mark.parametrize("layout", ["dense", "prefix", "paged_prefix"])
+def test_trace_events_match_jax(lm, layout):
+    """`trace=` ids through the port batcher give each request the JAX
+    batcher's events (queue, prefix lookup, prefill wave, first token,
+    decode rounds, done, cancel) on the same weights and requests, for
+    the dense slab, the prefix trie and the paged pool; the prefill,
+    admit and decode spans are timed."""
+    from tfde_tpu.observability import flightrec as jflightrec
+    from tfde_tpu.observability import trace as jtrace
+    from tfde_tpu_torch.observability import flightrec as tflightrec
+    from tfde_tpu_torch.observability import metrics as tmetrics
+    from tfde_tpu_torch.observability import trace as ttrace
+
+    jm, params, tm = lm
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 97, 16)
+    prompts = [(np.concatenate([shared, rng.integers(0, 97, k)]), n)
+               for k, n in ((3, 5), (2, 4))] + [(rng.integers(0, 97, 4), 6)]
+    paged = layout == "paged_prefix"
+    cache = layout != "dense"
+    jsrv = jserver.ContinuousBatcher(
+        jm, params, batch_size=2, max_len=48, scan_depth=4, kv_quant="fp",
+        paged=paged, prefix_cache=cache)
+    tsrv = tserver.ContinuousBatcher(tm, batch_size=2, max_len=48,
+                                     scan_depth=4, kv_quant="fp", paged=paged,
+                                     prefix_cache=cache, device="cpu")
+    reg = tmetrics.default_registry()
+    before = {n: reg.histogram(n).count for n in
+              ("serving/prefill", "serving/admit", "serving/decode",
+               "serving/ttft_ms", "serving/tpot_ms")}
+    want = _trace_story(jtrace, jflightrec, jsrv, prompts, cancel=True)
+    got = _trace_story(ttrace, tflightrec, tsrv, prompts, cancel=True)
+    assert got == want
+    assert got["t0"][0] == "serve/queued"
+    assert "serve/first_token" in got["t0"] and "serve/done" in got["t0"]
+    assert got["t2"] == ["serve/queued", "serve/cancelled"]
+    if cache:
+        assert "serve/prefix_lookup" in got["t1"]
+    for name, n in before.items():
+        assert reg.histogram(name).count > n, name
+    admits = [e for e in tflightrec.default_recorder().events()
+              if e["kind"] == "admit"]
+    assert admits and admits[-1]["rows"] >= 1
+
+
+def test_shed_records_trace_and_flight_events(lm):
+    """A request whose TTFT deadline passed in the queue is shed with a
+    ``serve/shed`` trace event and a ``shed`` flight event, as in JAX."""
+    from tfde_tpu_torch.observability import flightrec as tflightrec
+    from tfde_tpu_torch.observability import trace as ttrace
+
+    tm = lm[2]
+    srv = tserver.ContinuousBatcher(tm, batch_size=1, max_len=32,
+                                    device="cpu")
+    ttrace.enable()
+    try:
+        srv.submit(np.asarray([1, 2, 3]), 2, trace="ok")
+        rid = srv.submit(np.asarray([4, 5]), 2, trace="late",
+                         ttft_deadline_ms=0.001)
+        srv.run()
+        assert srv.was_shed(rid)
+        names = [e["name"] for e in ttrace.events("late")]
+        assert names == ["serve/queued", "serve/shed"]
+        (ev,) = [e for e in ttrace.events("late") if e["name"] == "serve/shed"]
+        assert ev["priority"] == "interactive" and ev["waited_ms"] > 0
+    finally:
+        ttrace.disable()
+    shed = [e for e in tflightrec.default_recorder().events()
+            if e["kind"] == "shed" and e["rid"] == rid]
+    assert shed and shed[-1]["budget"] == 2
+
+
+
+def test_serve_gpt_serve_flag(tmp_path):
+    """`python -m tfde_tpu_torch.serve_gpt --tiny --device cpu --serve 0`
+    serves until interrupted: it logs its URL, reports ready on /healthz,
+    answers a request through a Router with the tokens an in-process
+    replica of the same seeded model gives, and exits 0 on Ctrl-C."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from tfde_tpu_torch.inference.router import (ReplicaServer, Router,
+                                                 request_generate)
+
+    T = 60
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log = tmp_path / "serve.log"
+    with open(log, "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "tfde_tpu_torch.serve_gpt", "--tiny",
+             "--device", "cpu", "--seed", "3", "--serve", "0"],
+            env=env, cwd=root, stdout=subprocess.DEVNULL, stderr=f)
+    local = router = None
+    try:
+        url, deadline = None, time.monotonic() + T
+        while url is None and time.monotonic() < deadline:
+            assert child.poll() is None, log.read_text()
+            for line in log.read_text().splitlines():
+                if "replica serving on " in line:
+                    url = line.split("replica serving on ")[1].split()[0]
+            time.sleep(0.05)
+        assert url is not None, log.read_text()
+        hz = json.loads(urllib.request.urlopen(url + "/healthz",
+                                               timeout=T).read())
+        assert hz == {"ok": True, "state": "ready", "replica": 0}
+        model = gpt_tiny_test(device="cpu", seed=3).cast_compute_weights_()
+        local = ReplicaServer(tserver.ContinuousBatcher(
+            model, batch_size=4, max_len=128, device="cpu"),
+            replica_id=1).start()
+        router = Router([url, local.url]).start()
+        p = [5, 17, 33, 2]
+        want = request_generate(local.url + "/generate", p, 8,
+                                timeout=T)["tokens"]
+        out = request_generate(router.url, p, 8, timeout=T)
+        assert out["replica"] == 0 and out["tokens"] == want
+        child.send_signal(signal.SIGINT)
+        assert child.wait(timeout=T) == 0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        if router is not None:
+            router.close()
+        if local is not None:
+            assert local.loop_alive
+            local.close()

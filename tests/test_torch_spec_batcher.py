@@ -30,6 +30,7 @@ from tfde_tpu.inference import admission as jadmission
 from tfde_tpu.inference import server as jserver
 from tfde_tpu.models.gpt import GPT as JGPT
 from tfde_tpu.observability import metrics as jmetrics
+from tfde_tpu.observability import trace as jtrace
 from tfde_tpu_torch import serve_gpt, testing
 from tfde_tpu_torch.inference import admission as tadmission
 from tfde_tpu_torch.inference import decode as tdecode
@@ -37,6 +38,7 @@ from tfde_tpu_torch.inference import server as tserver
 from tfde_tpu_torch.models.flax_weights import from_flax_params
 from tfde_tpu_torch.models.gpt import GPT
 from tfde_tpu_torch.observability import metrics as tmetrics
+from tfde_tpu_torch.observability import trace as ttrace
 from tfde_tpu_torch.testing import one_thread
 
 #: one intra-op torch thread for the module (`testing.one_thread`)
@@ -281,8 +283,8 @@ def test_refused_arguments(models, kw):
 
 def test_primed_and_trace_refused_and_cache_knobs_ignored(models,
                                                           monkeypatch):
-    """`submit_primed` raises RuntimeError in both; `trace=` raises in the
-    port (no trace module, as the plain batcher); under
+    """`submit_primed` raises RuntimeError in both; `trace=` is taken by
+    both and records the same event names (the trace ring on); under
     ``TFDE_PAGED_KV=1``, ``TFDE_KV_QUANT=int8`` and
     ``TFDE_PREFIX_CACHE=on`` both serve from the dense full-precision
     slabs with the same tokens and accounting."""
@@ -298,8 +300,20 @@ def test_primed_and_trace_refused_and_cache_knobs_ignored(models,
             srv.submit_primed(tserver.PrimedRequest(
                 prompt=np.asarray([1, 2]), first_token=3, max_new_tokens=2,
                 kv={}))
-    with pytest.raises(NotImplementedError, match="trace"):
-        tsrv.submit(np.asarray([1, 2]), 2, trace="t")
+    names = []
+    for srv, trace in ((jsrv, jtrace), (tsrv, ttrace)):
+        trace.enable()
+        try:
+            srv.submit(np.asarray([1, 2]), 2, trace="t")
+            srv.run()
+            # compile/* events come from the JAX recompile sentinel,
+            # which the port does not have
+            names.append([e["name"] for e in trace.events("t")
+                          if not e["name"].startswith("compile/")])
+        finally:
+            trace.disable()
+    assert names[1] == names[0]
+    assert names[1][0] == "serve/queued" and "serve/done" in names[1]
     stream = _stream(7)
     want, got = _serve(jsrv, stream), _serve(tsrv, stream)
     for w, g in zip(want, got):

@@ -16,9 +16,8 @@ and every request's TTFT degrades together. The pieces:
   behavior change.
 - `QueueFull`: the typed rejection `submit()` raises when a cap is hit,
   carrying queue depth + the drain estimate (+ the KV snapshot when the
-  memory gate was consulted); `as_json()` is the 429 body an HTTP layer
-  answers with `Retry-After` (the router's HTTP layer is not ported yet:
-  ROADMAP queue 1 item 5.3).
+  memory gate was consulted); `as_json()` is the 429 body that
+  `inference/router.ReplicaServer` answers with `Retry-After`.
 - `force_overload(seconds)`: the fault-injection lever — while armed,
   every controller rejects as if saturated, making the overload story
   drillable in one process without generating 2x-capacity load. The

@@ -315,7 +315,11 @@ def remat_off(model):
     """Every `Encoder` of `model` with remat off for the duration, then as
     it was: remat only shapes the backward, which decode does not have,
     so a model trained with it serves as the same function."""
-    encoders = [m for m in model.modules() if isinstance(m, Encoder)]
+    # only encoders with remat on are written: a model served by several
+    # threads at once (replicas of one process) with remat off is never
+    # mutated, so the threads cannot restore each other's values
+    encoders = [m for m in model.modules()
+                if isinstance(m, Encoder) and m.remat is not None]
     saved = [e.remat for e in encoders]
     for e in encoders:
         e.remat = None

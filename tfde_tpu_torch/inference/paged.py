@@ -48,6 +48,7 @@ from tfde_tpu_torch.inference.prefix_cache import (
     publish_stats,
     stats_dict,
 )
+from tfde_tpu_torch.observability import trace as _trace
 
 #: the null block: unallocated table slots point here, out-of-range writes
 #: are routed here; never allocated, never read through a mask
@@ -309,19 +310,24 @@ class PagedPrefixCache:
                           self.resident_bytes, self._bytes_saved,
                           self._segments, self._evictions)
 
-    def lookup(self, tokens, claim: bool = False):
+    def lookup(self, tokens, trace: Optional[str] = None,
+               claim: bool = False):
         """Longest cached prefix usable for prompt `tokens`: ``(L, [block
         ids])`` (L a block multiple, >= 1 suffix token left) or ``(0,
         None)``. `claim=True` increfs the matched blocks for the caller
         (warm admission's table reference), so no eviction between plan
         and wave can invalidate them; the caller owns one `pool.free` a
-        claimed block (`release`)."""
+        claimed block (`release`). `trace`: the request's trace id
+        (``serve/prefix_lookup`` on its timeline)."""
         tokens = np.asarray(tokens).reshape(-1)
         self._op += 1
         segs = match(self._root, tokens, self._block)
         if not segs:
             self._misses += 1
             self._publish()
+            if trace is not None:
+                _trace.event("serve/prefix_lookup", trace=trace,
+                             hit=False, reused_tokens=0)
             return 0, None
         for s in segs:
             self._clock += 1
@@ -335,6 +341,10 @@ class PagedPrefixCache:
         self._reused_tokens += n * self._block
         self._bytes_saved += int(n * self._block_bytes)
         self._publish()
+        if trace is not None:
+            _trace.event("serve/prefix_lookup", trace=trace, hit=True,
+                         reused_tokens=n * self._block,
+                         prompt_tokens=int(tokens.size))
         return n * self._block, ids
 
     def release(self, ids) -> None:

@@ -43,6 +43,7 @@ import torch
 
 from tfde_tpu_torch import knobs
 from tfde_tpu_torch.observability import metrics
+from tfde_tpu_torch.observability import trace as _trace
 
 DEFAULT_BYTE_BUDGET = 256 * 1024 * 1024
 #: the trie's chunk and the paged pool's block (TFDE_KV_BLOCK, default 16)
@@ -175,17 +176,22 @@ class PrefixCache:
                           self._bytes, self._bytes_saved, self._segments,
                           self._evictions)
 
-    def lookup(self, tokens):
+    def lookup(self, tokens, trace: Optional[str] = None):
         """Longest cached prefix usable for prompt `tokens`: ``(L, kv)``
         with L a block multiple that leaves at least one suffix token and
         kv = {(layer, plane): [L, ...] tensor}, or ``(0, None)`` on a
-        miss. Touches the matched path for LRU."""
+        miss. Touches the matched path for LRU. `trace`: the request's
+        trace id; the hit or miss and the reused tokens land on its
+        timeline (``serve/prefix_lookup``)."""
         tokens = np.asarray(tokens).reshape(-1)
         self._op += 1
         segs = match(self._root, tokens, self._block)
         if not segs:
             self._misses += 1
             self._publish()
+            if trace is not None:
+                _trace.event("serve/prefix_lookup", trace=trace,
+                             hit=False, reused_tokens=0)
             return 0, None
         for s in segs:
             self._clock += 1
@@ -198,6 +204,10 @@ class PrefixCache:
         self._reused_tokens += len(segs) * self._block
         self._bytes_saved += sum(s.nbytes for s in segs)
         self._publish()
+        if trace is not None:
+            _trace.event("serve/prefix_lookup", trace=trace, hit=True,
+                         reused_tokens=len(segs) * self._block,
+                         prompt_tokens=int(tokens.size))
         return len(segs) * self._block, kv
 
     def insert(self, tokens, row_cache, row: int) -> int:

@@ -102,8 +102,21 @@ counts, runs the draft and verify forwards for the whole batch and fetches
 (round tokens, counts) once. Like JAX's, it takes no prefix cache, paged
 pool, int8 KV argument or primed hand-off.
 
-Not ported yet (ROADMAP queue 1 item 4): spans, trace (`trace=` other
-than None raises) and the flight recorder.
+Observability, as in JAX: `submit`, `submit_primed` and `prime` take a
+request trace id (`trace=`, inference/router.py's ``X-Tfde-Trace``);
+while the trace ring is on (observability/trace.py, ``TFDE_TRACE``) the
+request's timeline gains ``serve/queued``, ``serve/prefix_lookup``,
+``serve/prefill_<kind>``, ``serve/first_token``, ``serve/decode_round``,
+``serve/done``, ``serve/shed``, ``serve/cancelled`` and ``serve/prime``,
+and ``serving/ttft_ms`` / ``serving/tpot_ms`` keep their slowest
+requests as exemplars. The spans ``serving/admit``, ``serving/prefill``
+and ``serving/decode`` time each step's phases (host time,
+observability/spans.py); the flight recorder takes one ``admit`` event a
+wave and ``shed`` and ``kv_defrag`` events; the boot ledgers
+(observability/boot.py) get their first admitted request and first
+served token; and `attach_profiler` hands the batcher a
+`profiler.RoundWindowProfiler`, driven once a step with the cumulative
+decode-round count and the traced requests in the round.
 """
 
 from __future__ import annotations
@@ -133,8 +146,11 @@ from tfde_tpu_torch.inference.prefix_cache import (
     resolve as _resolve_prefix,
 )
 from tfde_tpu_torch.inference.speculative import fetch_round, run_round
+from tfde_tpu_torch.observability import boot as _boot
 from tfde_tpu_torch.observability import capacity as _capacity
-from tfde_tpu_torch.observability import metrics
+from tfde_tpu_torch.observability import flightrec, metrics
+from tfde_tpu_torch.observability import trace as _trace
+from tfde_tpu_torch.observability.spans import span
 from tfde_tpu_torch.utils.devices import resolve_device
 
 
@@ -164,14 +180,6 @@ def _fetch_planes(planes: dict, tok: torch.Tensor):
         out[name] = flat[start:start + n].view(t.dtype).reshape(t.shape)
     start, n = spans[-1]
     return out, flat[start:start + n].view(torch.int64).numpy()
-
-
-def _no_trace(trace) -> None:
-    """The JAX batcher's `trace=` (a distributed-trace id): the port has
-    no trace module yet."""
-    if trace is not None:
-        raise NotImplementedError(
-            "trace=: request tracing is not ported (ROADMAP queue 1 item 4)")
 
 
 @dataclasses.dataclass
@@ -386,6 +394,11 @@ class _BatcherBase:
         self._deadline_at: dict = {}  # rid -> absolute TTFT deadline
         self._shed: set = set()       # rids deadline-shed at dequeue
         self._submitted_at: dict = {}
+        self._first_at: dict = {}     # rid -> first-token time (TPOT)
+        # rid -> request trace id; filled ONLY while the trace ring is on
+        # and the submitter handed one over, so the off path pays an
+        # empty-dict truthiness check and nothing else
+        self._trace_ids: dict = {}
         self._ttft_ms: dict = {}
         self._queue_ms: dict = {}
         self._reused: dict = {}  # rid -> prompt tokens served from a cache
@@ -410,6 +423,29 @@ class _BatcherBase:
         self._ledger = None
         self._cap_model = None
         self._usage = _capacity.UsageMeter()
+        # serving-side bounded capture (`attach_profiler`), driven once a
+        # step from the decode-round hook
+        self._profiler = None
+
+    def attach_profiler(self, profiler) -> None:
+        """Give this batcher a `profiler.RoundWindowProfiler`: armed
+        windows open and close on decode-round boundaries."""
+        self._profiler = profiler
+
+    def _profiler_round(self, traced) -> None:
+        if self._profiler is not None:
+            self._profiler.on_round(self._rounds, traces=traced or None)
+
+    def _traced(self, active) -> list:
+        """The trace ids of the active rows' requests."""
+        if not self._trace_ids:
+            return []
+        return [self._trace_ids[rid] for r in active
+                if (rid := self._req[r]) in self._trace_ids]
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     @property
     def idle(self) -> bool:
@@ -512,8 +548,8 @@ class _BatcherBase:
                priority: Optional[str] = None,
                ttft_deadline_ms: Optional[float] = None) -> int:
         """Queue a request; returns its id. prompt: 1-D int token ids.
-        `trace`: the JAX batcher's trace id; only None (tracing is not
-        ported). `priority`: 'interactive' (default; None and '' too) >
+        `trace`: the request's trace id (recorded while the trace ring
+        is on). `priority`: 'interactive' (default; None and '' too) >
         'batch' > 'best_effort', case and surrounding blanks ignored; the
         queue drains highest-priority-first. `ttft_deadline_ms`: shed the
         request at dequeue if its queue wait alone passed this budget
@@ -524,12 +560,11 @@ class _BatcherBase:
             raise RuntimeError(
                 "prefill-only replica: use prime() and hand the result to "
                 "a decode replica's submit_primed()")
-        _no_trace(trace)
         prompt = self._check_request(prompt, max_new_tokens)
         pr = _admission.validate_priority(priority)
         self._admission_check(int(max_new_tokens))
         return self._enqueue(prompt, int(max_new_tokens), None, pr,
-                             ttft_deadline_ms)
+                             ttft_deadline_ms, trace)
 
     def submit_primed(self, primed: PrimedRequest, trace=None,
                       priority: Optional[str] = None,
@@ -544,13 +579,12 @@ class _BatcherBase:
                 f"{type(self).__name__} does not accept primed requests")
         if self._role == "prefill":
             raise RuntimeError("prefill-only replica cannot decode")
-        _no_trace(trace)
         prompt = self._check_request(primed.prompt, primed.max_new_tokens)
         self._check_primed(primed, prompt)
         pr = _admission.validate_priority(priority)
         self._admission_check(int(primed.max_new_tokens))
         return self._enqueue(prompt, int(primed.max_new_tokens), primed, pr,
-                             ttft_deadline_ms)
+                             ttft_deadline_ms, trace)
 
     def _check_primed(self, primed: PrimedRequest,
                       prompt: np.ndarray) -> None:
@@ -587,10 +621,12 @@ class _BatcherBase:
         return prompt
 
     def _enqueue(self, prompt: np.ndarray, budget: int, primed,
-                 priority: str, ttft_deadline_ms: Optional[float]) -> int:
+                 priority: str, ttft_deadline_ms: Optional[float],
+                 trace: Optional[str] = None) -> int:
         rid = self._next_id
         self._next_id += 1
         self._queue.append((rid, prompt, budget, primed), priority=priority)
+        _boot.note_first_admit()
         now = time.perf_counter()
         self._priority[rid] = priority
         self._submitted_at[rid] = now
@@ -601,6 +637,12 @@ class _BatcherBase:
             self._deadline_at[rid] = now + dl / 1e3
         if self._track_progress:
             self._stream[rid] = {"tokens": [], "taken": 0, "done": False}
+        if trace is not None and _trace.active():
+            self._trace_ids[rid] = trace
+            _trace.event("serve/queued", trace=trace, rid=rid,
+                         prompt_tokens=int(prompt.size), budget=int(budget),
+                         primed=primed is not None, priority=priority,
+                         queue_depth=len(self._queue))
         return rid
 
     def enable_progress(self) -> None:
@@ -636,9 +678,13 @@ class _BatcherBase:
         whether the request was found in flight."""
         self._stream.pop(rid, None)
         self._submitted_at.pop(rid, None)
+        self._first_at.pop(rid, None)
         self._priority.pop(rid, None)
         self._deadline_at.pop(rid, None)
         self._shed.discard(rid)
+        tid = self._trace_ids.pop(rid, None)
+        if tid is not None:
+            _trace.event("serve/cancelled", trace=tid, rid=rid)
         if self._queue.remove_rid(rid):
             self._usage.finish(rid, 0, outcome="cancelled")
             return True
@@ -735,10 +781,26 @@ class _BatcherBase:
             if ent is not None:
                 ent["done"] = True
             rid = self._req[r]
+            n = len(self._out[r])
+            t1 = self._first_at.pop(rid, None)
+            if t1 is not None and n > 1:
+                # decode-side TPOT: first token -> last token, per decode
+                # step (the SLO layer's second latency axis)
+                tpot_ms = (time.perf_counter() - t1) * 1e3 / (n - 1)
+                metrics.default_registry().histogram(
+                    "serving/tpot_ms").observe(tpot_ms)
+                tid = self._trace_ids.get(rid)
+                if tid is not None:
+                    _trace.note_exemplar("serving/tpot_ms", tpot_ms, tid)
+            tid = self._trace_ids.pop(rid, None)
+            if tid is not None:
+                _trace.event("serve/done", trace=tid, rid=rid, tokens=n,
+                             eos=bool(self._eos is not None
+                                      and t == self._eos))
             done = (rid, np.asarray(self._out[r], np.int32))
             self._priority.pop(rid, None)
             self._deadline_at.pop(rid, None)
-            self._usage.finish(rid, len(self._out[r]), outcome="ok")
+            self._usage.finish(rid, n, outcome="ok")
             self._release_row(r)
             self._req[r] = None
             self._out[r] = []
@@ -823,13 +885,29 @@ class _BatcherBase:
                 rows = free[taken:taken + n]
                 taken += n
                 t0 = time.perf_counter()
-                toks = self._run_group(kind, key, group, rows)
+                wall_wave = time.time()
+                with span("serving/prefill"):
+                    toks = self._run_group(kind, key, group, rows)
                 now = time.perf_counter()
                 self._prefill_s += now - t0  # each wave ends in a fetch
                 if not group:  # every request given back (paged)
                     continue
                 self._waves += 1
                 self._wave_kinds[kind] += 1
+                wave_key = list(key) if isinstance(key, tuple) else int(key)
+                # one flight event a wave (not a request): enough to
+                # rebuild the admit and queue rhythm in a post-mortem
+                flightrec.record("admit", rows=len(group), group=kind,
+                                 key=wave_key, queue_depth=len(self._queue))
+                if self._trace_ids:
+                    tids = [self._trace_ids.get(it[0]) for it in group]
+                    if any(tids):
+                        # one wave slice tagged with EVERY member trace:
+                        # the waterfall shows who shared the prefill
+                        _trace.event(f"serve/prefill_{kind}", traces=tids,
+                                     ts=wall_wave, dur=now - t0,
+                                     rows=len(group), key=wave_key)
+                reg = metrics.default_registry()
                 for i, item in enumerate(group):
                     rid, prompt, budget = item[:3]
                     r = rows[i]
@@ -843,9 +921,27 @@ class _BatcherBase:
                         self._ledger.note_admission(kind, alloc, used)
                     self._usage.admitted(rid)
                     t_sub = self._submitted_at.pop(rid, None)
+                    self._first_at[rid] = now
+                    # the boot ledger's first served token (idempotent)
+                    _boot.note_first_token()
                     if t_sub is not None:
-                        self._queue_ms[rid] = (t0 - t_sub) * 1e3
-                        self._ttft_ms[rid] = (now - t_sub) * 1e3
+                        # the TTFT split: queue wait (submit -> wave
+                        # start) + the wave = the first token
+                        queue_ms = (t0 - t_sub) * 1e3
+                        ttft_ms = (now - t_sub) * 1e3
+                        self._queue_ms[rid] = queue_ms
+                        self._ttft_ms[rid] = ttft_ms
+                        reg.histogram("serving/queue_wait_ms").observe(
+                            queue_ms)
+                        reg.histogram("serving/ttft_ms").observe(ttft_ms)
+                        tid = self._trace_ids.get(rid)
+                        if tid is not None:
+                            _trace.event(
+                                "serve/first_token", trace=tid, rid=rid,
+                                kind=kind, ttft_ms=round(ttft_ms, 3),
+                                queue_wait_ms=round(queue_ms, 3))
+                            _trace.note_exemplar("serving/ttft_ms",
+                                                 ttft_ms, tid)
                     finished.extend(self._take_token(r, int(toks[i])))
             stalled = stalled or self._short
             self._mark_dirty()
@@ -864,7 +960,9 @@ class _BatcherBase:
             return False
         pr = self._priority.pop(rid, _admission.DEFAULT_PRIORITY)
         self._deadline_at.pop(rid, None)
-        self._submitted_at.pop(rid, None)
+        t0 = self._submitted_at.pop(rid, None)
+        waited_ms = ((time.perf_counter() - t0) * 1e3
+                     if t0 is not None else None)
         self._shed.add(rid)
         ent = self._stream.get(rid)
         if ent is not None:
@@ -875,6 +973,13 @@ class _BatcherBase:
         reg.counter(f"serving/shed_{pr}").incr()
         reg.counter("serving/shed_tokens").incr(int(budget))
         self._usage.finish(rid, 0, outcome="shed")
+        tid = self._trace_ids.pop(rid, None)
+        if tid is not None:
+            _trace.event("serve/shed", trace=tid, rid=rid, priority=pr,
+                         waited_ms=round(waited_ms, 3)
+                         if waited_ms is not None else None)
+        flightrec.record("shed", rid=rid, priority=pr,
+                         waited_ms=waited_ms, budget=int(budget))
         return True
 
     def _mark_dirty(self) -> None:
@@ -1056,33 +1161,37 @@ class ContinuousBatcher(_BatcherBase):
         return finished
 
     def _step(self) -> list:
-        finished = self._admit()
+        with span("serving/admit"):
+            finished = self._admit()
         active = [r for r in range(self._b) if self._req[r] is not None]
         if not active:
             return finished
         depth = self._pick_depth(active)
+        traced = self._traced(active)
         t0 = time.perf_counter()
-        if self._paged and self._tables_dirty:
-            # a released row's device table still points at its old
-            # blocks and its frozen pad writes continue every tick:
-            # re-point it at the null block before any program runs
-            _paged.set_block_tables(self._cache, self._tables)
-            self._tables_dirty = False
+        with span("serving/decode"):
+            if self._paged and self._tables_dirty:
+                # a released row's device table still points at its old
+                # blocks and its frozen pad writes continue every tick:
+                # re-point it at the null block before any program runs
+                _paged.set_block_tables(self._cache, self._tables)
+                self._tables_dirty = False
+                self._dispatches += 1
+            if self._dev is None:
+                self._upload_state()
+            tok, idx, budget, done = self._dev
+            out = _decode_scan(
+                self._model, self._cache, tok, idx, budget, done,
+                self._seen, self._generator, depth, eos_id=self._eos,
+                pad_id=self._pad, **self._sampling)
             self._dispatches += 1
-        if self._dev is None:
-            self._upload_state()
-        tok, idx, budget, done = self._dev
-        out = _decode_scan(
-            self._model, self._cache, tok, idx, budget, done, self._seen,
-            self._generator, depth, eos_id=self._eos, pad_id=self._pad,
-            **self._sampling)
-        self._dispatches += 1
-        tok, idx, budget, done, self._seen, toks, emitted = out
-        self._dev = (tok, idx, budget, done)
-        toks_np, emitted_np = _fetch((toks, emitted))
-        self._syncs += 1
+            tok, idx, budget, done, self._seen, toks, emitted = out
+            self._dev = (tok, idx, budget, done)
+            toks_np, emitted_np = _fetch((toks, emitted))
+            self._syncs += 1
         self._decode_s += time.perf_counter() - t0
         self._rounds += depth
+        self._profiler_round(traced)
         n_emitted = 0
         for r in active:
             row = toks_np[r][emitted_np[r]]
@@ -1096,7 +1205,14 @@ class ContinuousBatcher(_BatcherBase):
                 finished.extend(self._take_token(r, int(t)))
         # the drain rate: this round's tokens over its wall time, from
         # before the first program to after the host replay (JAX's span)
-        self._admission.note_drain(n_emitted, time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        if traced:
+            _trace.event("serve/decode_round", traces=traced, dur=dt,
+                         depth=depth, rows=len(active), emitted=n_emitted)
+        if n_emitted:
+            metrics.default_registry().histogram(
+                "serving/ms_per_token").observe(dt * 1e3 / n_emitted)
+        self._admission.note_drain(n_emitted, dt)
         return finished
 
     def _validate_submit(self, prompt, max_new_tokens) -> None:
@@ -1221,7 +1337,8 @@ class ContinuousBatcher(_BatcherBase):
                 primed.setdefault(bucket, []).append(
                     (rid, prompt, budget, pr, None))
                 continue
-            pre_len, kv = self._prefix.lookup(prompt)
+            pre_len, kv = self._prefix.lookup(
+                prompt, trace=self._trace_ids.get(rid))
             # the suffix feeds at cache position pre_len, so its bucket
             # must fit the row too (pre_len + bucket <= max_len), or the
             # clamped cache write would overwrite the prefix K/V. Shorten
@@ -1389,7 +1506,8 @@ class ContinuousBatcher(_BatcherBase):
         thr = knobs.env_float("TFDE_KV_DEFRAG_THRESHOLD", 0.5)
         if not thr or thr <= 0:
             return
-        if self._pool.fragmentation() < thr:
+        frag = self._pool.fragmentation()
+        if frag < thr:
             return
         plan = self._pool.defrag()
         if not plan:
@@ -1402,6 +1520,9 @@ class ContinuousBatcher(_BatcherBase):
         self._tables_dirty = True
         self._defrags += 1
         metrics.default_registry().counter("kv/pool_defrags").incr()
+        flightrec.record("kv_defrag", moved=len(plan),
+                         frag=round(float(frag), 3),
+                         free=self._pool.free_blocks)
 
     def _plan_paged_wave(self, wave) -> list:
         """Paged planning: cold and warm admissions form ONE 'paged' group
@@ -1422,7 +1543,8 @@ class ContinuousBatcher(_BatcherBase):
                 continue
             pre_len, ids = 0, None
             if self._prefix is not None:
-                pre_len, ids = self._prefix.lookup(prompt, claim=True)
+                pre_len, ids = self._prefix.lookup(
+                    prompt, trace=self._trace_ids.get(rid), claim=True)
             items.append((rid, prompt, budget, None, (pre_len, ids)))
         plans = [("paged", self._chunk, items)] if items else []
         return plans + [("primed", b, g) for b, g in primed.items()]
@@ -1588,10 +1710,11 @@ class ContinuousBatcher(_BatcherBase):
         first token come to the host in one sync. Touches no decode row
         and no queue. A dense prefix trie is seeded with the prompt's
         blocks; a paged trie holds pool blocks, which this row has none
-        of. `trace`: only None (tracing is not ported)."""
+        of. `trace`: the request's trace id (``serve/prime`` on its
+        timeline while the trace ring is on)."""
         if self._role == "decode":
             raise RuntimeError("decode-only replica cannot prime")
-        _no_trace(trace)
+        t_prime = time.perf_counter()
         prompt = self._check_request(prompt, max_new_tokens)
         p = int(prompt.size)
         bucket = next(b for b in self._buckets if b >= p)
@@ -1610,6 +1733,12 @@ class ContinuousBatcher(_BatcherBase):
         kv, tok_np = _fetch_planes(
             {name: t[0, :p] for name, t in row_cache.planes().items()}, tok)
         self._syncs += 1
+        if trace is not None and _trace.active():
+            # the prefill half of the primed hand-off: the decode
+            # replica's serve/queued(primed=True) is the other half
+            _trace.event("serve/prime", trace=trace,
+                         dur=time.perf_counter() - t_prime,
+                         prompt_tokens=p)
         return PrimedRequest(prompt=prompt.copy(),
                              first_token=int(tok_np[0]),
                              max_new_tokens=int(max_new_tokens), kv=kv)
@@ -1824,24 +1953,28 @@ class SpeculativeContinuousBatcher(_BatcherBase):
 
     @torch.no_grad()
     def _step(self) -> list:
-        finished = self._admit()
+        with span("serving/admit"):
+            finished = self._admit()
         active = [r for r in range(self._b) if self._req[r] is not None]
         if not active:
             return finished
         self._rounds += 1
         t0 = time.perf_counter()
-        # the rewind each round: acceptance lengths diverge every round
-        for cache in (self._tgt_cache, self._drf_cache):
-            cache.set_index(torch.as_tensor(self._committed,
-                                            device=self._device))
-        self._dispatches += 2
-        round_toks, n_new, _ = run_round(
-            self._model, self._draft, self._tgt_cache, self._drf_cache,
-            torch.as_tensor(self._tok, device=self._device), self._nd,
-            self._pad, self._temperature, self._generator)
-        self._dispatches += 1
-        round_np, n_np = fetch_round(round_toks, n_new)
-        self._syncs += 1
+        with span("serving/decode"):
+            # the rewind each round: acceptance lengths diverge every round
+            for cache in (self._tgt_cache, self._drf_cache):
+                cache.set_index(torch.as_tensor(self._committed,
+                                                device=self._device))
+            self._dispatches += 2
+            round_toks, n_new, _ = run_round(
+                self._model, self._draft, self._tgt_cache, self._drf_cache,
+                torch.as_tensor(self._tok, device=self._device), self._nd,
+                self._pad, self._temperature, self._generator)
+            self._dispatches += 1
+            round_np, n_np = fetch_round(round_toks, n_new)
+            self._syncs += 1
+        traced = self._traced(active)
+        self._profiler_round(traced)
         n_emitted = 0
         for r in active:
             taken = 0
@@ -1862,6 +1995,10 @@ class SpeculativeContinuousBatcher(_BatcherBase):
                 self._committed[r] += taken
         dt = time.perf_counter() - t0
         self._decode_s += dt
+        if traced:
+            _trace.event("serve/decode_round", traces=traced, dur=dt,
+                         depth=self._nd, rows=len(active),
+                         emitted=n_emitted)
         if n_emitted:
             metrics.default_registry().histogram(
                 "serving/ms_per_token").observe(dt * 1e3 / n_emitted)

@@ -13,6 +13,7 @@ config) with random weights made from `--seed`. Runs on CUDA by default:
     python -m tfde_tpu_torch.serve_gpt --tiny --device cpu --requests 6
     python -m tfde_tpu_torch.serve_gpt --prefix-cache on --shared-prefix 512
     TFDE_PAGED_KV=1 python -m tfde_tpu_torch.serve_gpt --prefix-cache on
+    python -m tfde_tpu_torch.serve_gpt --serve 8100
 
 Request i's prompt is `rng.integers(0, vocab, rng.integers(2, 9))` from
 `np.random.default_rng(--seed)`, drawn in order, after a system prompt of
@@ -29,6 +30,12 @@ max(m // 4, 16)), random weights from seed 7; it refuses `--prefix-cache`,
 the sampling flags and `--repetition-penalty`, as JAX's does. The log
 ends with the KV ledger (`kv_stats()`: allocated and used bytes,
 waste, headroom rows) beside the trie's and the pool's stats.
+
+`--serve PORT` serves no synthetic batch: the batcher (plain or
+speculative) goes behind an HTTP/SSE `inference.router.ReplicaServer` on
+127.0.0.1:PORT (0: an ephemeral port; the URL is logged) until Ctrl-C;
+`inference.router.Router` fronts several such replicas with the
+/v1/generate door.
 """
 
 from __future__ import annotations
@@ -76,6 +83,21 @@ def quarter_draft(model, device, seed: int = 7) -> GPT:
                device=device, seed=seed).cast_compute_weights_()
 
 
+def _serve(srv, port: int) -> list:
+    """`srv` behind a ReplicaServer on 127.0.0.1:`port` until Ctrl-C."""
+    from tfde_tpu_torch.inference.router import ReplicaServer
+
+    rs = ReplicaServer(srv, port=port).start()
+    log.info("replica serving on %s (POST /generate, GET /healthz); "
+             "Ctrl-C to stop", rs.url)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        rs.close()
+    return []
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--batch-size", type=int, default=4,
@@ -111,6 +133,13 @@ def main(argv=None):
                         help="start every synthetic prompt with the same "
                              "N-token system prompt (what the prefix cache "
                              "reuses)")
+    parser.add_argument("--serve", type=int, default=None, metavar="PORT",
+                        help="instead of the synthetic one-shot batch: "
+                             "expose this batcher as an HTTP/SSE replica "
+                             "on 127.0.0.1:PORT (POST /generate, GET "
+                             "/healthz; 0 picks a free port) until "
+                             "interrupted; front several with "
+                             "inference.router.Router")
     parser.add_argument("--hf-dir", type=str, default=None,
                         help="serve a conversion artifact (params.npz + "
                              "model_config.json from `python -m "
@@ -169,6 +198,8 @@ def main(argv=None):
             eos_id=args.eos_id, scan_depth=args.scan_depth,
             generator=torch.Generator(device=device).manual_seed(args.seed),
             prefix_cache=args.prefix_cache, device=device)
+    if args.serve is not None:
+        return _serve(srv, args.serve)
     rng = np.random.default_rng(args.seed)
     system = rng.integers(0, model.vocab_size, args.shared_prefix)
     lengths = {}

@@ -1337,13 +1337,14 @@ def recipe(model_dir: str, device="cpu", n_train: int = 60000,
 
 def state_digest(model: torch.nn.Module) -> str:
     """sha256 over the bytes of every parameter and buffer, in name
-    order."""
+    order (bf16 ones too: the bytes are read as uint8)."""
     import hashlib
 
     h = hashlib.sha256()
     for k, v in sorted(model.state_dict().items()):
         h.update(k.encode())
-        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+        h.update(v.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
 
