@@ -213,7 +213,7 @@ without printing a result:
    requests) and loaded again (seconds), Llama-3.2-1B built on the card
    from seed 0 without that round trip; each served in bf16 behind a
    ContinuousBatcher as in the serve phase (16 requests of 16-960 prompt
-   tokens x 16, `HF_NEW`, cut from 32 in PR 17; the
+   tokens x 8, `HF_NEW`, cut from 32, then 16, for the time limit; the
    counters zeroed just before: one forward launch a layer a prefill
    wave; tokens/s, mean TTFT, ms per output token, peak memory), one
    wave's first-token logits flash vs reference (held in fp32,
@@ -357,7 +357,52 @@ without printing a result:
    process); the Chrome trace's path and size, its top 5 CUDA kernels,
    the window's device-busy share and an unprofiled tick's; (7) every
    step-loop thread alive, every server closed. Automatic profile
-   triggers are off for the phase; the serve_gpt child starts first.
+   triggers are off for the phase; the serve_gpt child starts first;
+20. moe — Mixture-of-Experts (`models/moe.py`): (a) one MoE layer in
+   fp32 on the card against the same weights on the CPU (random weights
+   from seed 11): Qwen1.5-MoE-A2.7B's (60 swiglu experts of 1408, top-4,
+   raw gates, the shared expert of 5632, the dropless capacity; 2 x 192
+   tokens) and gpt_lm --moe 8's at GPT-2 small width (8 gelu + bias
+   experts, top-2, capacity 1.25: choices drop; 2 x 256), each through
+   both expert-buffer layouts: output, losses and every gradient
+   (`MOE_TOL`), the tokens whose routing a near-tie flips counted and
+   their groups left out, then the layer in bf16 against itself in fp32
+   on one bf16-valued input: output and every gradient (`MOE_BF16_TOL`);
+   (b) Qwen1.5-MoE-A2.7B at its published widths
+   in fp32, depth cut to 2 (random weights from seed 0): one wave's
+   first-token logits flash vs reference (`HF_WAVE_TOL`), then the
+   batcher's greedy tokens (6 requests of 16-180 tokens, half after a
+   shared 64-token system prompt, x 8) equal to solo `generate` in the
+   dense, paged + trie, prefix-cached and int8-KV layouts; (c)
+   Qwen1.5-MoE-A2.7B at its published widths and depth (24 layers, bf16
+   over fp32 masters cast once, seed 0, built on the card) behind a
+   ContinuousBatcher as in the serve phase (batch 8, 16 requests of
+   16-960 tokens x 32), the counters zeroed just before: the D-128
+   forward once a layer a prefill wave; tokens/s, TTFT, ms a decode
+   round, peak memory; one 8-row decode tick's ms beside one MoE layer's
+   by CUDA events and by wall clock (the layers' share of a tick) and
+   prefill waves of [8, 128], [8, 512] and [8, 1024], each in both
+   expert-buffer layouts; then the forward kernel at the prefill shapes
+   [1, 4096, 16 -> 16, 128] and [1, 4096, 32 -> 8, 128] against its plain
+   version, SDPA and the bound; (d) Mixtral-8x7B-v0.1 at its published
+   widths, depth cut to 2: one wave's first-token logits (4 prompts of
+   16-960 tokens) flash vs reference in fp32 and bf16 as hf_serve holds
+   them, then its artifact written by `save_converted` and served by
+   `serve_gpt.main(["--hf-dir", ...])` (16 requests x 8): the D-128
+   forward (GQA 32 -> 8) twice a prefill wave; (e) a small fp32 MoE GPT
+   (head dim 64, 4 experts in block 1, capacity 1.25, the z-loss on) takes
+   one next_token_loss + AdamW step on the card and on the CPU (loss,
+   `moe_aux`, `moe_z`, every gradient, the updated parameters; each
+   kernel once a layer), then `gpt_lm.main --moe 8` at GPT-2 small
+   width (six MoE blocks of 8 experts, capacity 1.25, bf16 over fp32
+   masters) for 10 steps of 8 x 1024 tokens, then the same in fp32, the
+   counters zeroed just before each: each kernel 12 times a step, every
+   loss and `moe_aux` finite, the cross-entropy (the loss less
+   `moe_aux`, which grows while the routers learn) falling in both runs
+   and the two runs' within `MOE_GL_CE_TOL` step by step, ms a step
+   beside the train phase's dense GPT-2 small; the layer's forward and
+   backward in both layouts; then 3 bf16 steps profiled. Every artifact lies
+   under build/ and is removed at the end.
 
 Every phase prints its seconds.
 
@@ -3308,12 +3353,16 @@ def _gl_parity(fa, dev):
         raise AssertionError("the remat train step disagrees with the CPU")
 
 
-def _gl_entry(fa, dev, argv, label):
+def _gl_entry(fa, dev, argv, label, history=None, minus=()):
     """`gpt_lm.main(argv)` with the launch counters zeroed just before and
     read just after, each step's loss and host time after a synchronise,
     and the share of real tokens in the packed batches, each printed.
-    Returns the final state, ms a step (mean of the steps after the
-    second), the launches and the train step function."""
+    Each step's metrics (as floats) are appended to `history` when one is
+    given. The series held finite and falling is each step's loss less
+    its metrics named in `minus` (an MoE model's sown losses: what is
+    left is the cross-entropy). Returns the final state, ms a step (mean
+    of the steps after the second), the launches and the train step
+    function."""
     from tfde_tpu_torch import gpt_lm
 
     losses, clock, fill, steps = [], [], [], []
@@ -3325,7 +3374,10 @@ def _gl_entry(fa, dev, argv, label):
 
         def step(state, batch, generator=None):
             state, metrics = step_fn(state, batch, generator)
-            losses.append(metrics["loss"])
+            losses.append(metrics["loss"] - sum(
+                metrics[k] for k in minus if k in metrics))
+            if history is not None:
+                history.append(metrics)
             if len(batch) == 2:
                 fill.append(float((batch[1] > 0).float().mean()))
             torch.cuda.synchronize(dev)
@@ -3345,12 +3397,15 @@ def _gl_entry(fa, dev, argv, label):
     finally:
         gpt_lm.make_custom_train_step = real
     losses = [float(x) for x in losses]
+    if history is not None:
+        history[:] = [{k: float(v) for k, v in m.items()} for m in history]
     step_s = [b - a for a, b in zip(clock, clock[1:])]
     ms = sum(step_s[2:]) / len(step_s[2:]) * 1e3
     mem = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     share = sum(fill) / len(fill) if fill else None
     n = len(losses)
-    print(f"{label}: gpt_lm.main {' '.join(argv)}: {n} steps; losses "
+    print(f"{label}: gpt_lm.main {' '.join(argv)}: {n} steps; losses"
+          f"{' less ' + ', '.join(minus) if minus else ''} "
           f"{[round(x, 4) for x in losses]}")
     print(f"{label}: {ms:.3f} ms per step (mean of steps 3-{n}, host clock "
           f"after a synchronise), first step {step_s[0] * 1e3:.1f} ms, "
@@ -3522,9 +3577,10 @@ HF_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 #: fixed bound there: its rounding grows with depth (flash vs einsum
 #: 1.16e-2 at GPT-2 small's 12 layers, 2.88e-2 at Llama-3.2-1B's 16)
 HF_WAVE_TOL, HF_BF16_RATIO = 1e-4, 2.0
-#: new tokens of every hf_serve request (32 until PR 17; cut to keep the
-#: whole script inside its time limit beside the decoding phase)
-HF_NEW = 16
+#: new tokens of every hf_serve request (cut from 32, then 16, to keep
+#: the whole script inside its time limit beside the decoding and moe
+#: phases)
+HF_NEW = 8
 #: the two prefill shapes of the full-width models, [B, S, H, D] and KV
 #: heads (Llama-3.2-1B, Qwen3-0.6B)
 HF_PREFILL = {"Llama-3.2-1B": ((1, 4096, 32, 64), 8),
@@ -3767,14 +3823,15 @@ def _hf_full(fa, dev, root, name, artifact=True):
     return at_head_dim
 
 
-def _hf_prefill_kernels(fa, dev):
-    """The forward kernel at the two full-width prefill shapes (bf16,
-    causal): against its plain version, then three timed calls beside the
-    plain version, SDPA (`enable_gqa`; timing only) and the bound."""
+def _hf_prefill_kernels(fa, dev, shapes=None):
+    """The forward kernel at full-width prefill shapes (`shapes`, by
+    default `HF_PREFILL`'s two; bf16, causal): against its plain version,
+    then three timed calls beside the plain version, SDPA (`enable_gqa`;
+    timing only) and the bound."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    for name, ((b, s, h, d), kv) in HF_PREFILL.items():
+    for name, ((b, s, h, d), kv) in (shapes or HF_PREFILL).items():
         q = torch.randn((b, s, h, d), generator=gen, device=dev).to(
             torch.bfloat16)
         k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev).to(
@@ -5702,10 +5759,670 @@ def phase_router(fa, dev):
     return launches
 
 
+#: moe (a): the layer on the card against the CPU in fp32 — output and
+#: losses relative Frobenius (the same sums in another order), gradients
+#: relative Frobenius tensor by tensor (`_grads_rel`)
+MOE_TOL = {"out": 1e-5, "loss": 1e-5, "grad": 1e-4}
+#: moe (a): the same layer computing in bf16 against itself in fp32 on one
+#: bf16-valued input (the same routing): output and every gradient,
+#: relative Frobenius. The bf16 path rounds the expert weights, each
+#: product's output and the activations to bf16 (~2e-3 each, 8 bits of
+#: mantissa), so a few times that; a missing or misrouted term of the
+#: backward is O(1)
+MOE_BF16_TOL = 3e-2
+#: moe (a): the two layers, as `MoEMlp` keyword arguments, and their input
+#: [groups, tokens a group]: Qwen1.5-MoE-A2.7B's (60 swiglu experts of
+#: 1408, top-4 with raw gates, the shared expert of 5632, dropless) and
+#: gpt_lm --moe 8's at GPT-2 small width (8 gelu + bias experts of 3072,
+#: top-2, capacity 1.25: choices drop)
+MOE_LAYERS = {
+    "Qwen1.5-MoE-A2.7B": (dict(embed=2048, num_experts=60, mlp_dim=1408,
+                               experts_per_token=4, capacity_factor=15.0,
+                               act="swiglu", use_bias=False,
+                               normalize_topk=False,
+                               shared_expert_dim=5632), (2, 192)),
+    "gpt_lm --moe 8": (dict(embed=768, num_experts=8, mlp_dim=3072,
+                            experts_per_token=2, capacity_factor=1.25),
+                       (2, 256)),
+}
+#: moe (b): Qwen1.5-MoE-A2.7B in fp32 at depth MOE_FP32_DEPTH behind a
+#: batcher (batch 4, max_len 256, scan depth 4): MOE_FP32_REQUESTS requests
+#: of 16-180 prompt tokens (every other one after a shared 64-token
+#: system prompt) x MOE_FP32_NEW
+MOE_FP32_DEPTH, MOE_FP32_REQUESTS, MOE_FP32_NEW = 2, 6, 8
+#: moe (c): Qwen1.5-MoE-A2.7B at full depth in bf16: 16 requests of 16-960
+#: prompt tokens x MOE_NEW, batch 8, max_len 1024, scan depth 4
+MOE_NEW = 32
+#: moe (d): the Mixtral-8x7B-v0.1 artifact's depth (32 published: its
+#: 46.7 B parameters would be 93 GB in bf16) and serve_gpt's new tokens
+MOE_MIXTRAL_DEPTH, MOE_MIXTRAL_NEW = 2, 8
+#: moe (e): gpt_lm --moe 8 steps, in bf16 and again in fp32. The
+#: objective is the cross-entropy plus the six blocks' load-balance
+#: losses, and the latter grows while the routers learn (0.077 -> 0.226
+#: in the first 9 steps on an H100), so the cross-entropy is the series
+#: held falling
+MOE_GL_STEPS = 10
+#: moe (e): the largest difference of a step's cross-entropy between the
+#: bf16 and the fp32 run of the same 10 steps (the same data and initial
+#: weights; bf16 rounding carried through 10 AdamW updates and the
+#: routing choices it flips)
+MOE_GL_CE_TOL = 5e-2
+#: the forward kernel at the MoE models' prefills, [B, S, H, D] and KV
+#: heads
+MOE_PREFILL = {"Qwen1.5-MoE-A2.7B": ((1, 4096, 16, 128), 16),
+               "Mixtral-8x7B-v0.1": ((1, 4096, 32, 128), 8)}
+#: moe (c): the prefill waves timed in each expert-buffer layout: the
+#: first 8 of (c)'s prompts cut to these lengths (their buckets); the
+#: timed calls of a decode tick and of one layer in each layout
+MOE_LAYOUT_WAVES, MOE_TICK_ITERS = (128, 512, 1024), 5
+
+
+class _moe_forced:
+    """Inside, every MoE layer takes the expert-buffer `layout` ('padded'
+    or 'sorted') whatever its own rule (`moe.expert_layout`) says."""
+
+    def __init__(self, layout: str):
+        self.layout = layout
+
+    def __enter__(self):
+        from tfde_tpu_torch.models import moe as moe_lib
+
+        self.natural = moe_lib.expert_layout
+        moe_lib.expert_layout = lambda *a: self.layout
+
+    def __exit__(self, *exc):
+        from tfde_tpu_torch.models import moe as moe_lib
+
+        moe_lib.expert_layout = self.natural
+
+
+def _moe_route(layer, x, groups):
+    """The routed experts of every token of `x` ([groups, m, k])."""
+    from tfde_tpu_torch.models.moe import top_k
+
+    with torch.no_grad():
+        tokens = x.reshape(groups, -1, x.shape[-1]).float()
+        probs = torch.softmax(layer.router(tokens), dim=-1)
+        return top_k(probs, layer.experts_per_token)[1].sort(-1).values
+
+
+def _moe_layer_run(layer, x, r, keep):
+    """Output (on the CPU), losses and gradients (on the layer's device)
+    of sum((y r)[kept groups]) + the losses through `layer`."""
+    layer.zero_grad(set_to_none=True)
+    x = x.clone().requires_grad_(True)
+    losses = {}
+    y = layer(x, losses=losses)
+    total = {k: sum(v) for k, v in losses.items()}
+    ((y * r)[keep].sum() + sum(total.values())).backward()
+    grads = {n: p.grad.detach() for n, p in layer.named_parameters()}
+    grads["input"] = x.grad.detach()[keep]
+    return (y.detach()[keep].cpu(),
+            {k: float(v.detach()) for k, v in total.items()}, grads)
+
+
+def _moe_layer(dev):
+    """(a) One MoE layer on the card against the same weights on the CPU,
+    fp32, through both expert-buffer layouts: output, losses, gradients.
+    Groups where a token's routed experts differ between the two sides (a
+    near-tie the rounding flips) are counted and left out of the
+    comparison."""
+    from tfde_tpu_torch.models import moe as moe_lib
+
+    for label, (kw, (groups, m)) in MOE_LAYERS.items():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        card = moe_lib.MoEMlp(**kw, dtype=torch.float32, device=dev)
+        d = kw["embed"]
+        with torch.no_grad():
+            for p in card.parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+            # router logits of unit scale over unit-scale tokens
+            card.router.weight.normal_(0.0, d ** -0.5, generator=gen)
+        cpu = moe_lib.MoEMlp(**kw, dtype=torch.float32, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        x = torch.randn((groups, m, d), generator=gen, device=dev).cpu()
+        r = torch.randn((groups, m, d), generator=gen, device=dev).cpu()
+        flipped = (_moe_route(card, x.to(dev), groups).cpu()
+                   != _moe_route(cpu, x, groups)).any(-1)
+        keep = ~flipped.any(-1)
+        if not bool(keep.any()):
+            raise AssertionError(f"moe layer {label}: every group flipped")
+        want = _moe_layer_run(cpu, x, r, keep)
+        # compared on the card: the expert gradients are ~2 GB at Qwen's
+        # width
+        want = (want[0], want[1], {n: t.to(dev) for n, t in want[2].items()})
+        n_kept = m * kw["experts_per_token"]
+        layout = moe_lib.expert_layout(
+            kw["num_experts"], groups * min(moe_lib.group_capacity(
+                m, kw["num_experts"], kw["experts_per_token"],
+                kw["capacity_factor"]), m), groups * n_kept)
+        for forced in ("padded", "sorted"):
+            with _moe_forced(forced):
+                got = _moe_layer_run(card, x.to(dev), r.to(dev),
+                                     keep.to(dev))
+                torch.cuda.synchronize(dev)
+            out_rel = _rel(got[0], want[0])
+            loss_rel = max(abs(got[1][k] - v) / abs(v)
+                           for k, v in want[1].items())
+            grad_rel = _grads_rel(got[2], want[2])
+            print(f"moe layer {label} ({json.dumps(kw)}), fp32, "
+                  f"{groups} groups x {m} tokens, the '{forced}' layout"
+                  f"{' (its own)' if forced == layout else ''}: routing "
+                  f"flipped for {int(flipped.sum())} of {groups * m} tokens "
+                  f"({int((~keep).sum())} groups left out); card vs CPU: "
+                  f"out rel {out_rel:.3e}, losses {got[1]} (rel "
+                  f"{loss_rel:.3e}), worst gradient rel {grad_rel:.3e} "
+                  f"(input, router, experts{', shared' if 'shared_expert_dim' in kw else ''})")
+            if not (out_rel <= MOE_TOL["out"] and loss_rel <= MOE_TOL["loss"]
+                    and grad_rel <= MOE_TOL["grad"]):
+                raise AssertionError(f"moe layer {label}: the card disagrees "
+                                     f"with the CPU")
+        # the layer in bf16 against itself in fp32 on one bf16-valued
+        # input: the router reads it in fp32 either way, so both route
+        # alike and every group is compared
+        half = moe_lib.MoEMlp(**kw, dtype=torch.bfloat16, device=dev)
+        half.load_state_dict(card.state_dict())
+        xh = x.to(dev).to(torch.bfloat16)
+        every = torch.ones(groups, dtype=torch.bool, device=dev)
+        want = _moe_layer_run(card, xh.float(), r.to(dev), every)
+        got = _moe_layer_run(half, xh, r.to(dev), every)
+        out_rel = _rel(got[0], want[0])
+        grad_rel = _grads_rel(got[2], want[2])
+        print(f"moe layer {label}, bf16 vs fp32 on the card, the "
+              f"'{layout}' layout: out rel {out_rel:.3e}, losses "
+              f"{got[1]} vs {want[1]}, worst gradient rel {grad_rel:.3e} "
+              f"(tol {MOE_BF16_TOL:g})")
+        if not (out_rel <= MOE_BF16_TOL and grad_rel <= MOE_BF16_TOL
+                and got[1] == want[1]):
+            raise AssertionError(f"moe layer {label}: bf16 disagrees with "
+                                 f"fp32")
+        del cpu, card, half
+
+
+def _moe_model(fields, dtype, dev, depth=None):
+    from tfde_tpu_torch.models.gpt import GPT
+
+    fields = dict(fields, depth=depth or fields["depth"])
+    return GPT(**fields, dtype=dtype, device=dev, seed=0)
+
+
+def _moe_fp32(fa, dev, fields):
+    """(b) Qwen1.5-MoE-A2.7B at full width in fp32, depth cut: one wave's
+    prefill logits flash vs reference, then the batcher's greedy tokens
+    against solo `generate` in the dense, paged, prefix-cached and int8-KV
+    layouts, each solo run in the same KV format."""
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    model = _moe_model(fields, torch.float32, dev, MOE_FP32_DEPTH)
+    vocab = model.vocab_size
+    system = np.random.default_rng(3).integers(0, vocab, 64)
+    prompts = _dc_prompts(vocab, MOE_FP32_REQUESTS, 16, 180, seed=4)
+    prompts = [np.concatenate([system, p]) if i % 2 else p
+               for i, p in enumerate(prompts)]
+    logits = _hf_wave_logits(model, prompts[:4], dev)
+    rel = _rel(logits["flash"], logits["reference"])
+    print(f"moe fp32: Qwen1.5-MoE-A2.7B widths, depth {MOE_FP32_DEPTH} of "
+          f"24 (cut: fp32 at full depth is 57.3 GB), random weights from "
+          f"seed 0; one wave's first-token logits ({len(prompts[:4])} rows), "
+          f"flash vs reference: rel {rel:.3e} (tol {HF_WAVE_TOL})")
+    if not (bool(torch.isfinite(logits["flash"]).all())
+            and rel <= HF_WAVE_TOL):
+        raise AssertionError("moe fp32: flash and reference prefill logits "
+                             "disagree")
+    layouts = {"dense": {}, "paged": dict(paged=True, prefix_cache=True),
+               "prefix": dict(prefix_cache=True), "int8": dict(kv_quant="int8")}
+    for name, opts in layouts.items():
+        model.kv_quant = "int8" if name == "int8" else None
+        try:
+            want = [_dc_solo(model, p, MOE_FP32_NEW, dev) for p in prompts]
+            srv = ContinuousBatcher(model, batch_size=4, max_len=256,
+                                    scan_depth=4, device=dev, **opts)
+            torch.cuda.synchronize(dev)
+            _zero_counts(fa)
+            rids = [srv.submit(p, MOE_FP32_NEW) for p in prompts]
+            done = dict(srv.run())
+            launches = fa.flash_forward.launches
+        finally:
+            model.kv_quant = None
+        same = sum(np.array_equal(done[r], w) for r, w in zip(rids, want))
+        stats = srv.stats()
+        hits = (srv.prefix_cache.stats()["hits"]
+                if srv.prefix_cache is not None else 0)
+        print(f"moe fp32 {name}: batcher greedy tokens == solo generate for "
+              f"{same}/{len(prompts)} requests (prompts "
+              f"{[int(p.size) for p in prompts]} x {MOE_FP32_NEW}); "
+              f"{stats['prefill_waves']} prefill waves, flash launches "
+              f"{launches}, prefix hits {hits}")
+        if same != len(prompts):
+            raise AssertionError(f"moe fp32 {name}: batcher tokens differ "
+                                 f"from solo generate")
+        if name in ("prefix", "paged") and hits == 0:
+            raise AssertionError(f"moe fp32 {name}: the prefix cache never "
+                                 f"hit")
+    del model
+
+
+def _host_ms(fn, dev, iters: int = 20) -> float:
+    """Mean wall ms of `fn` over `iters` calls in a row, one synchronise
+    at the end: the host's enqueue where it is slower than the card."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _moe_tick_share(model, dev):
+    """One bf16 decode tick of 8 rows through the whole model and one MoE
+    layer on the same [8, 1, d] input, in each expert-buffer layout (the
+    rule takes 'padded' there): device ms (CUDA events after an L2 flush
+    and a 5 ms spin, `_time_ms`) and wall ms of calls in a row
+    (`_host_ms`), each over MOE_TICK_ITERS calls."""
+    from tfde_tpu_torch.inference.decode import init_cache
+
+    tok = torch.zeros((8, 1), dtype=torch.long, device=dev)
+    cache = init_cache(model, 8, 64)
+    cache.index = 16
+    layer = model.decoder.block_0.moe
+    x = torch.randn((8, 1, model.hidden_size), device=dev).to(model.dtype)
+
+    def tick():
+        if cache.index >= 60:
+            cache.index = 16
+        model(tok, cache=cache)
+
+    for layout in ("padded", "sorted"):
+        with torch.no_grad(), _moe_forced(layout):
+            (tick_dev, tick_wall), (moe_dev, moe_wall) = (
+                (_time_ms(fn, dev, iters=MOE_TICK_ITERS),
+                 _host_ms(fn, dev, iters=MOE_TICK_ITERS))
+                for fn in (tick, lambda: layer(x)))
+        print(f"moe bf16 tick, the '{layout}' layout: one decode tick of 8 "
+              f"rows {tick_dev:.3f} ms (events), {tick_wall:.3f} ms (wall, "
+              f"calls in a row); one MoE layer on [8, 1, "
+              f"{model.hidden_size}] {moe_dev:.4f} ms (events), "
+              f"{moe_wall:.4f} ms (wall); x {model.depth} layers = "
+              f"{model.depth * moe_dev / tick_dev:.1%} (events), "
+              f"{model.depth * moe_wall / tick_wall:.1%} (wall) of the "
+              f"tick; on {_card()}")
+
+
+def _moe_layout_waves(model, dev, prompts):
+    """(c)'s first 8 prompts, each repeated or cut to every length of
+    MOE_LAYOUT_WAVES, as one prefill wave through the whole model
+    (`hidden` without a cache: the flash forward and the MoE layers of a
+    batcher's wave) in each expert-buffer layout: ms by CUDA events,
+    which take in the sorted layout's host sync a layer (the card waits
+    for the host's per-expert loop) and the padded layout's extra rows."""
+    from tfde_tpu_torch.models import moe as moe_lib
+
+    cfg = model.config
+    e, k = cfg["num_experts"], cfg["experts_per_token"]
+    for s in MOE_LAYOUT_WAVES:
+        ids = torch.as_tensor(np.stack([np.resize(p, s) for p in prompts[:8]]),
+                              device=dev)
+        own = moe_lib.expert_layout(e, 8 * min(moe_lib.group_capacity(
+            s, e, k, cfg["moe_capacity_factor"]), s), 8 * s * k)
+        ms = {}
+        for layout in ("padded", "sorted"):
+            with torch.no_grad(), _moe_forced(layout):
+                ms[layout] = _time_ms(lambda: model.hidden(ids), dev,
+                                      iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        print(f"moe bf16 layouts: a prefill wave of [8, {s}] tokens through "
+              f"the {model.depth} layers: padded {ms['padded']:.2f} ms, "
+              f"sorted {ms['sorted']:.2f} ms (CUDA events); the rule takes "
+              f"'{own}'; on {_card()}")
+
+
+def _moe_train_layouts(dev):
+    """gpt_lm --moe 8's layer (`MOE_LAYERS`) in bf16 on one step's [8,
+    1024, 768] input, forward and backward, in each expert-buffer layout
+    (the rule takes 'padded' there): ms by CUDA events."""
+    from tfde_tpu_torch.models.moe import MoEMlp
+
+    kw = MOE_LAYERS["gpt_lm --moe 8"][0]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    layer = MoEMlp(**kw, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+        layer.router.weight.normal_(0.0, kw["embed"] ** -0.5, generator=gen)
+    x = torch.randn((8, 1024, kw["embed"]), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+
+    def step():
+        losses = {}
+        y = layer(x, losses=losses)
+        (y.float().square().mean() + sum(losses["moe_aux"])).backward()
+
+    ms = {}
+    for layout in ("padded", "sorted"):
+        with _moe_forced(layout):
+            ms[layout] = _time_ms(step, dev, iters=10)
+    print(f"moe bf16 layouts: gpt_lm --moe 8's layer, forward and backward "
+          f"on [8, 1024, {kw['embed']}]: padded {ms['padded']:.3f} ms, "
+          f"sorted {ms['sorted']:.3f} ms (CUDA events); on {_card()}")
+
+
+def _moe_bf16(fa, dev, fields):
+    """(c) Qwen1.5-MoE-A2.7B at full width and depth in bf16 behind the
+    batcher as in the serve phase, the counters zeroed just before."""
+    import gc
+
+    from tfde_tpu_torch.inference.server import ContinuousBatcher
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = _moe_model(fields, torch.bfloat16, dev).cast_compute_weights_()
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe bf16: Qwen1.5-MoE-A2.7B at its published widths and depth "
+          f"({model.depth} layers, no cut), {n_params:,} parameters built on "
+          f"the card from seed 0 in {build_s:.2f} s (fp32, then cast: "
+          f"{held / 1e9:.2f} GB held, the norms, routers, shared-expert gates "
+          f"fp32), peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} "
+          f"GiB while building")
+    srv = ContinuousBatcher(model, batch_size=8, max_len=1024, scan_depth=4,
+                            device=dev)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 961, 16)
+    prompts = [rng.integers(0, model.vocab_size, int(p)) for p in plens]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, MOE_NEW) for p in prompts]
+    done = dict(srv.run())
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = fa.flash_forward.launches
+    at_128 = fa.flash_forward.by_head_dim[128]
+    stats = srv.stats()
+    ttft = srv.ttft_ms()
+    n_tok = sum(len(t) for t in done.values())
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"moe bf16: batch 8, max_len 1024, scan depth 4: {len(done)}/16 "
+          f"requests, {n_tok} tokens in {dt:.3f} s ({n_tok / dt:.1f} tok/s), "
+          f"mean TTFT {sum(ttft.values()) / max(len(ttft), 1):.1f} ms, "
+          f"{dt * 1e3 / n_tok:.2f} ms per output token, prefill "
+          f"{stats['prefill_s']:.3f} s in {stats['prefill_waves']} waves, "
+          f"decode {stats['decode_s']:.3f} s in {stats['rounds']} rounds "
+          f"({stats['decode_s'] * 1e3 / max(stats['rounds'], 1):.2f} ms a "
+          f"round of up to 4 ticks), peak {peak:.2f} GiB; prompt lengths "
+          f"{[int(p) for p in plens]}; on {_card()}")
+    print(f"moe bf16: flash_fwd launches {launches} (at head dim 128: "
+          f"{at_128}) over {stats['prefill_waves']} prefill waves x "
+          f"{model.depth} layers")
+    if sorted(done) != sorted(rids) or any(
+            len(t) != MOE_NEW or t.min() < 0 or t.max() >= model.vocab_size
+            for t in done.values()):
+        raise AssertionError("moe bf16: not every request finished with "
+                             f"{MOE_NEW} tokens in the vocabulary")
+    if not (launches > 0 and launches == at_128
+            and launches == model.depth * stats["prefill_waves"]):
+        raise AssertionError("moe bf16: the flash forward did not run once "
+                             "a layer a prefill wave at head dim 128")
+    _moe_tick_share(model, dev)
+    _moe_layout_waves(model, dev, prompts)
+    del srv, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_wave_check(model, dev, label):
+    """One prefill wave of 4 prompts of 16-960 tokens (the first four of
+    (c)'s), first-token logits flash vs the reference einsum, held as
+    `_hf_full` holds them: in fp32 (a twin of `model` on its weights)
+    within HF_WAVE_TOL, and in bf16 each path against the fp32 einsum,
+    flash within HF_BF16_RATIO times the einsum's own error."""
+    import gc
+
+    from tfde_tpu_torch.models.gpt import GPT
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 961, 16)[:4]
+    wave = [rng.integers(0, model.vocab_size, int(p)) for p in plens]
+    bf16 = _hf_wave_logits(model, wave, dev)
+    model32 = GPT(**model.config, dtype=torch.float32, device=dev)
+    model32.load_state_dict(model.state_dict())
+    fp32 = _hf_wave_logits(model32, wave, dev)
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel32 = _rel(fp32["flash"], fp32["reference"])
+    err = {impl: _rel(bf16[impl], fp32["reference"]) for impl in bf16}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (*bf16.values(), *fp32.values()))
+    print(f"{label}: first-token logits of a wave of prompts "
+          f"{[int(p) for p in plens]}, flash vs the reference einsum: fp32 "
+          f"rel {rel32:.3e} (tol {HF_WAVE_TOL:g}); each bf16 path against "
+          f"the fp32 einsum: flash {err['flash']:.3e}, einsum "
+          f"{err['reference']:.3e} (flash held to {HF_BF16_RATIO:g}x the "
+          f"einsum's); finite {finite}")
+    if not (finite and rel32 <= HF_WAVE_TOL
+            and err["flash"] <= HF_BF16_RATIO * err["reference"]):
+        raise AssertionError(f"{label}: flash and reference prefill logits "
+                             f"disagree")
+
+
+def _moe_mixtral(fa, dev, fields, root):
+    """(d) A Mixtral-8x7B-v0.1 model at full width, depth cut: one wave's
+    logits flash vs reference (`_moe_wave_check`), then its artifact
+    written by `save_converted` and served by `serve_gpt.main(["--hf-dir",
+    ...])` (bf16), the counters zeroed just before: the D-128 forward
+    twice a prefill wave (GQA 32 -> 8)."""
+    import gc
+
+    from tfde_tpu_torch import serve_gpt
+    from tfde_tpu_torch.models.convert import save_converted
+
+    out = os.path.join(root, "mixtral")
+    model = _moe_model(fields, torch.bfloat16, dev, MOE_MIXTRAL_DEPTH)
+    n_params = sum(p.numel() for p in model.parameters())
+    _moe_wave_check(model, dev, f"moe mixtral (depth {MOE_MIXTRAL_DEPTH})")
+    t0 = time.perf_counter()
+    save_converted(model, out, "mixtral")
+    write_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes = os.path.getsize(os.path.join(out, "params.npz"))
+    batchers = []
+    real = serve_gpt.ContinuousBatcher
+
+    def recording(*args, **kwargs):
+        batchers.append(real(*args, **kwargs))
+        return batchers[-1]
+
+    serve_gpt.ContinuousBatcher = recording
+    try:
+        torch.cuda.synchronize(dev)
+        _zero_counts(fa)
+        t0 = time.perf_counter()
+        done = serve_gpt.main(["--hf-dir", out, "--requests", "16",
+                               "--batch-size", "8", "--max-len", "1024",
+                               "--max-new-tokens", str(MOE_MIXTRAL_NEW)])
+        torch.cuda.synchronize(dev)
+        entry_s = time.perf_counter() - t0
+    finally:
+        serve_gpt.ContinuousBatcher = real
+    launches = fa.flash_forward.launches
+    at_128 = fa.flash_forward.by_head_dim[128]
+    waves = batchers[0].stats()["prefill_waves"]
+    print(f"moe mixtral: Mixtral-8x7B-v0.1 at its published widths, depth "
+          f"{MOE_MIXTRAL_DEPTH} of 32 (cut: 46.7 B parameters are 93 GB in "
+          f"bf16), {n_params:,} parameters from seed 0; save_converted wrote "
+          f"{nbytes / 1e9:.3f} GB in {write_s:.2f} s; serve_gpt.main "
+          f"--hf-dir (load, cast to bf16, 16 requests of 2-8 prompt tokens x "
+          f"{MOE_MIXTRAL_NEW}) {entry_s:.2f} s; flash_fwd launches {launches} "
+          f"(at head dim 128: {at_128}) over {waves} prefill waves")
+    if len(done) != 16 or any(len(t) != MOE_MIXTRAL_NEW for _, t in done):
+        raise AssertionError("moe mixtral: serve_gpt --hf-dir did not answer "
+                             f"16 requests of {MOE_MIXTRAL_NEW} tokens")
+    if not (launches > 0 and launches == at_128
+            and launches == MOE_MIXTRAL_DEPTH * waves):
+        raise AssertionError("moe mixtral: the D-128 flash forward did not "
+                             "run once a layer a prefill wave")
+    del batchers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_train_parity(fa, dev):
+    """(e) A small MoE GPT (fp32, head dim 64, 4 experts in block 1,
+    capacity 1.25, the z-loss on) takes one next_token_loss + AdamW step
+    on the card (flash kernels) and on the CPU: loss, ``moe_aux``,
+    ``moe_z``, every gradient (router and experts too), the updated
+    parameters."""
+    from tfde_tpu_torch.models.gpt import GPT, next_token_loss
+    from tfde_tpu_torch.training.optimizers import adamw
+    from tfde_tpu_torch.training.step import init_state
+
+    cfg = dict(vocab_size=97, hidden_size=256, depth=2, num_heads=4,
+               mlp_dim=512, max_position=64, dtype=torch.float32,
+               num_experts=4, router_z_loss_weight=1e-3, seed=3)
+    models = {"cuda": GPT(device=dev, **cfg), "cpu": GPT(device="cpu", **cfg)}
+    models["cpu"].load_state_dict(
+        {k: t.cpu() for k, t in models["cuda"].state_dict().items()})
+    ids = np.random.default_rng(5).integers(0, 97, (4, 40))
+    torch.cuda.synchronize(dev)
+    _zero_counts(fa)
+    got = {}
+    for where, model in models.items():
+        state = init_state(model, adamw(model, 1e-3, weight_decay=0.1))
+        loss, metrics = next_token_loss(model, torch.as_tensor(
+            ids, device=model.device))
+        loss.backward()
+        grads = {n: p.grad.cpu().clone() for n, p in
+                 model.named_parameters()}
+        state.apply_gradients()
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        got[where] = (float(loss.detach()),
+                      {k: float(metrics[k].detach())
+                       for k in ("moe_aux", "moe_z")}, grads, params)
+    launched = _counts(fa)
+    (l_gpu, m_gpu, g_gpu, p_gpu), (l_cpu, m_cpu, g_cpu, p_cpu) = \
+        got["cuda"], got["cpu"]
+    loss_rel = max([abs(l_gpu - l_cpu) / abs(l_cpu)]
+                   + [abs(m_gpu[k] - v) / abs(v) for k, v in m_cpu.items()])
+    grad_rel = _grads_rel(g_gpu, g_cpu)
+    param_rel = _rel(torch.cat([p_gpu[n].flatten() for n in p_cpu]),
+                     torch.cat([p.flatten() for p in p_cpu.values()]))
+    print(f"moe train parity: fp32 MoE GPT (D=64, 4 experts in block 1, "
+          f"capacity 1.25, z-loss 1e-3), one next_token_loss + AdamW step, "
+          f"CUDA kernels vs CPU plain: loss {l_gpu:.6f} vs {l_cpu:.6f}, "
+          f"moe_aux/moe_z {m_gpu} vs {m_cpu} (worst rel {loss_rel:.3e}, tol "
+          f"1e-5), worst gradient rel {grad_rel:.3e} (tol 1e-4), updated "
+          f"params rel {param_rel:.3e} (tol 1e-4); launches fwd/dkv/dq "
+          f"{launched}")
+    if launched != (2, 2, 2):
+        raise AssertionError("moe train parity: the step did not run each "
+                             "flash kernel once a layer")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and param_rel <= 1e-4):
+        raise AssertionError("moe train parity: the card disagrees with the "
+                             "CPU")
+
+
+def _moe_gpt_lm(fa, dev):
+    """(e) `gpt_lm.main --moe 8` at GPT-2 small width (six MoE blocks of 8
+    gelu + bias experts, capacity 1.25), batch 8 x 1024, MOE_GL_STEPS
+    steps, in bf16 compute and again in fp32 on the same data and initial
+    weights: each flash kernel 12 times a step in both, every loss and
+    ``moe_aux`` finite, the cross-entropy (the loss less ``moe_aux``)
+    falling in both and the two runs' cross-entropies within
+    MOE_GL_CE_TOL step by step; then the layer's two layouts timed and
+    GL_PROFILED bf16 steps profiled."""
+    import functools
+    import gc
+
+    from tfde_tpu_torch import gpt_lm
+    from tfde_tpu_torch.data.datasets import synthetic_tokens
+
+    argv = ["--moe", "8", "--max-steps", str(MOE_GL_STEPS), *GL_ARGS]
+    runs = {}
+    real = gpt_lm.GPT2Small
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        history = []
+        gpt_lm.GPT2Small = functools.partial(real, dtype=dtype)
+        try:
+            state, ms, launches, step_fn = _gl_entry(
+                fa, dev, argv, f"moe gpt_lm {name}", history=history,
+                minus=("moe_aux",))
+        finally:
+            gpt_lm.GPT2Small = real
+        runs[name] = [h["loss"] - h["moe_aux"] for h in history]
+        experts = [b.moe.num_experts for b in state.model.decoder.blocks()
+                   if b.moe is not None]
+        aux = [h["moe_aux"] for h in history]
+        print(f"moe gpt_lm {name}: MoE blocks {len(experts)} of "
+              f"{state.model.depth} ({experts[0]} experts each); moe_aux a "
+              f"step {[round(a, 5) for a in aux]}; objective (the loss) a "
+              f"step {[round(h['loss'], 4) for h in history]}; {ms:.3f} ms "
+              f"a step beside the train phase's dense GPT-2 small at the "
+              f"same batch (its line above)")
+        want = (12 * MOE_GL_STEPS,) * 3
+        if launches != want or experts != [8] * 6:
+            raise AssertionError(f"moe gpt_lm {name}: launches {launches}, "
+                                 f"not {want}, or MoE blocks {experts}")
+        if not all(math.isfinite(a) and a > 0 for a in aux):
+            raise AssertionError(f"moe gpt_lm {name}: moe_aux not finite: "
+                                 f"{aux}")
+        if name == "fp32":
+            del state, step_fn
+            gc.collect()
+            torch.cuda.empty_cache()
+    gap = max(abs(a - b) for a, b in zip(runs["bf16"], runs["fp32"]))
+    print(f"moe gpt_lm: cross-entropy a step, bf16 vs fp32: largest "
+          f"difference {gap:.4f} (tol {MOE_GL_CE_TOL:g})")
+    if not gap <= MOE_GL_CE_TOL:
+        raise AssertionError("moe gpt_lm: the bf16 run's cross-entropy "
+                             "leaves the fp32 run's")
+    _moe_train_layouts(dev)
+    tokens = synthetic_tokens(256, 1024, vocab=state.model.vocab_size,
+                              seed=2)
+    nrng = np.random.default_rng(1)
+    batches = [torch.as_tensor(tokens[nrng.integers(0, 256, 8)], device=dev)
+               for _ in range(GL_PROFILED)]
+    _profile_train(lambda x: step_fn(state, (x,))[1]["loss"], batches, dev,
+                   ms, label="moe gpt_lm")
+    del state, step_fn
+
+
+def phase_moe(fa, dev):
+    """Mixture-of-Experts on the card (docstring, phase 20). Every artifact
+    lies under build/ and is removed at the end."""
+    import shutil
+
+    from tfde_tpu_torch.testing import FULL_WIDTH
+
+    print(f"moe on {_card()}")
+    _moe_layer(dev)
+    qwen = FULL_WIDTH["Qwen1.5-MoE-A2.7B"][1]
+    _moe_fp32(fa, dev, qwen)
+    _moe_bf16(fa, dev, qwen)
+    _hf_prefill_kernels(fa, dev, MOE_PREFILL)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"moe_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _moe_mixtral(fa, dev, FULL_WIDTH["Mixtral-8x7B-v0.1"][1], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _moe_train_parity(fa, dev)
+    _moe_gpt_lm(fa, dev)
+
+
 PHASES = ("kernels", "parity", "train_parity", "serve", "train", "dp",
           "lifecycle", "export", "resnet",
           "bert", "vit", "gpt_lm", "hf_serve", "prefix_paged",
-          "admission", "decoding", "router")
+          "admission", "decoding", "router", "moe")
 
 
 def main(argv=None) -> int:
@@ -5762,6 +6479,7 @@ def main(argv=None) -> int:
     run("admission", phase_admission, fa, dev)
     run("decoding", phase_decoding, fa, dev)
     run("router", phase_router, fa, dev)
+    run("moe", phase_moe, fa, dev)
     if len(phases) < len(PHASES):
         print(f"total {time.perf_counter() - t_start:.1f} s (phases "
               f"{','.join(phases)}; no result line)")

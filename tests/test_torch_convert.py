@@ -287,8 +287,7 @@ def test_artifact_config_and_unported_families(tmp_path):
     # raises, an unknown name is a TypeError, an unported family raises
     for edit, error, match in (
             ({"decode": True}, None, None),
-            ({"num_experts": 4, "family": "mixtral"}, NotImplementedError,
-             "num_experts"),
+            ({"quant": "int8"}, NotImplementedError, "quant"),
             ({"bogus": 1}, TypeError, "bogus"),
             ({"family": "bert"}, NotImplementedError, "bert")):
         with open(f"{out}/model_config.json", "w") as f:

@@ -99,7 +99,7 @@ def test_packed_refuses_the_sliding_window():
 
 @pytest.mark.parametrize("flag", [["--seq-parallel", "2"], ["--tensor", "2"],
                                   ["--pipeline", "2"],
-                                  ["--moe", "2"],
+                                  ["--schedule", "1f1b"],
                                   ["--fake-devices", "8"]])
 def test_unported_flags_stay_argparse_errors(flag, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -10,6 +10,8 @@ processes: `DeviceMesh`es with the JAX axis names in canonical order,
 laid over the ranks in order). The strategies' unported options raise.
 """
 
+import types
+
 import jax
 import pytest
 import torch
@@ -107,11 +109,19 @@ def test_unported_strategy_options_raise(kwargs, error):
                                 opt_sharding="replicated")
 
 
-#: the strategies not ported, and FSDPStrategy (ported on FSDP2) with the
-#: int8 gradient transport it does not take yet
+#: a mesh of one data rank and two expert ranks (an expert axis the port
+#: does not take yet), read as a strategy reads a mesh
+_TWO_EXPERTS = types.SimpleNamespace(mesh_dim_names=("data", "expert"),
+                                     shape=(1, 2))
+
+#: the strategies not ported, FSDPStrategy (ported on FSDP2) with the
+#: int8 gradient transport it does not take yet, and
+#: ExpertParallelStrategy (ported at an expert axis of 1) above one
+#: expert rank
 UNPORTED = {"FSDPStrategy": {"grad_transport": "int8"},
             "TensorParallelStrategy": {}, "SequenceParallelStrategy": {},
-            "ExpertParallelStrategy": {}, "PipelineParallelStrategy": {}}
+            "ExpertParallelStrategy": {"mesh": _TWO_EXPERTS},
+            "PipelineParallelStrategy": {}}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))

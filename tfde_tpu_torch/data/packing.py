@@ -103,13 +103,20 @@ def packed_next_token_loss(model, batch,
     (tokens, segment_ids): the shifted CE over in-segment positions only,
     with ``packed_accuracy`` and ``grad_weight``, the target count, so
     that accumulation and data parallelism reproduce the full-batch
-    update on unevenly packed microbatches. The GPT has no dropout, so
-    `generator` draws nothing."""
+    update on unevenly packed microbatches. A routed (MoE) GPT's losses
+    join the objective and the metrics as in `models.gpt.next_token_loss`.
+    The GPT has no dropout, so `generator` draws nothing."""
+    from tfde_tpu_torch.models.moe import sown_losses_by_name
+
     tokens, segment_ids = batch
-    logits = model(tokens, segment_ids=segment_ids)
+    sown = {}
+    logits = model(tokens, segment_ids=segment_ids, losses=sown)
     valid = valid_targets(segment_ids.to(torch.int32))
     labels = torch.where(valid, tokens[:, 1:].long(),
                          torch.full_like(tokens[:, 1:].long(), IGNORE_ID))
     loss, acc = masked_lm_loss(logits[:, :-1], labels, IGNORE_ID)
-    return loss, {"packed_accuracy": acc,
-                  "grad_weight": valid.float().sum()}
+    metrics = {"packed_accuracy": acc, "grad_weight": valid.float().sum()}
+    for name, total in sown_losses_by_name(sown).items():
+        loss = loss + total
+        metrics[name] = total
+    return loss, metrics

@@ -13,7 +13,11 @@ the flash forward runs again in the backward). `--packed` trims the
 corpus's rows to document lengths drawn by `default_rng(7)` and packs
 them (`data.packing`): the segment mask sends attention to the reference
 einsum, and the loss is `packed_next_token_loss`; it does not compose
-with `--sliding-window`.
+with `--sliding-window`. `--moe E` makes every second block's MLP an
+E-expert routed MoE (`models/moe.py`: top-2, capacity factor 1.25, gelu
++ bias experts) whose load-balance loss joins the objective and the
+logged metrics (``moe_aux``), under `ExpertParallelStrategy` at an expert
+axis of 1, as the JAX example picks it on one device.
 
 After training, `--generate N` samples N tokens after a 16-token prompt
 from the first two training rows (`inference.decode.generate`, the JAX
@@ -35,10 +39,13 @@ Runs on CUDA by default:
         --batch-size 4 --seq-len 16 --train-examples 64 --packed --rope
     python -m tfde_tpu_torch.gpt_lm --tiny --device cpu --max-steps 3 \\
         --batch-size 4 --seq-len 16 --train-examples 64 --generate 4 --beams 2
+    python -m tfde_tpu_torch.gpt_lm --moe 8 --seq-len 1024 --batch-size 8 \\
+        --max-steps 10
 
-The JAX example's strategies and other options (--seq-parallel,
---pipeline, --tensor, --moe, --fake-devices, ...) are not ported yet; an
-unknown flag is an error.
+The JAX example's other strategies and options (--seq-parallel,
+--pipeline, --tensor, --fake-devices, ...) are not ported yet; an unknown
+flag is an error (so `--moe` never meets `--pipeline` or
+`--seq-parallel`, which the JAX example refuses beside it).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from tfde_tpu_torch.export.generative import export_generate
 from tfde_tpu_torch.inference.beam import beam_search
 from tfde_tpu_torch.inference.decode import generate
 from tfde_tpu_torch.models.gpt import GPT2Small, gpt_tiny_test, next_token_loss
+from tfde_tpu_torch.parallel.strategies import ExpertParallelStrategy
 from tfde_tpu_torch.training.optimizers import (
     adamw, warmup_cosine_decay_schedule)
 from tfde_tpu_torch.training.step import init_state, make_custom_train_step
@@ -92,6 +100,10 @@ def main(argv=None):
                         help="each position attends the last N only")
     parser.add_argument("--remat", nargs="?", const="full", default=False,
                         choices=["full", "dots"])
+    parser.add_argument("--moe", type=int, default=0, metavar="E",
+                        help="experts per MoE block (every second block); "
+                             "ExpertParallelStrategy at an expert axis of "
+                             "1 (experts replicated)")
     parser.add_argument("--generate", type=int, default=0, metavar="N",
                         help="after training, sample N continuation tokens "
                              "from a training prompt (inference/decode.py)")
@@ -132,6 +144,8 @@ def main(argv=None):
         model_kw["num_kv_heads"] = args.kv_heads
     if args.sliding_window > 0:
         model_kw["sliding_window"] = args.sliding_window
+    if args.moe > 1:
+        model_kw["num_experts"] = args.moe
     model = (gpt_tiny_test if args.tiny else GPT2Small)(
         device=device, seed=args.seed, **model_kw)
     if not args.rope and args.seq_len > model.max_position:
@@ -154,9 +168,13 @@ def main(argv=None):
         warmup_steps=min(args.warmup_steps, max(args.max_steps - 1, 1)),
         decay_steps=args.max_steps)
     state = init_state(model, adamw(model, schedule, weight_decay=0.1))
+    # the JAX example's ExpertParallelStrategy over every device: one
+    # device here, an expert axis of 1 (more ranks raise, not ported)
+    strategy = ExpertParallelStrategy() if args.moe > 1 else None
     step_fn = make_custom_train_step(
         packed_next_token_loss if args.packed else next_token_loss,
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum, strategy=strategy,
+        state=None if strategy is None else state)
     generator = torch.Generator(device=device).manual_seed(1)
     arrays = (tokens,) if seg is None else (tokens, seg)
     nrng = np.random.default_rng(0)

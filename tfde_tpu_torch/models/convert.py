@@ -26,9 +26,10 @@ imported only there: the converters read the model object they are
 given.
 
 Families: gpt2, llama, mistral, gemma, gemma2, qwen2, qwen3, phi, phi3,
-neox, bigcode, opt, falcon. The JAX package's other families (bert,
-bert-classifier, t5, and the MoE families mixtral and qwen2-moe, which
-need `models/moe.py`) and its reverse direction (`*_to_hf`, `--reverse`)
+neox, bigcode, opt, falcon, and the MoE families mixtral and qwen2-moe
+(`models/moe.py`; both pin the dropless capacity E / k, as JAX does).
+The JAX package's other families (bert, bert-classifier, t5) and its
+reverse direction (`*_to_hf`, `--reverse`, the MoE families' included)
 are not ported yet (ROADMAP.md, queue 1 item 2). Known approximation, as in
 JAX: the Mlp's gelu is the tanh approximation, which is GPT-2's
 `gelu_new` exactly and differs from the erf gelu of NeoX and Falcon by
@@ -64,12 +65,12 @@ _FAMILIES = {
     "qwen3": ("Qwen3ForCausalLM", "qwen3_from_hf"),
     "phi3": ("Phi3ForCausalLM", "phi3_from_hf"),
     "gemma2": ("Gemma2ForCausalLM", "gemma2_from_hf"),
+    "mixtral": ("MixtralForCausalLM", "mixtral_from_hf"),
+    "qwen2-moe": ("Qwen2MoeForCausalLM", "qwen2moe_from_hf"),
 }
 
-#: the JAX package's families the port does not convert yet; the MoE
-#: ones load as a GPT whose `num_experts` raises NotImplementedError
-_UNPORTED_FAMILIES = ("bert", "bert-classifier", "t5", "mixtral",
-                      "qwen2-moe")
+#: the JAX package's families the port does not convert yet
+_UNPORTED_FAMILIES = ("bert", "bert-classifier", "t5")
 
 #: the `dtype` names an artifact records (numpy's names)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -252,7 +253,10 @@ def gpt2_from_hf(hf_model, dtype=None, device=None) -> Tuple[GPT, dict]:
     return _build(*_gpt2(hf_model), dtype, device)
 
 
-def _llama(hf_model):
+def _llama(hf_model, dense_mlp: bool = True):
+    """(GPT kwargs, flax params) of the LLaMA arrangement; without
+    `dense_mlp` the blocks get no `mlp` subtree (the routed families add
+    their `moe` subtree in its place)."""
     cfg = hf_model.config
     rope_scaling = _rope_scaling_tuple(
         getattr(cfg, "rope_scaling", None),
@@ -305,13 +309,30 @@ def _llama(hf_model):
                 "out": {"kernel": sd[h + "self_attn.o_proj.weight"].T
                         .reshape(heads, hd, hidden)},
             },
-            "mlp": {
+        }
+        if dense_mlp:
+            params["decoder"][f"block_{i}"]["mlp"] = {
                 "gate": {"kernel": sd[h + "mlp.gate_proj.weight"].T},
                 "fc1": {"kernel": sd[h + "mlp.up_proj.weight"].T},
                 "fc2": {"kernel": sd[h + "mlp.down_proj.weight"].T},
-            },
-        }
+            }
     return kwargs, params
+
+
+def _qkv_biases(hf_model, params: dict) -> None:
+    """Add the Qwen2 q/k/v biases to a `_llama` tree, in place."""
+    cfg = hf_model.config
+    heads = cfg.num_attention_heads
+    hd = getattr(cfg, "head_dim", None) or cfg.hidden_size // heads
+    kv = cfg.num_key_value_heads
+    sd = hf_model.state_dict()
+    pre = _prefix(sd, "model.")
+    for i in range(cfg.num_hidden_layers):
+        h = f"{pre}layers.{i}.self_attn."
+        attn = params["decoder"][f"block_{i}"]["attn"]
+        attn["query"]["bias"] = _np(sd[h + "q_proj.bias"]).reshape(heads, hd)
+        attn["key"]["bias"] = _np(sd[h + "k_proj.bias"]).reshape(kv, hd)
+        attn["value"]["bias"] = _np(sd[h + "v_proj.bias"]).reshape(kv, hd)
 
 
 def llama_from_hf(hf_model, dtype=None, device=None) -> Tuple[GPT, dict]:
@@ -483,17 +504,7 @@ def qwen2_from_hf(hf_model, dtype=None, device=None) -> Tuple[GPT, dict]:
         )
     kwargs, params = _llama(hf_model)
     kwargs["qkv_bias"] = True
-    heads = cfg.num_attention_heads
-    hd = getattr(cfg, "head_dim", None) or cfg.hidden_size // heads
-    kv = cfg.num_key_value_heads
-    sd = hf_model.state_dict()
-    pre = _prefix(sd, "model.")
-    for i in range(cfg.num_hidden_layers):
-        h = f"{pre}layers.{i}.self_attn."
-        attn = params["decoder"][f"block_{i}"]["attn"]
-        attn["query"]["bias"] = _np(sd[h + "q_proj.bias"]).reshape(heads, hd)
-        attn["key"]["bias"] = _np(sd[h + "k_proj.bias"]).reshape(kv, hd)
-        attn["value"]["bias"] = _np(sd[h + "v_proj.bias"]).reshape(kv, hd)
+    _qkv_biases(hf_model, params)
     return _build(kwargs, params, dtype, device)
 
 
@@ -1073,6 +1084,114 @@ def falcon_from_hf(hf_model, dtype=None, device=None) -> Tuple[GPT, dict]:
     return _build(kwargs, params, dtype, device)
 
 
+def _routed(hf_model, kwargs: dict, params: dict, e: int, k: int,
+            moe_of) -> None:
+    """Turn a `_llama(hf_model, dense_mlp=False)` tree into the routed
+    one, in place: every block's `moe` subtree from `moe_of(sd, h)` (h the
+    layer's prefix), and the MoE fields at the dropless capacity E / k."""
+    kwargs.update(num_experts=e, moe_every=1, experts_per_token=k,
+                  moe_capacity_factor=float(e) / k)
+    sd = _sd(hf_model)
+    pre = _prefix(sd, "model.")
+    for i in range(hf_model.config.num_hidden_layers):
+        params["decoder"][f"block_{i}"]["moe"] = moe_of(
+            sd, f"{pre}layers.{i}.")
+
+
+def _experts(sd, prefix: str, e: int, names) -> dict:
+    """{flax name: the [E, in, out] stack of the per-expert torch Linears
+    ([out, in]) `prefix + f"experts.{j}.{w}.weight"`} for (flax name, w)
+    in `names`."""
+    return {name: np.stack([sd[prefix + f"experts.{j}.{w}.weight"].T
+                            for j in range(e)])
+            for name, w in names}
+
+
+def qwen2moe_from_hf(hf_model, dtype=None, device=None) -> Tuple[GPT, dict]:
+    """(GPT, state_dict) from a transformers Qwen2MoeForCausalLM.
+
+    Qwen2-MoE = the Qwen2 attention arrangement (biased q/k/v beside
+    bias-free o/MLP) with EVERY layer's MLP routed, plus two deltas the
+    MoE layer grew for it: RAW top-k combine weights
+    (`moe_normalize_topk=False` when norm_topk_prob is off — the released
+    A2.7B config) and a dense SHARED expert beside the routed ones, its
+    output scaled by a learned sigmoid gate
+    (`moe_shared_expert_dim`). Conversion pins the no-drop capacity
+    (E/k) like Mixtral, making the converted forward exact."""
+    cfg = hf_model.config
+    if list(getattr(cfg, "mlp_only_layers", []) or []):
+        raise NotImplementedError(
+            f"mlp_only_layers {cfg.mlp_only_layers!r} (dense layers "
+            f"interleaved among MoE) is not supported — the released "
+            f"Qwen2-MoE configs route every layer"
+        )
+    if int(getattr(cfg, "decoder_sparse_step", 1)) != 1:
+        raise NotImplementedError(
+            f"decoder_sparse_step {cfg.decoder_sparse_step} != 1 is not "
+            f"supported"
+        )
+    if bool(getattr(cfg, "use_sliding_window", False)):
+        raise NotImplementedError(
+            "use_sliding_window=True is not supported (per-layer windows)"
+        )
+    kwargs, params = _llama(hf_model, dense_mlp=False)
+    _qkv_biases(hf_model, params)
+    kwargs.update(qkv_bias=True, mlp_dim=cfg.moe_intermediate_size,
+                  moe_normalize_topk=bool(getattr(cfg, "norm_topk_prob",
+                                                  False)),
+                  moe_shared_expert_dim=cfg.shared_expert_intermediate_size)
+
+    def moe(sd, h):
+        m = h + "mlp."
+        return {
+            "router": {"kernel": sd[m + "gate.weight"].T},
+            **_experts(sd, m, cfg.num_experts,
+                       (("experts_gate", "gate_proj"),
+                        ("experts_fc1", "up_proj"),
+                        ("experts_fc2", "down_proj"))),
+            **{name: {"kernel": sd[m + f"shared_expert.{proj}.weight"].T}
+               for name, proj in (("shared_gate", "gate_proj"),
+                                  ("shared_fc1", "up_proj"),
+                                  ("shared_fc2", "down_proj"))},
+            "shared_expert_gate": {
+                "kernel": sd[m + "shared_expert_gate.weight"].T}}
+
+    _routed(hf_model, kwargs, params, cfg.num_experts,
+            cfg.num_experts_per_tok, moe)
+    return _build(kwargs, params, dtype, device)
+
+
+def mixtral_from_hf(hf_model, dtype=None, device=None) -> Tuple[GPT, dict]:
+    """(GPT, state_dict) from a transformers MixtralForCausalLM — the
+    routed sparse-MoE LLaMA: every layer's MLP is a top-k gated expert
+    mixture (w1=gate, w3=up, w2=down per expert, silu-gated),
+    attention/norms are the LLaMA arrangement.
+
+    Maps to GPT(num_experts=E, moe_every=1, mlp_act='swiglu',
+    use_bias=False) over models/moe.MoEMlp with experts_gate beside
+    experts_fc1/fc2. Routing parity: both sides softmax the full router
+    logits, take top-k, and renormalize the kept gates; Mixtral drops NO
+    tokens, so conversion pins `moe_capacity_factor = E / k` — per-group
+    capacity C = m (every token could route to one expert), making the
+    converted forward exact; the port's layer reaches that capacity
+    without the JAX layer's O(m^2 E) one-hot (`models/moe.py`).
+    Fine-tuning configs can lower the factor; serving parity keeps it."""
+    cfg = hf_model.config
+    kwargs, params = _llama(hf_model, dense_mlp=False)
+    kwargs["sliding_window"] = getattr(cfg, "sliding_window", None)
+    e = cfg.num_local_experts
+
+    def moe(sd, h):
+        m = h + "block_sparse_moe."
+        return {"router": {"kernel": sd[m + "gate.weight"].T},
+                **_experts(sd, m, e, (("experts_gate", "w1"),
+                                      ("experts_fc1", "w3"),
+                                      ("experts_fc2", "w2")))}
+
+    _routed(hf_model, kwargs, params, e, cfg.num_experts_per_tok, moe)
+    return _build(kwargs, params, dtype, device)
+
+
 def _read_config(artifact_dir: str) -> dict:
     """The artifact's model_config.json as a dict."""
     with open(os.path.join(artifact_dir, "model_config.json")) as f:
@@ -1107,8 +1226,8 @@ def load_converted(artifact_dir: str, dtype: Optional[torch.dtype] = None,
     the recorded compute dtype (e.g. torch.float32 on the CPU).
 
     The recorded fields go to `GPT`: a field the port does not implement
-    raises NotImplementedError at a value other than its default (the MoE
-    families' `num_experts`), a name the JAX `GPT` lacks TypeError. JAX
+    raises NotImplementedError at a value other than its default (e.g.
+    `quant`), a name the JAX `GPT` lacks TypeError. JAX
     also records `decode`, its serving-mode switch (the flax cache
     collection): the port's decode is the `cache` argument of the
     forward, so it is dropped."""

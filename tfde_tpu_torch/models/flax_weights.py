@@ -21,8 +21,12 @@ numpy arrays — this module never imports flax or jax) goes through
 - BatchNorm `batch_stats` `mean` / `var` -> buffers `running_mean` /
   `running_var`
 - a raw `self.param` (`RAW_PARAMS`: ViT's `cls_token` [1, 1, E] and
-  `pos_embed` [1, S, E], BERT's `mlm_bias` [V]) -> a parameter of the
-  same name and shape
+  `pos_embed` [1, S, E], BERT's `mlm_bias` [V], and the MoE expert
+  stacks `experts_fc1` [E, d, f], `experts_fc2` [E, f, d],
+  `experts_gate` [E, d, f], `experts_b1` [E, 1, f], `experts_b2`
+  [E, 1, d]) -> a parameter of the same name and shape (the `moe`
+  subtree's `router`, `shared_gate`, `shared_fc1`, `shared_fc2` and
+  `shared_expert_gate` are Dense layers and transpose as any Dense)
 
 A Dense kernel after a flatten keeps its rows: the port's CNNs flatten
 in NHWC order, as flax does (`models/cnn.py`). A BatchNorm `scale` lands
@@ -46,7 +50,8 @@ from torch import nn
 
 #: the flax parameters made by `self.param` (no layer around them), kept
 #: under their own names and shapes
-RAW_PARAMS = ("cls_token", "pos_embed", "mlm_bias")
+RAW_PARAMS = ("cls_token", "pos_embed", "mlm_bias", "experts_fc1",
+              "experts_fc2", "experts_gate", "experts_b1", "experts_b2")
 
 
 def _convert(path: tuple, leaf) -> tuple:
@@ -101,11 +106,13 @@ def from_flax_params(params: Mapping,
 
 def to_flax_params(model: nn.Module) -> dict:
     """The inverse of `from_flax_params` for a model built from `Dense`,
-    `nn.Embedding`, `LayerNorm` and `RMSNorm` (`models/transformer.py`,
-    `models/gpt.py`): {module: {param: fp32 numpy array}} in flax's
-    layouts, the attention projections as DenseGeneral kernels ([E, H, D]
-    for query/key/value, [H, D, E] for out, their biases [H, D] and [E]).
-    Values are copied exactly (a bf16 weight widens to fp32)."""
+    `nn.Embedding`, `LayerNorm`, `RMSNorm` and `MoEMlp`
+    (`models/transformer.py`, `models/moe.py`, `models/gpt.py`): {module:
+    {param: fp32 numpy array}} in flax's layouts, the attention
+    projections as DenseGeneral kernels ([E, H, D] for query/key/value,
+    [H, D, E] for out, their biases [H, D] and [E]), the expert stacks as
+    they are. Values are copied exactly (a bf16 weight widens to fp32)."""
+    from tfde_tpu_torch.models.moe import MoEMlp
     from tfde_tpu_torch.models.transformer import (
         Dense, LayerNorm, MultiHeadAttention, RMSNorm)
 
@@ -137,6 +144,8 @@ def to_flax_params(model: nn.Module) -> dict:
             flax = {"scale": params["weight"], "bias": params["bias"]}
         elif isinstance(mod, RMSNorm):
             flax = {"scale": params["weight"]}
+        elif isinstance(mod, MoEMlp):
+            flax = params
         else:
             raise ValueError(f"to_flax_params has no flax layout for "
                              f"{type(mod).__name__} at {name!r}")

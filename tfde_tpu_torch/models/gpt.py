@@ -8,7 +8,11 @@ continue per row from the cache index) or rotary positions
 blocks of `models/transformer.py` (`norm` 'layer' | 'rms', `norm_style`,
 `mlp_act`, `use_bias`, `qkv_bias`, `qk_norm`, a decoupled `head_dim`,
 `attn_scale`, `attn_logit_cap`, grouped-query attention `num_kv_heads`,
-the sliding window `sliding_window`/`sliding_window_pattern`, `remat`),
+the sliding window `sliding_window`/`sliding_window_pattern`, `remat`,
+and the MoE fields `num_experts`, `moe_every`, `experts_per_token`,
+`moe_capacity_factor`, `moe_normalize_topk`, `moe_shared_expert_dim`,
+`router_z_loss_weight`: routed `models/moe.py` MLPs whose losses the
+forward returns through a `losses` dict),
 the final norm, and the head: tied, `x @ wte.T` in the compute dtype with
 fp32 logits (flax `Embed.attend`), or an untied `lm_head` Dense (with a
 bias under `head_bias`), then `final_logit_cap`'s fp32 softcap; sequence
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tfde_tpu_torch.models.moe import MoEMlp, sown_losses_by_name
 from tfde_tpu_torch.models.transformer import (
     Dense, Encoder, LayerNorm, RMSNorm)
 from tfde_tpu_torch.ops.losses import masked_lm_loss
@@ -44,13 +49,6 @@ from tfde_tpu_torch.utils.devices import resolve_device
 _UNPORTED = {
     "dropout_rate": 0.0,
     "fused_qkv": False,
-    "num_experts": 0,
-    "moe_every": 2,
-    "experts_per_token": 2,
-    "moe_capacity_factor": 1.25,
-    "moe_normalize_topk": True,
-    "moe_shared_expert_dim": None,
-    "router_z_loss_weight": 0.0,
     "paged_blocks": None,
     "kv_block": 16,
     "quant": None,
@@ -87,6 +85,12 @@ class GPT(nn.Module):
                  final_logit_cap: Optional[float] = None,
                  kv_quant: Optional[str] = None,
                  rolling_cache: bool = False,
+                 num_experts: int = 0, moe_every: int = 2,
+                 experts_per_token: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 moe_normalize_topk: bool = True,
+                 moe_shared_expert_dim: Optional[int] = None,
+                 router_z_loss_weight: float = 0.0,
                  device=None, seed: int = 0, **fields):
         super().__init__()
         for name, value in fields.items():
@@ -127,6 +131,13 @@ class GPT(nn.Module):
             tie_embeddings=tie_embeddings, attn_scale=attn_scale,
             attn_logit_cap=attn_logit_cap, final_logit_cap=final_logit_cap,
             kv_quant=kv_quant, rolling_cache=rolling_cache)
+        moe = dict(num_experts=num_experts, moe_every=moe_every,
+                   experts_per_token=experts_per_token,
+                   moe_capacity_factor=moe_capacity_factor,
+                   moe_normalize_topk=moe_normalize_topk,
+                   moe_shared_expert_dim=moe_shared_expert_dim,
+                   router_z_loss_weight=router_z_loss_weight)
+        self.config.update(moe)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.depth = depth
@@ -155,7 +166,8 @@ class GPT(nn.Module):
             rope_scaling=rope_scaling, rope_dim=rope_dim,
             num_kv_heads=num_kv_heads, qkv_bias=qkv_bias, qk_norm=qk_norm,
             attn_scale=attn_scale, attn_logit_cap=attn_logit_cap,
-            device=device)
+            device=device, **moe)
+        self.num_experts = num_experts
         self.lm_head = (None if tie_embeddings else
                         Dense(hidden_size, vocab_size, dtype, bias=head_bias,
                               device=device))
@@ -168,7 +180,13 @@ class GPT(nn.Module):
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
         for mod in self.modules():
-            if isinstance(mod, (Dense, nn.Embedding)):
+            if isinstance(mod, MoEMlp):
+                for w in mod.expert_weights():
+                    w.normal_(0.0, 0.02, generator=generator)
+                for b in (mod.experts_b1, mod.experts_b2):
+                    if b is not None:
+                        b.zero_()
+            elif isinstance(mod, (Dense, nn.Embedding)):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
@@ -182,12 +200,18 @@ class GPT(nn.Module):
     def cast_compute_weights_(self) -> "GPT":
         """Cast the matmul weights and embeddings to the compute dtype
         once, in place, for serving. Every forward casts them to that dtype
-        anyway, so the values are the same; the norms stay fp32.
-        Training keeps the fp32 master weights and never calls this."""
+        anyway, so the values are the same; the norms stay fp32, and so do
+        the fp32 Dense layers (an MoE router and shared-expert gate: each
+        Dense keeps its own dtype) and the expert biases
+        (`MoEMlp.cast_compute_weights_`). Training keeps the fp32 master
+        weights and never calls this."""
         for mod in self.modules():
-            if isinstance(mod, (Dense, nn.Embedding)):
+            if isinstance(mod, MoEMlp):
+                mod.cast_compute_weights_()
+            elif isinstance(mod, (Dense, nn.Embedding)):
+                dtype = mod.dtype if isinstance(mod, Dense) else self.dtype
                 for p in mod.parameters(recurse=False):
-                    p.data = p.data.to(self.dtype)
+                    p.data = p.data.to(dtype)
         return self
 
     def set_attn_impl(self, impl: str) -> None:
@@ -197,7 +221,8 @@ class GPT(nn.Module):
             block.attn.attn_impl = impl
 
     def hidden(self, input_ids: torch.Tensor, cache=None,
-               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+               segment_ids: Optional[torch.Tensor] = None,
+               losses: Optional[dict] = None) -> torch.Tensor:
         """[B, S] ids -> [B, S, E] final-norm states (fp32). With a
         cache, positions continue from `cache.index` (an int, or a [B]
         tensor of per-row positions) and the index advances by S.
@@ -241,7 +266,7 @@ class GPT(nn.Module):
             pe = self.wpe(positions.clamp(max=n - 1)).masked_fill(
                 (positions >= n)[..., None], float("nan"))
             x = x + pe.to(self.dtype)
-        x = self.decoder(x, cache, mask=mask)
+        x = self.decoder(x, cache, mask=mask, losses=losses)
         if cache is not None:
             cache.advance(s)
         return x
@@ -261,8 +286,13 @@ class GPT(nn.Module):
         return logits
 
     def forward(self, input_ids: torch.Tensor, cache=None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.head(self.hidden(input_ids, cache, segment_ids))
+                segment_ids: Optional[torch.Tensor] = None,
+                losses: Optional[dict] = None) -> torch.Tensor:
+        """[B, S] ids -> [B, S, vocab] fp32 logits (`hidden`, then
+        `head`). Given a `losses` dict, each MoE block appends its losses
+        to it (`models.moe`: ``moe_aux``, and ``moe_z`` when the z-loss
+        is on), one scalar a block under each name."""
+        return self.head(self.hidden(input_ids, cache, segment_ids, losses))
 
 
 GPT2Small = functools.partial(
@@ -277,13 +307,20 @@ def gpt_tiny_test(**kw) -> GPT:
 
 def next_token_loss(model: GPT, batch, generator: Optional[torch.Generator]
                     = None):
-    """(loss, {"next_token_accuracy": acc}) for `make_custom_train_step`:
-    the CE of logits[:, :-1] against tokens[:, 1:] (predict token t+1 from
-    the prefix up to t). `batch` is the [B, S] token ids or a 1-tuple of
-    them. The model has no dropout, so `generator` draws nothing; the
-    JAX package's MoE sown losses have no counterpart (experts raise at
-    construction)."""
+    """(loss, metrics) for `make_custom_train_step`: the CE of
+    logits[:, :-1] against tokens[:, 1:] (predict token t+1 from the
+    prefix up to t), plus every MoE loss the model returns (`models.moe`:
+    the load-balance ``moe_aux`` and the router z-loss ``moe_z``), each
+    also reported summed over the layers as a metric beside
+    ``next_token_accuracy``, as the JAX `next_token_loss` collects the
+    sown losses. `batch` is the [B, S] token ids or a 1-tuple of them.
+    The model has no dropout, so `generator` draws nothing."""
     (tokens,) = batch if isinstance(batch, tuple) else (batch,)
-    logits = model(tokens)
+    sown = {}
+    logits = model(tokens, losses=sown)
     loss, acc = masked_lm_loss(logits[:, :-1], tokens[:, 1:])
-    return loss, {"next_token_accuracy": acc}
+    metrics = {"next_token_accuracy": acc}
+    for name, total in sown_losses_by_name(sown).items():
+        loss = loss + total
+        metrics[name] = total
+    return loss, metrics

@@ -17,7 +17,9 @@ MLP side by side: Phi, Falcon-7B), 'parallel2' (a parallel residual with
 two norms: NeoX, Falcon-40B) and 'sandwich' (each sublayer normed on both
 sides: Gemma-2), and `dropout_rate`: dropout on the attention output
 after `out` and on the MLP output after `fc2`, in training only, drawn
-from the `generator` the forward is given. Every other JAX field raises
+from the `generator` the forward is given; the MoE fields (`MOE_FIELDS`,
+`moe_every`): routed expert MLPs (`models/moe.py`) whose losses reach
+the caller through a `losses` dict. Every other JAX field raises
 NotImplementedError when set away from its default (`_UNPORTED`).
 
 The dtype policy is the JAX one: parameters in fp32, matmuls in the
@@ -62,13 +64,18 @@ _UNPORTED = {
     "paged_blocks": None,
     "kv_block": 16,
     "kv_quant": None,
+}
+
+#: the MoE fields of the JAX `TransformerBlock` (`Encoder` and `GPT` add
+#: `moe_every`), with their defaults; `num_experts` > 0 makes the block's
+#: MLP a `models.moe.MoEMlp`
+MOE_FIELDS = {
     "num_experts": 0,
     "experts_per_token": 2,
     "moe_capacity_factor": 1.25,
     "moe_normalize_topk": True,
     "moe_shared_expert_dim": None,
     "router_z_loss_weight": 0.0,
-    "moe_every": 2,
 }
 
 #: the `MultiHeadAttention` fields `TransformerBlock` and `Encoder` pass
@@ -170,10 +177,15 @@ def init_flax_(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initialisers on `model`'s layers: lecun_normal
     kernels for `Dense` and convolutions (`cnn._init_flax_`), normal(0,
     1 / sqrt(E)) embedding tables (flax `default_embed_init`), zero
-    biases, unit LayerNorm scales."""
+    biases, unit LayerNorm scales, lecun_normal expert stacks
+    (`MoEMlp.init_flax_`)."""
+    from tfde_tpu_torch.models.moe import MoEMlp
+
     _init_flax_(model, generator, (Dense, nn.Linear, nn.Conv2d))
     for mod in model.modules():
-        if isinstance(mod, nn.Embedding):
+        if isinstance(mod, MoEMlp):
+            mod.init_flax_(generator)
+        elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
                                generator=generator)
         elif isinstance(mod, LayerNorm):
@@ -545,7 +557,11 @@ class TransformerBlock(nn.Module):
       ln_mlp_post(MLP(ln_mlp(x))) (Gemma-2).
 
     The attention fields (`ATTN_FIELDS`) go to `MultiHeadAttention`,
-    `mlp_act` and `use_bias` to `Mlp` (and `use_bias` to the attention)."""
+    `mlp_act` and `use_bias` to `Mlp` (and `use_bias` to the attention).
+    With `num_experts` > 0 (`MOE_FIELDS`) the MLP is a routed
+    `models.moe.MoEMlp` named `moe` (gelu + bias or bias-free swiglu
+    experts, as JAX refuses other arrangements); its losses go into the
+    `losses` dict the forward is given."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int,
                  mlp_dim: int, dtype: torch.dtype, attn_impl: str = "auto",
@@ -556,7 +572,8 @@ class TransformerBlock(nn.Module):
                  device=None, **fields):
         super().__init__()
         attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
-        if fields.get("num_experts", 0) > 0 and (mlp_act, use_bias) not in (
+        moe = {k: fields.pop(k, v) for k, v in MOE_FIELDS.items()}
+        if moe["num_experts"] > 0 and (mlp_act, use_bias) not in (
                 ("gelu", True), ("swiglu", False)):
             raise NotImplementedError(
                 "MoE expert MLPs are gelu+bias (Switch/GShard) or "
@@ -578,19 +595,36 @@ class TransformerBlock(nn.Module):
                                        use_bias=use_bias, ln_eps=ln_eps,
                                        device=device, **attn_fields)
         self.ln_mlp = None if norm_style == "parallel" else ln()
-        self.mlp = Mlp(embed, mlp_dim, dtype, dropout_rate=dropout_rate,
-                       act=mlp_act, use_bias=use_bias, device=device)
+        if moe["num_experts"] > 0:
+            from tfde_tpu_torch.models.moe import MoEMlp
+
+            self.mlp = None
+            self.moe = MoEMlp(
+                embed, moe["num_experts"], mlp_dim,
+                experts_per_token=moe["experts_per_token"],
+                capacity_factor=moe["moe_capacity_factor"],
+                normalize_topk=moe["moe_normalize_topk"],
+                shared_expert_dim=moe["moe_shared_expert_dim"],
+                act=mlp_act, use_bias=use_bias,
+                router_z_loss_weight=moe["router_z_loss_weight"],
+                dropout_rate=dropout_rate, dtype=dtype, device=device)
+        else:
+            self.moe = None
+            self.mlp = Mlp(embed, mlp_dim, dtype, dropout_rate=dropout_rate,
+                           act=mlp_act, use_bias=use_bias, device=device)
         if norm_style == "sandwich":
             self.ln_attn_post, self.ln_mlp_post = ln(), ln()
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                losses: Optional[dict] = None) -> torch.Tensor:
         def attn(y):
             return self.attn(y, cache, layer, mask, train, generator)
 
         def mlp(y):
+            if self.moe is not None:
+                return self.moe(y, train, generator, losses)
             return self.mlp(y, train, generator)
 
         def norm(ln, y):
@@ -647,7 +681,13 @@ class Encoder(nn.Module):
     `window` reaches every block (`window_pattern='all'`) or the even ones
     (`'alternate'`: the odd blocks attend in full, the Gemma-2
     interleave). `remat` (`remat_mode`) checkpoints each block in training
-    with `torch.utils.checkpoint` (non-reentrant); decode refuses it."""
+    with `torch.utils.checkpoint` (non-reentrant); decode refuses it.
+
+    With `num_experts` > 0 block i is an MoE block when i % `moe_every` ==
+    `moe_every` - 1 (every other block by default, the GShard
+    convention). A forward given a `losses` dict collects every MoE
+    block's losses in it (`models.moe`), under remat too: a checkpointed
+    block returns them beside its output."""
 
     def __init__(self, depth: int, embed: int, num_heads: int,
                  head_dim: int, mlp_dim: int, dtype: torch.dtype,
@@ -656,10 +696,12 @@ class Encoder(nn.Module):
                  norm: str = "layer", mlp_act: str = "gelu",
                  use_bias: bool = True, dropout_rate: float = 0.0,
                  window: Optional[int] = None, window_pattern: str = "all",
-                 remat=False, rolling_cache: bool = False, device=None,
-                 **fields):
+                 remat=False, rolling_cache: bool = False,
+                 moe_every: int = 2, device=None, **fields):
         super().__init__()
         attn_fields = {k: fields.pop(k) for k in ATTN_FIELDS if k in fields}
+        moe = {k: fields.pop(k) for k in MOE_FIELDS if k in fields}
+        experts = moe.pop("num_experts", 0)
         check_unported("Encoder", fields)
         _check_norm_style(norm_style)
         if window_pattern not in ("all", "alternate"):
@@ -670,13 +712,15 @@ class Encoder(nn.Module):
         self.remat = remat_mode(remat)
         for i in range(depth):
             windowed = window_pattern == "all" or i % 2 == 0
+            is_moe = experts > 0 and i % moe_every == moe_every - 1
+            block_moe = dict(moe, num_experts=experts) if is_moe else {}
             self.add_module(f"block_{i}", TransformerBlock(
                 embed, num_heads, head_dim, mlp_dim, dtype,
                 attn_impl=attn_impl, ln_eps=ln_eps, causal=causal,
                 norm_style=norm_style, norm=norm, mlp_act=mlp_act,
                 use_bias=use_bias, dropout_rate=dropout_rate,
                 window=window if windowed else None, device=device,
-                **attn_fields))
+                **attn_fields, **block_moe))
         self.ln_final = (None if norm_style == "post"
                          else make_norm(norm, embed, ln_eps, device))
 
@@ -685,8 +729,8 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor, cache=None,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                losses: Optional[dict] = None) -> torch.Tensor:
         if cache is not None and self.remat is not None:
             raise ValueError(
                 "decode does not compose with remat: there is no backward "
@@ -694,12 +738,13 @@ class Encoder(nn.Module):
                 "remat-trained model)")
         for i, block in enumerate(self.blocks()):
             if self.remat is not None and torch.is_grad_enabled():
-                x = self._checkpointed(block, x, mask, train, generator)
+                x = self._checkpointed(block, x, mask, train, generator,
+                                       losses)
             else:
-                x = block(x, cache, i, mask, train, generator)
+                x = block(x, cache, i, mask, train, generator, losses)
         return x if self.ln_final is None else self.ln_final(x)
 
-    def _checkpointed(self, block, x, mask, train, generator):
+    def _checkpointed(self, block, x, mask, train, generator, losses=None):
         """`block` under `torch.utils.checkpoint`: its activations are
         recomputed in the backward. Dropout draws from `generator`, whose
         state checkpoint's `preserve_rng_state` (torch's default
@@ -708,22 +753,42 @@ class Encoder(nn.Module):
         forward and again in the recompute, so both draw the same masks,
         and `generator` then moves on to where the forward left it, as if
         the block had drawn from it. The model draws from no default
-        generator, so checkpoint preserves none."""
+        generator, so checkpoint preserves none. An MoE block's losses
+        (when `losses` is given) are returned beside its output, so the
+        recompute appends to a dict of its own and not to `losses`."""
         kw = dict(use_reentrant=False, preserve_rng_state=False)
         if self.remat == "dots":
             kw["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts, _dots_policy)
+        names = []
+        sow = losses is not None and block.moe is not None
+
+        def body(h, g):
+            if not sow:
+                return block(h, None, 0, mask, train, g)
+            sown = {}
+            out = block(h, None, 0, mask, train, g, sown)
+            names[:] = [(name, len(vals)) for name, vals in sown.items()]
+            return (out, *(t for vals in sown.values() for t in vals))
+
         if not (train and self.dropout_rate > 0 and generator is not None):
-            return checkpoint(block, x, None, 0, mask, train, generator, **kw)
-        start, end = generator.get_state(), []
+            out = checkpoint(body, x, generator, **kw)
+        else:
+            start, end = generator.get_state(), []
 
-        def run(h):
-            g = torch.Generator(device=generator.device)
-            g.set_state(start)
-            out = block(h, None, 0, mask, train, g)
-            end.append(g.get_state())
+            def run(h):
+                g = torch.Generator(device=generator.device)
+                g.set_state(start)
+                out = body(h, g)
+                end.append(g.get_state())
+                return out
+
+            out = checkpoint(run, x, **kw)
+            generator.set_state(end[0])
+        if not sow:
             return out
-
-        x = checkpoint(run, x, **kw)
-        generator.set_state(end[0])
-        return x
+        out, *flat = out
+        for name, count in names:
+            losses.setdefault(name, []).extend(flat[:count])
+            flat = flat[count:]
+        return out

@@ -18,10 +18,14 @@ wrapped: whole on every rank for the mirrored strategies, sliced over the
 parameters themselves with FSDP2 (`torch.distributed.fsdp.fully_shard`)
 and the optimizer's state with them.
 
+`ExpertParallelStrategy` is ported at an ``expert`` axis of 1 (every
+parameter replicated, as `gpt_lm --moe` runs on one device).
+
 Not ported yet, and raising NotImplementedError: the int8 gradient
 transport (``grad_transport='int8'``), ZeRO's packed weight-update
 sharding (``opt_sharding='shard'``, the JAX `parallel/zero.py` layout),
-and the other strategies (tensor, sequence, expert, pipeline).
+an ``expert`` axis above 1, and the other strategies (tensor, sequence,
+pipeline).
 They come with the scale-out slice (ROADMAP, queue 1, "Then"). The port
 does not read ``$TFDE_GRAD_TRANSPORT`` or ``$TFDE_OPT_SHARDING`` either:
 its only transport is fp32.
@@ -280,8 +284,31 @@ class SequenceParallelStrategy(_Unported):
     """Sequence (ring) parallelism; not ported."""
 
 
-class ExpertParallelStrategy(_Unported):
-    """Expert parallelism for MoE layers; not ported."""
+class ExpertParallelStrategy(Strategy):
+    """Expert parallelism (JAX :351) at an ``expert`` axis of 1: the mesh
+    {data: `data`, expert: the rest}, the batch split over ``data`` and
+    every parameter replicated, the MoE expert stacks among them — the
+    mirrored strategies' DDP step. That is the layout `gpt_lm --moe` takes
+    on one device, and on `data` = every rank. An ``expert`` axis above 1
+    (the expert stacks sharded over it, tokens crossing to their experts
+    by an all-to-all) is not ported yet and raises NotImplementedError."""
+
+    def __init__(self, mesh: Optional[Mesh] = None, data: int = 1,
+                 grad_transport=None, opt_sharding=None):
+        self._data = data
+        super().__init__(mesh, grad_transport=grad_transport,
+                         opt_sharding=opt_sharding)
+        expert = self._axis_sizes().get("expert", 1)
+        if expert > 1:
+            raise NotImplementedError(
+                f"ExpertParallelStrategy with an expert axis of {expert} "
+                f"(the expert stacks sharded, tokens exchanged by an "
+                f"all-to-all) is not ported yet: it comes with the "
+                f"scale-out slice (ROADMAP.md, queue 1 item 6); pass "
+                f"data=<every rank> for an expert axis of 1")
+
+    def _default_mesh(self) -> Mesh:
+        return mesh_lib.make_mesh({"data": self._data, "expert": -1})
 
 
 class PipelineParallelStrategy(_Unported):

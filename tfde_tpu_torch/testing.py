@@ -12,10 +12,15 @@ picked free. Every group is destroyed in a `finally`.
 
 `FULL_WIDTH` and `FIELD_GROUPS` are the converted-checkpoint
 configurations that the CPU tests and `chip_smoke.py`'s hf_serve phase
-share.
+share (the MoE entries, Qwen1.5-MoE-A2.7B and Mixtral-8x7B-v0.1, its moe
+phase). `MoEClassifier` and `moe_encoder_train` are the MoE `Encoder`
+under `make_train_step` that the MoE tests run in one process and on
+two gloo ranks.
 
 `live_kv_bytes` counts a batcher's live KV cells from its tensors, the
-figure its KV ledger must report.
+figure its KV ledger must report. `seeded_params` fills a flax model's
+parameter shapes with seeded numpy weights, so a test holding the port
+to a JAX model skips compiling the model's `init`.
 
 `ADMISSION_SCENARIOS` / `admission_scenario` are the JAX package's
 admission tests written against the batcher API both packages share:
@@ -106,6 +111,36 @@ def one_thread():
     one intra-op torch thread."""
     with torch_threads(1):
         yield
+
+
+def seeded_params(shapes: dict, seed: int, std: Optional[float] = None
+                  ) -> dict:
+    """Numpy weights from `seed` for a nested dict of leaves that have a
+    `.shape` (a flax model's params as `jax.eval_shape` of its `init`
+    gives them): a JAX test's weights without compiling `init`. Leaves
+    named ``scale`` are ones, ``bias`` (and the expert biases ``b1``,
+    ``b2``) N(0, 0.02^2); every other leaf N(0, std^2), or with `std`
+    None N(0, 1 / fan-in) for a fan-in of its next-to-last dim."""
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        out = {}
+        for name, leaf in sorted(tree.items()):
+            if isinstance(leaf, dict):
+                out[name] = fill(leaf)
+                continue
+            shape = tuple(leaf.shape)
+            if name == "scale":
+                out[name] = np.ones(shape, np.float32)
+                continue
+            if name == "bias" or name.endswith(("_b1", "_b2")):
+                sd = 0.02
+            else:
+                sd = std if std is not None else shape[-2] ** -0.5
+            out[name] = (rng.standard_normal(shape) * sd).astype(np.float32)
+        return out
+
+    return fill(shapes)
 
 
 # -- admission scenarios ------------------------------------------------------
@@ -375,6 +410,21 @@ FULL_WIDTH = {
         tie_embeddings=True, embed_scale=2304 ** 0.5, ln_eps=1e-6,
         sliding_window=4096, sliding_window_pattern="alternate",
         attn_scale=256 ** -0.5, attn_logit_cap=50.0, final_logit_cap=30.0)),
+    # the converters' fields (qwen2moe_from_hf, mixtral_from_hf): every
+    # layer routed, the dropless capacity E / k
+    "Qwen1.5-MoE-A2.7B": ("qwen2-moe", dict(
+        vocab_size=151936, hidden_size=2048, depth=24, num_heads=16,
+        num_kv_heads=16, mlp_dim=1408, max_position=8192, position="rope",
+        rope_theta=1000000.0, norm="rms", mlp_act="swiglu", use_bias=False,
+        qkv_bias=True, tie_embeddings=False, ln_eps=1e-6, num_experts=60,
+        moe_every=1, experts_per_token=4, moe_capacity_factor=15.0,
+        moe_normalize_topk=False, moe_shared_expert_dim=5632)),
+    "Mixtral-8x7B-v0.1": ("mixtral", dict(
+        vocab_size=32000, hidden_size=4096, depth=32, num_heads=32,
+        num_kv_heads=8, mlp_dim=14336, max_position=32768, position="rope",
+        rope_theta=1000000.0, norm="rms", mlp_act="swiglu", use_bias=False,
+        tie_embeddings=False, ln_eps=1e-5, num_experts=8, moe_every=1,
+        experts_per_token=2, moe_capacity_factor=4.0)),
 }
 
 _SMALL = dict(vocab_size=256, depth=2, max_position=128)
@@ -961,6 +1011,70 @@ def train_bert(state_dict: dict, batches: Sequence[tuple], schedule: tuple,
     return {"history": history,
             "state_dict": {k: v.detach().cpu().numpy().copy()
                            for k, v in model.state_dict().items()}}
+
+
+class MoEClassifier(torch.nn.Module):
+    """The classifier of the JAX MoE tests (`tests/test_moe.py`
+    `_run_encoder`): [N, 64] -> [N, 8, 8] -> Dense `embed` (16) -> an
+    `Encoder` `encoder` (2 blocks, 2 heads of 8, MLP 32, fp32) whose
+    second block routes over 4 experts -> the mean over the 8 positions
+    -> Dense `head` (10 logits). Its forward takes the classification
+    step's `losses` dict, which the MoE block fills."""
+
+    def __init__(self, device="cpu"):
+        from tfde_tpu_torch.models.transformer import Dense, Encoder
+
+        super().__init__()
+        self.embed = Dense(8, 16, torch.float32, device=device)
+        self.encoder = Encoder(2, 16, 2, 8, 32, torch.float32,
+                               num_experts=4, moe_every=2, device=device)
+        self.head = Dense(16, 10, torch.float32, device=device)
+
+    def forward(self, x, train: bool = False, generator=None, group=None,
+                losses: Optional[dict] = None):
+        x = self.embed(x.reshape(x.shape[0], 8, 8).float())
+        x = self.encoder(x, train=train, generator=generator, losses=losses)
+        return self.head(x.mean(dim=1))
+
+
+def moe_encoder_train(state_dict: dict, batches: Sequence[tuple], lr: float,
+                      strategy: str = "MultiWorkerMirroredStrategy",
+                      data: int = 1) -> dict:
+    """`MoEClassifier` from `state_dict` (numpy arrays), one
+    `make_train_step` sgd(`lr`) step a global batch under `strategy`
+    ('MultiWorkerMirroredStrategy', or 'ExpertParallelStrategy' with
+    ``data=data``) over the process group (one rank when there is none).
+    Returns the per-step metrics and the final state_dict as numpy."""
+    from tfde_tpu_torch.parallel import strategies
+    from tfde_tpu_torch.training.step import init_state, make_train_step
+
+    model = MoEClassifier()
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                           for k, v in state_dict.items()})
+    state = init_state(model, _optimizer(model, "sgd", lr))
+    strat = (strategies.ExpertParallelStrategy(data=data)
+             if strategy == "ExpertParallelStrategy"
+             else strategies.MultiWorkerMirroredStrategy())
+    step = make_train_step(strat, state)
+    history = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return {"history": history,
+            "state_dict": {k: v.detach().cpu().numpy().copy()
+                           for k, v in model.state_dict().items()}}
+
+
+def expert_axis_refusal() -> str:
+    """The NotImplementedError message of `ExpertParallelStrategy()` (an
+    expert axis of every rank) on the process group; '' if it builds."""
+    from tfde_tpu_torch.parallel import strategies
+
+    try:
+        strategies.ExpertParallelStrategy()
+    except NotImplementedError as e:
+        return str(e)
+    return ""
 
 
 def profile_steps(run: Callable, batches: Sequence, device) -> dict:

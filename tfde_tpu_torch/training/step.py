@@ -23,6 +23,7 @@ device, and the step uses it as it is.
 from __future__ import annotations
 
 import contextlib
+import inspect
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -32,6 +33,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from tfde_tpu_torch.data.device import Placed
+from tfde_tpu_torch.models.moe import sown_losses_by_name
 from tfde_tpu_torch.ops import losses, metrics as metrics_lib
 from tfde_tpu_torch.parallel.strategies import Strategy, check_ported
 from tfde_tpu_torch.training.optimizers import Schedule
@@ -214,7 +216,9 @@ def make_train_step(strategy: Strategy, state: TrainState,
     the same on every rank: ``loss`` and ``accuracy`` (one all-reduce of
     the two), and ``grad_norm``, the global norm of the averaged gradient.
     Metric values are detached tensors on the model's device: reading them
-    is the caller's sync.
+    is the caller's sync. A model whose forward takes a `losses` dict (an
+    MoE `Encoder` inside: `models.moe`) is given one, and every loss it
+    returns there joins the objective (the JAX `_forward`'s sown losses).
 
     The update's layout is the strategy's (`Strategy.shard_update`):
     replicated, or ZeRO-1 under `ParameterServerStrategy`. Only
@@ -232,14 +236,18 @@ def make_train_step(strategy: Strategy, state: TrainState,
     group = strategy.data_group
     params = [p for p in state.model.parameters() if p.requires_grad]
     device = params[0].device
+    sows = "losses" in inspect.signature(state.model.forward).parameters
 
     def step(state: TrainState, batch: Tuple, generator:
              Optional[torch.Generator] = None):
         images, labels = _to_device(strategy, batch, device)
         state.tx.zero_grad(set_to_none=True)
+        sown = {}
         logits = module(images, train=True, generator=generator,
-                        group=group)
+                        group=group, **({"losses": sown} if sows else {}))
         loss = losses.sparse_categorical_crossentropy(logits, labels)
+        for total in sown_losses_by_name(sown).values():
+            loss = loss + total
         loss.backward()
         grad_norm = global_norm([p.grad for p in params])
         pair = torch.stack([loss.detach(),
